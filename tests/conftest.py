@@ -23,6 +23,12 @@ if "xla_force_host_platform_device_count" not in _flags:
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips in its body "
+        "where torch sees none (run on the card with `pytest -m gpu`)")
+
+
 @pytest.fixture(scope="session")
 def make_model_mesh():
     """Factory fixture: ``make_model_mesh(k)`` returns a 1-D mesh with a
