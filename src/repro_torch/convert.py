@@ -9,6 +9,11 @@ and on this package's alike, without importing either's framework.
 `sparse_linear_from_arrays` rebuilds this package's `CSRdtANS`,
 `PackedMatrix` and `SparseLinear` from such a dict. No bit is re-encoded:
 the rebuilt stream is the reference's stream.
+
+`packed_sell_to_arrays` / `packed_rgcsr_to_arrays` do the same for a
+packed uncompressed comparator (`PackedSELL`, `PackedRGCSR`) of either
+package, and the ``*_from_arrays`` pair rebuilds this package's pack and
+uploads it.
 """
 
 from __future__ import annotations
@@ -19,7 +24,10 @@ from repro_torch.core.csr_dtans import CSRdtANS
 from repro_torch.core.dtans_vec import StackedTables
 from repro_torch.core.params import DtansParams
 from repro_torch.core.tables import CodingTable
+from repro_torch.kernels import rgcsr_spmv, sell_spmv
 from repro_torch.kernels.pack import check_device, pack_matrix, to_device
+from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
+from repro_torch.kernels.sell_spmv import PackedSELL
 from repro_torch.serving.sparse_linear import SparseLinear
 
 _PARAM_FIELDS = ("w_bits", "k_bits", "l", "o", "f", "m_bits")
@@ -29,6 +37,8 @@ _TABLE_ARRAYS = ("slot_symbol", "slot_digit", "slot_base", "slot_is_esc")
 _TABLE_SCALARS = ("esc_first", "esc_base", "esc_raw_bits", "K", "M",
                   "used_slots")
 _LAYER_SCALARS = ("d_in", "d_out", "dense_bytes", "baseline_bytes")
+_SELL_ARRAYS = ("indices", "values")
+_RGCSR_ARRAYS = ("deltas", "values", "nnz")
 
 
 def sparse_linear_to_arrays(sl) -> dict:
@@ -102,3 +112,44 @@ def sparse_linear_from_arrays(arrays: dict, *, device="cuda"
                                      for f in _LAYER_SCALARS})
     to_device(sl.packed, dev)
     return sl
+
+
+def _pack_to_arrays(p, fields: tuple, rows_field: str) -> dict:
+    out = {f: np.asarray(getattr(p, f)) for f in fields}
+    out["shape"] = np.asarray(p.shape, dtype=np.int64)
+    out[rows_field] = np.asarray(int(getattr(p, rows_field)), dtype=np.int64)
+    return out
+
+
+def packed_sell_to_arrays(ps) -> dict:
+    """Flatten a `PackedSELL` (of either package) into numpy arrays."""
+    return _pack_to_arrays(ps, _SELL_ARRAYS, "lane_width")
+
+
+def packed_sell_from_arrays(arrays: dict, *, device="cuda") -> PackedSELL:
+    """This package's `PackedSELL` from `packed_sell_to_arrays` output,
+    uploaded to ``device``."""
+    ps = PackedSELL(indices=np.asarray(arrays["indices"], dtype=np.int32),
+                    values=np.asarray(arrays["values"]),
+                    shape=tuple(int(v) for v in arrays["shape"]),
+                    lane_width=int(arrays["lane_width"]))
+    sell_spmv.to_device(ps, device)
+    return ps
+
+
+def packed_rgcsr_to_arrays(pr) -> dict:
+    """Flatten a `PackedRGCSR` (of either package) into numpy arrays."""
+    return _pack_to_arrays(pr, _RGCSR_ARRAYS, "group_size")
+
+
+def packed_rgcsr_from_arrays(arrays: dict, *,
+                             device="cuda") -> PackedRGCSR:
+    """This package's `PackedRGCSR` from `packed_rgcsr_to_arrays` output,
+    uploaded to ``device``."""
+    pr = PackedRGCSR(deltas=np.asarray(arrays["deltas"], dtype=np.int32),
+                     values=np.asarray(arrays["values"]),
+                     nnz=np.asarray(arrays["nnz"], dtype=np.int32),
+                     shape=tuple(int(v) for v in arrays["shape"]),
+                     group_size=int(arrays["group_size"]))
+    rgcsr_spmv.to_device(pr, device)
+    return pr

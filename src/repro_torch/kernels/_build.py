@@ -2,11 +2,11 @@
 
 Each ``csrc/<stem>.cu`` has a plain C interface and compiles with ``nvcc``
 into ``build/lib<stem>-<hash>.so`` beside this module; the hash covers the
-source and the flags, so a checkout builds at first use and reuses the
-library afterwards. ``build/`` is listed in ``.gitignore``. A missing
-``nvcc`` or a failed build raises; the compiler's output (``-Xptxas -v``:
-registers, shared memory and spills per kernel) is kept in
-``build/<stem>.log``.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a checkout
+builds at first use and reuses the library afterwards. ``build/`` is
+listed in ``.gitignore``. A missing ``nvcc`` or a failed build raises; the
+compiler's output (``-Xptxas -v``: registers, shared memory and spills per
+kernel) is kept in ``build/<stem>.log``.
 
 Nothing is compiled or loaded when this module is imported.
 """
@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("dtans_spmv",)
+SOURCES = ("dtans_spmv", "sell_spmv", "rgcsr_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,9 +43,11 @@ def nvcc() -> str:
 
 
 def library_path(stem: str) -> Path:
-    src = CSRC_DIR / f"{stem}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{stem}-{key}.so"
 
 

@@ -1,0 +1,83 @@
+// Row-grouped CSR (RGCSR) SpMV / SpMM for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of the JAX package:
+//   src/repro/kernels/rgcsr_spmv.py::_rgcsr_kernel       (rgcsr_spmv_pallas)
+//   src/repro/kernels/rgcsr_spmv.py::_rgcsr_spmm_kernel  (rgcsr_spmm_pallas,
+//     with the column tiles of kernels/tiling.py::blocked_spmm as blockIdx.y)
+// Per row r: col = int32 running sum of deltas[r, 0..w]; the term at w is
+// w < nnz[r] ? val[r,w] * x[clip(col), b] : 0, summed left to right.
+//
+// What bounds it: bytes, as for SELL (sell_spmv.cu): a 4-byte delta and a
+// 4- or 8-byte value per stored entry, one multiply-add per column, plus
+// one 4-byte count per row. The running sum adds one integer add per
+// stored entry, which the loads hide.
+//
+// Design, first and simple (padded_rows.cuh): one thread per row of the
+// flat (S * G) view, 128 per block, so a group of G rows is only where a
+// row's data lies and small groups (G = 4) do not make small blocks. The
+// running sum lives in the thread's register and is computed once per row
+// and column chunk, for all the chunk's columns. Layout, accumulators and
+// what is left for later as in sell_spmv.cu.
+//
+// Plain C interface (loaded with ctypes): every entry returns
+// cudaGetLastError() after its launch.
+
+#include "padded_rows.cuh"
+
+namespace {
+
+// RGCSR: columns are the running sum of the row's deltas (0 = padding);
+// positions at or past the row's count are masked.
+struct RgcsrRow {
+  struct Args {
+    const int* deltas;
+    const int* nnz;  // (R,)
+  };
+  const int* deltas;
+  int nnz;
+  uint32_t col;  // int32 sum, wrapping as the reference's jnp.cumsum
+  __device__ RgcsrRow(const Args& a, long long r)
+      : deltas(a.deltas), nnz(__ldg(a.nnz + r)), col(0u) {}
+  __device__ bool next(long long e, int w, long long* c) {
+    col += (uint32_t)__ldg(deltas + e);
+    *c = (long long)(int32_t)col;
+    return w < nnz;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// y (R,) = A x over the interleaved (ceil(R/32), wg, 32) deltas / val
+// arrays and the (R,) per-row counts. f64 != 0 selects double values.
+int rgcsr_spmv_launch(int f64, const void* deltas, const void* nnz,
+                      const void* val, long long R, int wg, const void* x,
+                      long long n, void* y, void* stream) {
+  const RgcsrRow::Args a{static_cast<const int*>(deltas),
+                         static_cast<const int*>(nnz)};
+  return f64 ? padded::launch_spmv<RgcsrRow, double>(a, val, R, wg, x, n, y,
+                                                     stream)
+             : padded::launch_spmv<RgcsrRow, float>(a, val, R, wg, x, n, y,
+                                                    stream);
+}
+
+// y (R, B) = A X, X (n, B) row-major, in column tiles of bt
+// (grid.y = ceil(B / bt)).
+int rgcsr_spmm_launch(int f64, const void* deltas, const void* nnz,
+                      const void* val, long long R, int wg, const void* x,
+                      long long n, long long B, int bt, void* y,
+                      void* stream) {
+  const RgcsrRow::Args a{static_cast<const int*>(deltas),
+                         static_cast<const int*>(nnz)};
+  return f64 ? padded::launch_spmm<RgcsrRow, double>(a, val, R, wg, x, n, B,
+                                                     bt, y, stream)
+             : padded::launch_spmm<RgcsrRow, float>(a, val, R, wg, x, n, B,
+                                                    bt, y, stream);
+}
+
+const char* rgcsr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

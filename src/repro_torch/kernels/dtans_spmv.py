@@ -27,7 +27,7 @@ import torch
 from repro_torch.core.params import PAPER
 from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
-from repro_torch.kernels.pack import DeviceMatrix
+from repro_torch.kernels.pack import DeviceMatrix, check_rhs
 
 launches = {"dtans_spmv": 0, "dtans_spmm": 0}
 
@@ -55,19 +55,6 @@ def _lib() -> ctypes.CDLL:
         lib.dtans_error_string.restype = ctypes.c_char_p
         lib._repro_declared = True
     return lib
-
-
-def _check(dm: DeviceMatrix, x: torch.Tensor, ndim: int) -> None:
-    if x.ndim != ndim or x.shape[0] != dm.shape[1]:
-        raise ValueError(f"rhs of shape {tuple(x.shape)} does not fit a "
-                         f"{dm.shape} matrix (want {ndim}-D, "
-                         f"{dm.shape[1]} rows)")
-    if x.dtype != dm.dtype:
-        raise TypeError(f"rhs dtype {x.dtype} != matrix dtype {dm.dtype}")
-    if x.device != dm.device:
-        raise ValueError(f"rhs on {x.device}, matrix on {dm.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
 
 
 def _kernel_args(dm: DeviceMatrix) -> list:
@@ -180,7 +167,7 @@ def dtans_spmm_plain(dm: DeviceMatrix, x: torch.Tensor,
 def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
     """Per-slice rows (S, L) of A x, x (n,): the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
-    _check(dm, x, 1)
+    check_rhs(dm, x, 1)
     if x.device.type == "cpu":
         return dtans_spmv_plain(dm, x)
     args = _kernel_args(dm)
@@ -203,7 +190,7 @@ def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor,
     """Per-slice rows (S, L, B) of A X, X (n, B): the CUDA kernel on a CUDA
     tensor (grid (S, ceil(B / bn)); ``bn=None`` is one tile of all B
     columns), the plain version on a CPU tensor."""
-    _check(dm, x, 2)
+    check_rhs(dm, x, 2)
     B = x.shape[1]
     if bn is not None and int(bn) < 1:
         raise ValueError(f"bn must be >= 1; got {bn}")

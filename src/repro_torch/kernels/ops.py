@@ -8,14 +8,19 @@ kernel. `spmm` is its multi-RHS sibling: ``x`` is (n, B), the result
 B == 1 delegates to `spmv`, so spmm results at B=1 are bitwise equal to it;
 B == 0 returns an empty result without reaching a kernel.
 
-Both run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
+The uncompressed comparators share that ``(mat, x, y=None)`` signature:
+`sell_spmv` / `sell_spmm` on a `PackedSELL` and `rgcsr_spmv` /
+`rgcsr_spmm` on a `PackedRGCSR`, with the same B == 0 and B == 1 rules.
+An `RGCSRdtANS` is a `CSRdtANS` and runs through `spmv` / `spmm`.
+
+All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain torch versions run. A CUDA request on a
 machine without a card raises.
 
 Not ported yet, and refused with `NotImplementedError` naming the
-ROADMAP.md item: `decode` and the SELL / RGCSR / BCSR entry points,
-``mesh=`` / ``n_shards > 1``, ``pipeline=True``, ``fused=True`` and packs
-with ``shared_cols`` set.
+ROADMAP.md item: `decode` and the BCSR entry points, ``mesh=`` /
+``n_shards > 1``, ``pipeline=True``, ``fused=True`` and packs with
+``shared_cols`` set.
 """
 
 from __future__ import annotations
@@ -24,10 +29,14 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.csr_dtans import CSRdtANS
+from repro_torch.kernels import rgcsr_spmv as _rgcsr
+from repro_torch.kernels import sell_spmv as _sell
 from repro_torch.kernels import tiling
 from repro_torch.kernels.dtans_spmv import dtans_spmm, dtans_spmv
 from repro_torch.kernels.pack import (PackedMatrix, pack_matrix, to_device,
                                       torch_dtype)
+from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
+from repro_torch.kernels.sell_spmv import PackedSELL
 
 _PACK_CACHE_FIELD = "_packed_cache"
 
@@ -97,26 +106,6 @@ def _refuse(mesh, n_shards, pipeline, fused, pm: PackedMatrix) -> None:
             "packs) is not ported yet (ROADMAP.md queue B items 1-2)")
 
 
-def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
-         mesh=None, n_shards=None, pipeline: bool = False,
-         fused=None) -> torch.Tensor:
-    """y = A x + y with on-the-fly dtANS decoding (fused decode kernel)."""
-    pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards, pipeline, fused, pm)
-    dm = to_device(pm, device)
-    m, n = pm.shape
-    x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
-    if x.shape != (n,):
-        raise ValueError(f"spmv expects x of shape ({n},); got "
-                         f"{tuple(x.shape)} (use spmm for (n, B))")
-    _record_pass("dtans_spmv", dm, n, m, 1, pm.dtype.itemsize,
-                 decodes=True)
-    out = dtans_spmv(dm, x).reshape(-1)[:m]
-    if y is not None:
-        out = out + torch.as_tensor(y, dtype=dm.dtype, device=dm.device)
-    return out
-
-
 def _check_rhs(x: torch.Tensor, n: int) -> None:
     if x.ndim != 2:
         raise ValueError(f"spmm expects x of shape (n, B); got "
@@ -137,6 +126,57 @@ def _empty_y(m: int, y, dtype: torch.dtype,
     return out
 
 
+def _one_rhs(kind: str, dm, x, y, run, *, decodes: bool = False
+             ) -> torch.Tensor:
+    """Body of every single-vector entry point: ``run(x)`` gives the padded
+    rows of A x; ``y`` is added after the kernel."""
+    m, n = dm.shape
+    x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
+    if x.shape != (n,):
+        raise ValueError(f"spmv expects x of shape ({n},); got "
+                         f"{tuple(x.shape)} (use spmm for (n, B))")
+    _record_pass(kind, dm, n, m, 1, x.element_size(), decodes=decodes)
+    out = run(x).reshape(-1)[:m]
+    if y is not None:
+        out = out + torch.as_tensor(y, dtype=dm.dtype, device=dm.device)
+    return out
+
+
+def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
+              decodes: bool = False) -> torch.Tensor:
+    """Body of every multi-RHS entry point: B == 0 returns `_empty_y`,
+    B == 1 calls the single-vector entry ``one`` (bitwise equal to it),
+    otherwise ``run(x, bn)`` gives the padded rows of A X in column tiles
+    of the resolved ``bn`` (``rows`` per slice or group sizes the tile)."""
+    m, n = dm.shape
+    x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
+    _check_rhs(x, n)
+    B = x.shape[1]
+    if B == 0:
+        return _empty_y(m, y, dm.dtype, dm.device)
+    if B == 1:
+        out = one(x[:, 0])[:, None]
+    else:
+        bn_eff = _resolve_bn(rows, B, x.element_size(), bn)
+        _record_pass(kind, dm, n, m, B, x.element_size(), decodes=decodes,
+                     col_tiles=_n_tiles(B, bn_eff))
+        out = run(x, bn_eff).reshape(-1, B)[:m]
+    if y is not None:
+        out = out + torch.as_tensor(y, dtype=dm.dtype, device=dm.device)
+    return out
+
+
+def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
+         mesh=None, n_shards=None, pipeline: bool = False,
+         fused=None) -> torch.Tensor:
+    """y = A x + y with on-the-fly dtANS decoding (fused decode kernel)."""
+    pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
+    _refuse(mesh, n_shards, pipeline, fused, pm)
+    dm = to_device(pm, device)
+    return _one_rhs("dtans_spmv", dm, x, y, lambda v: dtans_spmv(dm, v),
+                    decodes=True)
+
+
 def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
          mesh=None, n_shards=None, bn=None, pipeline: bool = False,
          fused=None) -> torch.Tensor:
@@ -150,22 +190,49 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
     _refuse(mesh, n_shards, pipeline, fused, pm)
     dm = to_device(pm, device)
-    m, n = pm.shape
-    x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
-    _check_rhs(x, n)
-    B = x.shape[1]
-    if B == 0:
-        return _empty_y(m, y, dm.dtype, dm.device)
-    if B == 1:
-        out = spmv(pm, x[:, 0], device=dm.device)[:, None]
-    else:
-        bn_eff = _resolve_bn(pm.lane_width, B, pm.dtype.itemsize, bn)
-        _record_pass("dtans_spmm", dm, n, m, B, pm.dtype.itemsize,
-                     decodes=True, col_tiles=_n_tiles(B, bn_eff))
-        out = dtans_spmm(dm, x, bn=bn_eff).reshape(-1, B)[:m]
-    if y is not None:
-        out = out + torch.as_tensor(y, dtype=dm.dtype, device=dm.device)
-    return out
+    return _many_rhs("dtans_spmm", dm, pm.lane_width, x, y, bn,
+                     lambda v: spmv(pm, v, device=dm.device),
+                     lambda X, b: dtans_spmm(dm, X, bn=b), decodes=True)
+
+
+def sell_spmv(ps: PackedSELL, x, y=None, *, device="cuda") -> torch.Tensor:
+    """Baseline SELL SpMV: y = A x + y.
+
+    Same ``(mat, x, y=None)`` signature as `spmv` / `rgcsr_spmv`, so a
+    timing harness can drive all three interchangeably."""
+    ds = _sell.to_device(ps, device)
+    return _one_rhs("sell_spmv", ds, x, y, lambda v: _sell.sell_spmv(ds, v))
+
+
+def sell_spmm(ps: PackedSELL, x, y=None, *, device="cuda",
+              bn=None) -> torch.Tensor:
+    """Multi-RHS SELL: Y = A X + Y, X: (n, B). Shares the `spmm`
+    signature; B == 1 delegates to `sell_spmv` (bitwise equal), and every
+    ``bn`` gives bitwise the untiled result."""
+    ds = _sell.to_device(ps, device)
+    return _many_rhs("sell_spmm", ds, ps.lane_width, x, y, bn,
+                     lambda v: sell_spmv(ps, v, device=ds.device),
+                     lambda X, b: _sell.sell_spmm(ds, X, bn=b))
+
+
+def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
+               device="cuda") -> torch.Tensor:
+    """Row-grouped CSR SpMV: y = A x + y (delta running sum in the
+    kernel). Shares the `spmv` / `sell_spmv` signature."""
+    dr = _rgcsr.to_device(pr, device)
+    return _one_rhs("rgcsr_spmv", dr, x, y,
+                    lambda v: _rgcsr.rgcsr_spmv(dr, v))
+
+
+def rgcsr_spmm(pr: PackedRGCSR, x, y=None, *, device="cuda",
+               bn=None) -> torch.Tensor:
+    """Multi-RHS RGCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
+    signature; B == 1 delegates to `rgcsr_spmv` (bitwise equal), and every
+    ``bn`` gives bitwise the untiled result."""
+    dr = _rgcsr.to_device(pr, device)
+    return _many_rhs("rgcsr_spmm", dr, pr.group_size, x, y, bn,
+                     lambda v: rgcsr_spmv(pr, v, device=dr.device),
+                     lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b))
 
 
 def _not_ported(name: str, item: str):
@@ -178,9 +245,5 @@ def _not_ported(name: str, item: str):
 
 
 decode = _not_ported("decode", "ROADMAP.md queue B item 3")
-sell_spmv = _not_ported("sell_spmv", "ROADMAP.md queue B item 4")
-sell_spmm = _not_ported("sell_spmm", "ROADMAP.md queue B item 5")
-rgcsr_spmv = _not_ported("rgcsr_spmv", "ROADMAP.md queue B item 6")
-rgcsr_spmm = _not_ported("rgcsr_spmm", "ROADMAP.md queue B item 7")
 bcsr_spmv = _not_ported("bcsr_spmv", "ROADMAP.md queue B item 8")
 bcsr_spmm = _not_ported("bcsr_spmm", "ROADMAP.md queue B item 9")

@@ -167,19 +167,46 @@ def check_device(device) -> torch.device:
     return dev
 
 
-def to_device(pm: PackedMatrix, device="cuda") -> DeviceMatrix:
-    """The pack's tensors on ``device``, built once and cached on ``pm``."""
+def check_rhs(dm, x: torch.Tensor, ndim: int) -> None:
+    """Refuses a right-hand side a kernel wrapper does not take: ``dm`` is
+    a device matrix with ``shape``, ``dtype`` and ``device``."""
+    if x.ndim != ndim or x.shape[0] != dm.shape[1]:
+        raise ValueError(f"rhs of shape {tuple(x.shape)} does not fit a "
+                         f"{dm.shape} matrix (want {ndim}-D, "
+                         f"{dm.shape[1]} rows)")
+    if x.dtype != dm.dtype:
+        raise TypeError(f"rhs dtype {x.dtype} != matrix dtype {dm.dtype}")
+    if x.device != dm.device:
+        raise ValueError(f"rhs on {x.device}, matrix on {dm.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def device_cached(pack, device, build):
+    """``build(dev)`` for ``pack`` on ``device``, built once per device and
+    cached on the pack (a CUDA request without a card raises)."""
     dev = check_device(device)
-    cache = getattr(pm, _DEVICE_CACHE_FIELD, None)
+    cache = getattr(pack, _DEVICE_CACHE_FIELD, None)
     if cache is None:
         cache = {}
-        object.__setattr__(pm, _DEVICE_CACHE_FIELD, cache)
+        object.__setattr__(pack, _DEVICE_CACHE_FIELD, cache)
     key = str(dev)
-    dm = cache.get(key)
-    if dm is None:
+    if key not in cache:
+        cache[key] = build(dev)
+    return cache[key]
+
+
+def host_tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A numpy array as a contiguous torch tensor on ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def to_device(pm: PackedMatrix, device="cuda") -> DeviceMatrix:
+    """The pack's tensors on ``device``, built once and cached on ``pm``."""
+    def build(dev: torch.device) -> DeviceMatrix:
         def t(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        dm = DeviceMatrix(
+            return host_tensor(a, dev)
+        return DeviceMatrix(
             stream=t(pm.stream.astype(np.uint32).view(np.int32)),
             esc=t(np.ascontiguousarray(pm.esc, dtype=np.uint64)
                   .view(np.int64)),
@@ -197,5 +224,4 @@ def to_device(pm: PackedMatrix, device="cuda") -> DeviceMatrix:
             shape=tuple(int(v) for v in pm.shape),
             dtype=torch_dtype(pm),
         )
-        cache[key] = dm
-    return dm
+    return device_cached(pm, device, build)

@@ -3,6 +3,8 @@
 These are the cuSPARSE-equivalent baselines the paper compares against, with
 byte-exact size accounting (32-bit indices, 32/64-bit values) used in
 `SparseLinear.compression_vs_best_sparse` (paper Fig. 6 / Table I).
+Row-grouped CSR lives in `repro_torch.sparse.rgcsr`; `all_format_nbytes`
+sizes every format, RGCSR included.
 """
 
 from __future__ import annotations
@@ -165,3 +167,26 @@ def best_baseline_nbytes(a: CSR) -> tuple[str, int]:
     name = min(sizes, key=sizes.get)
     return name, sizes[name]
 
+
+
+def all_format_nbytes(a: CSR, group_sizes: tuple = None) -> dict[str, int]:
+    """Byte-exact size of every uncompressed format, RGCSR included.
+
+    Returns ``{"csr": ..., "coo": ..., "sell": ..., "rgcsr[G=4]": ...}``.
+    RGCSR sizes come from the row-nnz histogram (no construction), which
+    tests assert equals `RGCSR.from_csr(a, G).nbytes`.
+    """
+    from repro_torch.sparse.rgcsr import (RGCSR_GROUP_SIZES,
+                                          rgcsr_nbytes_exact)
+    if group_sizes is None:
+        group_sizes = RGCSR_GROUP_SIZES
+    sizes = {
+        "csr": a.nbytes,
+        "coo": COO.from_csr(a).nbytes,
+        "sell": SELL.from_csr(a).nbytes,
+    }
+    rnnz = a.row_nnz()
+    vb = a.values.dtype.itemsize
+    for g in group_sizes:
+        sizes[f"rgcsr[G={g}]"] = rgcsr_nbytes_exact(rnnz, g, vb)
+    return sizes

@@ -23,9 +23,12 @@ from repro_torch.core.csr_dtans import encode_matrix
 from repro_torch.core.params import TOY
 from repro_torch.kernels import _build, ops, tiling
 from repro_torch.kernels import dtans_spmv as K
+from repro_torch.kernels import rgcsr_spmv as RG
+from repro_torch.kernels import sell_spmv as SE
 from repro_torch.kernels.pack import pack_matrix, to_device
 from repro_torch.serving.sparse_linear import SparseLinear
 from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.rgcsr import RGCSR
 
 RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
@@ -144,6 +147,97 @@ def test_static_smem_matches_tiling():
     static arrays."""
     _need_card()
     assert K.static_smem_bytes() == tiling.STATIC_SMEM_BYTES
+
+
+# The comparator kernels: name, pack, device upload, wrappers, plain versions.
+COMPARATORS = {
+    "sell": (lambda a, rows: SE.pack_sell(a, rows), SE.to_device,
+             SE.sell_spmv, SE.sell_spmm, SE.sell_spmv_plain,
+             SE.sell_spmm_plain, SE.launches),
+    "rgcsr": (lambda a, rows: RG.pack_rgcsr(RGCSR.from_csr(a, rows)),
+              RG.to_device, RG.rgcsr_spmv, RG.rgcsr_spmm,
+              RG.rgcsr_spmv_plain, RG.rgcsr_spmm_plain, RG.launches),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rows", [(np.float32, 32), (np.float64, 4)])
+@pytest.mark.parametrize("fmt", list(COMPARATORS))
+def test_comparator_kernels_vs_plain_on_card(fmt, dtype, rows):
+    """SpMV and SpMM against their plain versions; column tiles and B = 1
+    bitwise the untiled kernel and SpMV; every launch counted."""
+    _need_card()
+    pack, upload, spmv, spmm, spmv_plain, spmm_plain, launches = \
+        COMPARATORS[fmt]
+    d = _dense(150, 70, 0.2, dtype, 10)
+    d[5] = 0                                            # an empty row
+    dm = upload(pack(CSR.from_dense(d), rows), "cuda")
+    X = torch.as_tensor(np.random.default_rng(11).standard_normal((70, 9)),
+                        dtype=dm.dtype, device="cuda")
+    x = X[:, 0].contiguous()
+    before = dict(launches)
+    y = spmv(dm, x)
+    _close(y, spmv_plain(dm, x), dm.dtype)
+    Y = spmm(dm, X)
+    _close(Y, spmm_plain(dm, X), dm.dtype)
+    for bn in (1, 4, 8):
+        assert torch.equal(spmm(dm, X, bn=bn), Y)
+    assert torch.equal(spmm(dm, X[:, :1].contiguous())[..., 0], y)
+    for b in range(X.shape[1]):
+        assert torch.equal(Y[..., b], spmv(dm, X[:, b].contiguous()))
+    torch.cuda.synchronize()
+    _close(y.reshape(-1)[:150].cpu(), torch.from_numpy(d @ x.cpu().numpy()),
+           dm.dtype)
+    assert launches[f"{fmt}_spmv"] - before[f"{fmt}_spmv"] == 10
+    assert launches[f"{fmt}_spmm"] - before[f"{fmt}_spmm"] == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", list(COMPARATORS))
+def test_comparator_kernels_mask_padding_on_card(fmt):
+    """A NaN in x[0] reaches no padded entry: column 0 of the matrix is
+    empty, so every row stays finite."""
+    _need_card()
+    pack, upload, spmv, spmm, *_ = COMPARATORS[fmt]
+    d = _dense(40, 12, 0.5, np.float32, 12)
+    d[:, 0] = 0
+    dm = upload(pack(CSR.from_dense(d), 8), "cuda")
+    X = torch.ones((12, 3), dtype=torch.float32, device="cuda")
+    X[0] = float("nan")
+    assert bool(torch.isfinite(spmv(dm, X[:, 0].contiguous())).all())
+    assert bool(torch.isfinite(spmm(dm, X)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", list(COMPARATORS))
+def test_comparator_kernels_degenerate_shapes_on_card(fmt):
+    """No rows, no columns, and a pack of only padding (Wg = 1): zeros."""
+    _need_card()
+    pack, upload, spmv, spmm, *_ = COMPARATORS[fmt]
+    for shape in ((0, 5), (6, 0), (7, 4)):
+        dm = upload(pack(CSR.from_dense(np.zeros(shape, np.float32)), 4),
+                    "cuda")
+        x = torch.ones(shape[1], 3, device="cuda")
+        assert not bool(spmv(dm, x[:, 0].contiguous()).any())
+        assert not bool(spmm(dm, x, bn=2).any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_comparator_ops_on_card_vs_dense():
+    _need_card()
+    d = _dense(100, 60, 0.3, np.float64, 13)
+    a = CSR.from_dense(d)
+    X = np.random.default_rng(14).standard_normal((60, 5))
+    for ps, one, many in (
+            (SE.pack_sell(a, 32), ops.sell_spmv, ops.sell_spmm),
+            (RG.pack_rgcsr(RGCSR.from_csr(a, 8)), ops.rgcsr_spmv,
+             ops.rgcsr_spmm)):
+        got = many(ps, X, bn=2)
+        assert got.device.type == "cuda"
+        _close(got.cpu(), torch.from_numpy(d @ X), got.dtype)
+        _close(one(ps, X[:, 0]).cpu(), torch.from_numpy(d @ X[:, 0]),
+               got.dtype)
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:

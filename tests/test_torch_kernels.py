@@ -314,9 +314,7 @@ class TestRefusals:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ops.spmv(shared, np.ones(10, np.float32), device="cpu")
 
-    @pytest.mark.parametrize("name", ["decode", "sell_spmv", "sell_spmm",
-                                      "rgcsr_spmv", "rgcsr_spmm",
-                                      "bcsr_spmv", "bcsr_spmm"])
+    @pytest.mark.parametrize("name", ["decode", "bcsr_spmv", "bcsr_spmm"])
     def test_unported_entry_points_raise(self, pm, name):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(ops, name)(pm)
