@@ -11,23 +11,39 @@ Phases, each raising on failure (no phase falls back to the CPU):
    matrices (f64 and f32, shared and split tables, escape-heavy values, lane
    widths 8..128, empty rows): SpMV and SpMM at B in {3, 64}; a ragged
    column tile (bn=24) and SpMM at B=1 must be bitwise equal to the untiled
-   kernel and to SpMV. The same matrices packed as SELL (slice heights 16,
-   32, 128) and RGCSR (groups 4, 8, 16, 32) go through the comparator
-   kernels the same way, each SpMM column bitwise its SpMV; two RGCSR-dtANS
-   encodes go through the dtANS kernels.
+   kernel and to SpMV; ``ops.decode`` must give `decode_ref`'s columns and
+   value bits. The same matrices packed as SELL (slice heights 16, 32,
+   128), RGCSR (groups 4, 8, 16, 32) and BCSR (every registry block shape)
+   go through the comparator kernels the same way, bitwise their plain
+   versions, each SpMM column bitwise its SpMV; two RGCSR-dtANS encodes go
+   through the dtANS kernels, and BCSR-dtANS encodes at 2x2 and 4x4 through
+   the fused shared-column kernels, bitwise their plain versions and the
+   generic kernels.
 4. the main path at full width: the tied LM head of SmolLM-135M (d_model
    576, vocab 49152) compressed by ``SparseLinear.from_dense`` with its
    defaults, serving a few requests through ``apply``; each is held
    against ``apply_dense_reference`` and the plain path, and both kernels'
    launch counters must have risen.
 4b. the comparator path at full width: the head's own pruned matrix packed
-   as SELL (slice height 32) and RGCSR (groups 4 and 32) serves the same
-   request shapes through ``ops.sell_spmm`` / ``ops.rgcsr_spmm``, held
-   against the dense product and the plain versions; all four comparator
-   kernels' launch counters must have risen.
+   as SELL (slice height 32), RGCSR (groups 4 and 32) and BCSR (2x2) serves
+   the same request shapes through ``ops.sell_spmm`` / ``ops.rgcsr_spmm`` /
+   ``ops.bcsr_spmm``, held against the dense product and, bitwise, the
+   plain versions; all six comparator kernels' launch counters must have
+   risen.
+4c. the blocked path at full width: the head's shape pruned in 4x4 tiles
+   (`block_sparse`, density 0.2, 8-bit codebook) encoded as BCSR-dtANS
+   4x4 and served by a ``SparseLinear`` through the fused shared-column
+   kernels (their counters must rise), held against the dense product, the
+   fused plain version and, bitwise, the generic kernels
+   (``fused=False``); the same matrix as BCSR 4x4 through
+   ``ops.bcsr_spmm``.
+4d. decode: ``ops.decode`` of the phase-4 head and the phase-4c matrix,
+   columns and value bits equal to `decode_ref` and the real entries
+   exactly the host's `decode_matrix`; the kernel's counter must rise.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
-   cuSPARSE (``torch.sparse_csr_tensor @ x``, timed only), dense matmul,
-   and the bound, for the dtANS kernels and the comparators.
+   the library call (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, BSR
+   ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
+   timed only), dense matmul, and the bound, for every kernel.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -50,16 +66,22 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
 from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix  # noqa: E402
 from repro_torch.kernels import _build, ops, tiling  # noqa: E402
+from repro_torch.kernels import bcsr_spmv as BC  # noqa: E402
+from repro_torch.kernels import dtans_decode as DD  # noqa: E402
 from repro_torch.kernels import dtans_spmv as K  # noqa: E402
 from repro_torch.kernels import rgcsr_spmv as RG  # noqa: E402
 from repro_torch.kernels import sell_spmv as SE  # noqa: E402
 from repro_torch.kernels.pack import pack_matrix, to_device  # noqa: E402
+from repro_torch.kernels.ref import decode_ref  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
-from repro_torch.sparse.formats import CSR  # noqa: E402
-from repro_torch.sparse.random_graphs import stencil_2d  # noqa: E402
+from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES  # noqa: E402
+from repro_torch.sparse.formats import CSR, best_baseline_nbytes  # noqa: E402
+from repro_torch.sparse.prune import codebook_quantize  # noqa: E402
+from repro_torch.sparse.random_graphs import block_sparse, stencil_2d  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
 
 SEED = 0
@@ -71,16 +93,26 @@ RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCE = {"dtans_spmv": CSRC + "dtans_spmv.cu",
           "dtans_spmm": CSRC + "dtans_spmv.cu",
+          "dtans_spmv_shared": CSRC + "dtans_spmv.cu",
+          "dtans_spmm_shared": CSRC + "dtans_spmv.cu",
+          "dtans_decode": CSRC + "dtans_decode.cu",
           "sell_spmv": CSRC + "sell_spmv.cu",
           "sell_spmm": CSRC + "sell_spmv.cu",
           "rgcsr_spmv": CSRC + "rgcsr_spmv.cu",
-          "rgcsr_spmm": CSRC + "rgcsr_spmv.cu"}
+          "rgcsr_spmm": CSRC + "rgcsr_spmv.cu",
+          "bcsr_spmv": CSRC + "bcsr_spmv.cu",
+          "bcsr_spmm": CSRC + "bcsr_spmv.cu"}
 REPLACES = {"dtans_spmv": "src/repro/kernels/dtans_spmv.py:134",
             "dtans_spmm": "src/repro/kernels/dtans_spmv.py:210",
+            "dtans_spmv_shared": "src/repro/kernels/dtans_spmv.py:117",
+            "dtans_spmm_shared": "src/repro/kernels/dtans_spmv.py:189",
+            "dtans_decode": "src/repro/kernels/dtans_decode.py:54",
             "sell_spmv": "src/repro/kernels/sell_spmv.py:60",
             "sell_spmm": "src/repro/kernels/sell_spmv.py:96",
             "rgcsr_spmv": "src/repro/kernels/rgcsr_spmv.py:73",
-            "rgcsr_spmm": "src/repro/kernels/rgcsr_spmv.py:117"}
+            "rgcsr_spmm": "src/repro/kernels/rgcsr_spmv.py:117",
+            "bcsr_spmv": "src/repro/kernels/bcsr_spmv.py:77",
+            "bcsr_spmm": "src/repro/kernels/bcsr_spmv.py:111"}
 L2_BYTES = 50 * 10**6                # H100 SXM L2 cache
 SELL_L, RGCSR_G = (16, 32, 128), (4, 8, 16, 32)   # phase 3 layouts
 # Per comparator format: the SpMV / SpMM wrappers, their plain versions,
@@ -91,7 +123,20 @@ WRAPPERS = {
     "rgcsr": (RG.rgcsr_spmv, RG.rgcsr_spmm, RG.rgcsr_spmv_plain,
               RG.rgcsr_spmm_plain, ops.rgcsr_spmv, ops.rgcsr_spmm,
               RG.launches),
+    "bcsr": (BC.bcsr_spmv, BC.bcsr_spmm, BC.bcsr_spmv_plain,
+             BC.bcsr_spmm_plain, ops.bcsr_spmv, ops.bcsr_spmm, BC.launches),
 }
+MODULES = {"sell": SE, "rgcsr": RG, "bcsr": BC}
+
+
+def comparator_pack(csr: CSR, fmt: str, rows):
+    """``csr`` packed as ``fmt``: SELL at slice height ``rows``, RGCSR at
+    group size ``rows``, BCSR at block shape ``rows``."""
+    if fmt == "sell":
+        return SE.pack_sell(csr, rows)
+    if fmt == "rgcsr":
+        return RG.pack_rgcsr(RGCSR.from_csr(csr, rows))
+    return BC.pack_bcsr(BCSR.from_csr(csr, rows))
 
 RESULTS: dict = {}
 
@@ -236,35 +281,87 @@ def _check_dtans(name: str, a: CSR, mat, rng) -> float:
         assert ok, f"{name}: spmm B={B} kernel vs plain {err}"
         assert torch.equal(Yt, Yk), f"{name}: tiled bn=24 != untiled, B={B}"
         worst = max(worst, err)
+    _check_decode(name, pm)
     return worst
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _check_decode(name: str, pm) -> None:
+    """``ops.decode`` (the kernel) against `decode_ref` (its plain version)
+    on the card: columns exactly, values bit for bit."""
+    cols, vals = ops.decode(pm)
+    want_c, want_v = decode_ref(pm, device="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(cols, want_c), f"{name}: decoded columns differ"
+    assert torch.equal(_bits(vals), _bits(want_v)), \
+        f"{name}: decoded value bits differ"
+
+
+def _check_fused(name: str, mat, rng) -> None:
+    """The fused shared-column kernels on a BCSR-dtANS encode: bitwise
+    their plain versions and the generic kernels, tiles and B=1 included,
+    and ``ops`` with ``fused=None`` bitwise ``fused=False``."""
+    pm = pack_matrix(mat)
+    assert pm.shared_cols, f"{name}: BCSR-dtANS pack lacks shared_cols"
+    dm = to_device(pm, "cuda")
+    n = mat.shape[1]
+    x = torch.as_tensor(rng.standard_normal(n), dtype=dm.dtype,
+                        device="cuda")
+    yk = K.dtans_spmv(dm, x, shared_cols=True)
+    assert torch.equal(yk, K.dtans_spmv_plain(dm, x, shared_cols=True)), \
+        f"{name}: fused spmv kernel != fused plain"
+    assert torch.equal(yk, K.dtans_spmv(dm, x)), \
+        f"{name}: fused spmv kernel != generic kernel"
+    assert torch.equal(ops.spmv(pm, x), ops.spmv(pm, x, fused=False))
+    assert torch.equal(K.dtans_spmm(dm, x[:, None], shared_cols=True)[..., 0],
+                       yk), f"{name}: fused spmm at B=1 != fused spmv"
+    for B in (3, 64):
+        X = torch.as_tensor(rng.standard_normal((n, B)), dtype=dm.dtype,
+                            device="cuda")
+        Yk = K.dtans_spmm(dm, X, shared_cols=True)
+        assert torch.equal(Yk, K.dtans_spmm_plain(dm, X, shared_cols=True)), \
+            f"{name}: fused spmm kernel != fused plain, B={B}"
+        assert torch.equal(Yk, K.dtans_spmm(dm, X)), \
+            f"{name}: fused spmm kernel != generic kernel, B={B}"
+        assert torch.equal(K.dtans_spmm(dm, X, bn=24, shared_cols=True), Yk)
+        assert torch.equal(ops.spmm(pm, X), ops.spmm(pm, X, fused=False))
+    torch.cuda.synchronize()
 
 
 def _comparator_packs(a: CSR):
     """``a`` in every comparator layout of phase 3: (label, format, pack)."""
     for L in SELL_L:
-        yield f"sell L={L}", "sell", SE.pack_sell(a, L)
+        yield f"sell L={L}", "sell", comparator_pack(a, "sell", L)
     for G in RGCSR_G:
-        yield f"rgcsr G={G}", "rgcsr", RG.pack_rgcsr(RGCSR.from_csr(a, G))
+        yield f"rgcsr G={G}", "rgcsr", comparator_pack(a, "rgcsr", G)
+    for bs in BCSR_BLOCK_SHAPES:
+        yield (f"bcsr {bs[0]}x{bs[1]}", "bcsr",
+               comparator_pack(a, "bcsr", bs))
 
 
 def _check_comparators(name: str, a: CSR, rng) -> float:
-    """SELL and RGCSR kernels against their plain versions and the dense
-    product; tiles, B=1 and every SpMM column bitwise. Returns the largest
-    |kernel - plain|."""
+    """SELL, RGCSR and BCSR kernels against their plain versions (bitwise)
+    and the dense product; tiles, B=1 and every SpMM column bitwise.
+    Returns the largest |kernel - plain|."""
     dense = torch.as_tensor(a.to_dense(), device="cuda")
     n = a.shape[1]
     worst = 0.0
     for label, fmt, pk in _comparator_packs(a):
         spmv, spmm, spmv_plain, spmm_plain, op_spmv, op_spmm, _ = \
             WRAPPERS[fmt]
-        dm = (SE if fmt == "sell" else RG).to_device(pk, "cuda")
+        dm = MODULES[fmt].to_device(pk, "cuda")
         dt = dm.dtype
         what = f"{name} {label}"
         x = torch.as_tensor(rng.standard_normal(n), dtype=dt, device="cuda")
         yk = spmv(dm, x)
-        err, ok = _err(yk, spmv_plain(dm, x), dt)
+        yp = spmv_plain(dm, x)
+        err, _ = _err(yk, yp, dt)
         ed, okd = _err(op_spmv(pk, x), dense @ x, dt)
-        assert ok and okd, f"{what}: spmv kernel {err} / dense {ed}"
+        assert torch.equal(yk, yp) and okd, \
+            f"{what}: spmv kernel {err} / dense {ed}"
         worst = max(worst, err)
         assert torch.equal(spmm(dm, x[:, None])[..., 0], yk), \
             f"{what}: spmm kernel at B=1 != spmv kernel"
@@ -274,9 +371,11 @@ def _check_comparators(name: str, a: CSR, rng) -> float:
             X = torch.as_tensor(rng.standard_normal((n, B)), dtype=dt,
                                 device="cuda")
             Yk = spmm(dm, X)
-            err, ok = _err(Yk, spmm_plain(dm, X), dt)
+            Yp = spmm_plain(dm, X)
+            err, _ = _err(Yk, Yp, dt)
             ed, okd = _err(op_spmm(pk, X), dense @ X, dt)
-            assert ok and okd, f"{what}: spmm B={B} kernel {err} / dense {ed}"
+            assert torch.equal(Yk, Yp) and okd, \
+                f"{what}: spmm B={B} kernel {err} / dense {ed}"
             assert torch.equal(spmm(dm, X, bn=24), Yk), \
                 f"{what}: tiled bn=24 != untiled, B={B}"
             for b in range(B):
@@ -313,6 +412,17 @@ def phase_kernels() -> None:
                              rng)
         rows.append({"case": name, "lane_width": G, "max_abs_err": worst})
         log(f"[kernels] {name:28s} max|k-plain|={worst:.3e} ok")
+    for name, factory, _, shared in CASES:
+        a = factory()
+        for bs in ((2, 2), (4, 4)):
+            what = f"bcsr-dtans {name} {bs[0]}x{bs[1]}"
+            mat = encode_bcsr_matrix(a, block_shape=bs, shared_table=shared)
+            worst = _check_dtans(what, a, mat, rng)
+            _check_fused(what, mat, rng)
+            rows.append({"case": what, "lane_width": bs[0],
+                         "max_abs_err": worst, "fused_bitwise": True})
+            log(f"[kernels] {what:36s} max|k-plain|={worst:.3e}, fused "
+                f"bitwise plain and generic ok")
     RESULTS["kernel_cases"] = rows
 
 
@@ -407,18 +517,26 @@ def phase_main_path() -> SparseLinear:
 # ---------------------------------------------------------------------------
 
 # The head's comparator layouts: SELL at the format registry's slice height,
-# RGCSR at its default group and at a warp-sized group.
+# RGCSR at its default group and at a warp-sized group, BCSR at the
+# registry's default block shape.
 HEAD_PACKS = (("sell L=32", "sell", 32), ("rgcsr G=4", "rgcsr", 4),
-              ("rgcsr G=32", "rgcsr", 32))
+              ("rgcsr G=32", "rgcsr", 32), ("bcsr 2x2", "bcsr", (2, 2)))
 
 
-def _real_bytes(csr: CSR, fmt: str, rows: int) -> int:
-    """Index and value bytes of the real entries, plus RGCSR's per-row
-    counts (S * G of them)."""
-    nbytes = csr.nnz * (4 + csr.values.dtype.itemsize)
+def _work(csr: CSR, fmt: str, rows, pk) -> tuple[int, int]:
+    """(bytes, stored cells) one pass needs, padding not counted: the real
+    entries' index and value bytes, plus RGCSR's per-row counts (S * G of
+    them); for BCSR each stored block's 4-byte column and r * c values,
+    fill-in included."""
+    item = csr.values.dtype.itemsize
+    if fmt == "bcsr":
+        r, c = rows
+        n_blocks = int((pk.block_cols >= 0).sum())
+        return n_blocks * (4 + r * c * item), n_blocks * r * c
+    nbytes = csr.nnz * (4 + item)
     if fmt == "rgcsr":
         nbytes += -(-csr.shape[0] // rows) * rows * 4
-    return nbytes
+    return nbytes, csr.nnz
 
 
 def phase_comparators(sl: SparseLinear) -> tuple[CSR, dict]:
@@ -428,23 +546,22 @@ def phase_comparators(sl: SparseLinear) -> tuple[CSR, dict]:
     csr = decode_matrix(sl.mat)
     packs = {}
     for label, fmt, rows in HEAD_PACKS:
-        pk = (SE.pack_sell(csr, rows) if fmt == "sell"
-              else RG.pack_rgcsr(RGCSR.from_csr(csr, rows)))
-        packs[label] = (fmt, rows, pk,
-                        (SE if fmt == "sell" else RG).to_device(pk, "cuda"))
+        pk = comparator_pack(csr, fmt, rows)
+        packs[label] = (fmt, rows, pk, MODULES[fmt].to_device(pk, "cuda"))
     pack_s = time.perf_counter() - t0
     wg = next(iter(packs.values()))[3].values.shape[1]
     log(f"[cmp] head CSR nnz {csr.nnz}, longest row {wg}; packed and "
         f"uploaded in {pack_s:.1f} s")
     sizes = {}
     for label, (fmt, rows, pk, dm) in packs.items():
-        real = _real_bytes(csr, fmt, rows)
-        sizes[label] = {"stored_bytes": dm.nbytes, "real_bytes": real}
-        log(f"[cmp] {label:10s} stored {dm.nbytes} B on the card (padded), "
-            f"{real} B of real entries, vs {sl.compressed_bytes} B for the "
-            f"dtANS head; {'fits' if dm.nbytes <= L2_BYTES else 'exceeds'} "
-            f"the 50 MB L2, so warm repeats "
-            f"{'stay in L2' if dm.nbytes <= L2_BYTES else 're-read HBM'}")
+        real, cells = _work(csr, fmt, rows, pk)
+        width = int(dm.values.shape[1])     # padded positions a row
+        sizes[label] = {"stored_bytes": dm.nbytes, "real_bytes": real,
+                        "cells": cells, "row_positions": width}
+        log(f"[cmp] {label:10s} stored {dm.nbytes} B on the card (padded "
+            f"to {width} positions a row), {real} B exact for {cells} "
+            f"cells, vs {sl.compressed_bytes} B for the dtANS head; "
+            f"{_l2_note(dm.nbytes)}")
     RESULTS["comparator_packs"] = sizes
 
     rng = np.random.default_rng(SEED + 3)
@@ -452,15 +569,16 @@ def phase_comparators(sl: SparseLinear) -> tuple[CSR, dict]:
                           device="cuda").reshape(-1, D_MODEL).T.contiguous()
           for _, shape, _ in REQUESTS]
     torch.cuda.synchronize()
-    SE.reset_launches()
-    RG.reset_launches()
+    for mod in MODULES.values():
+        mod.reset_launches()
     t0 = time.perf_counter()
     ys = {label: [WRAPPERS[fmt][5](pk, X, bn=bn)
                   for X, (_, _, bn) in zip(xs, REQUESTS)]
           for label, (fmt, _, pk, _) in packs.items()}
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    counts = {**SE.launches, **RG.launches}
+    counts = {k: v for mod in MODULES.values()
+              for k, v in mod.launches.items()}
     log(f"[cmp] served {len(REQUESTS)} request shapes x {len(packs)} packs "
         f"in {serve_s * 1e3:.1f} ms; launches {counts}")
     assert all(v > 0 for v in counts.values()), counts
@@ -487,11 +605,199 @@ def phase_comparators(sl: SparseLinear) -> tuple[CSR, dict]:
                 plain.abs().max().item(), 1e-30))
             log(f"[cmp] {label:10s} {name:12s} |y-dense|={e_dense:.3e} "
                 f"|y-plain|={e_plain:.3e}")
-            assert ok_dense and ok_plain, \
+            assert ok_dense and torch.equal(y, plain), \
                 f"{label} {name}: dense {e_dense} plain {e_plain}"
     RESULTS["main_max_abs_err"].update(errs)
     RESULTS["main_max_rel_err"].update(rels)
     return csr, packs
+
+
+def _l2_note(nbytes: int) -> str:
+    fits = nbytes <= L2_BYTES
+    return (f"{'fits' if fits else 'exceeds'} the 50 MB L2, so warm repeats "
+            f"{'stay in L2' if fits else 're-read HBM'}")
+
+
+# ---------------------------------------------------------------------------
+# 4c. the blocked path at full width
+# ---------------------------------------------------------------------------
+
+BLOCK = (4, 4)           # structured pruning in 4x4 tiles
+BLOCK_DENSITY = 0.2      # 1 - the head's sparsity 0.8
+# The weights' scale: phase 4's head draws std 0.02 (a trained LM head's
+# scale), so the two phases' outputs, and the absolute floor of the check
+# against the dense product, are on one scale.
+WEIGHT_STD = 0.02
+
+
+def phase_blocked() -> dict:
+    """The head's shape pruned in 4x4 tiles (weights of std
+    `WEIGHT_STD`), codebook-quantized as `from_dense` does, encoded as BCSR-dtANS 4x4 and served by a
+    `SparseLinear` through the fused shared-column kernels; the same
+    matrix through ``fused=False`` and as BCSR 4x4."""
+    t0 = time.perf_counter()
+    tiles = block_sparse(
+        VOCAB // BLOCK[0], D_MODEL // BLOCK[1], BLOCK, density=BLOCK_DENSITY,
+        rng=np.random.default_rng(SEED), dtype=np.float32)
+    q = codebook_quantize(CSR(tiles.indptr, tiles.indices,
+                              tiles.values * np.float32(WEIGHT_STD),
+                              tiles.shape), bits=8)
+    mat = encode_bcsr_matrix(q, block_shape=BLOCK)
+    enc_s = time.perf_counter() - t0
+    sl = SparseLinear(mat=mat, packed=pack_matrix(mat), d_in=D_MODEL,
+                      d_out=VOCAB, dense_bytes=VOCAB * D_MODEL * 4,
+                      baseline_bytes=best_baseline_nbytes(q)[1],
+                      device=torch.device("cuda"))
+    pm = sl.packed
+    dm = to_device(pm, "cuda")
+    assert pm.shared_cols and pm.lane_width == BLOCK[0]
+    # The host decoder walks the 12,288 slices one by one (~160 s on the
+    # card's host): decode once, for `apply_dense_reference` (the cached
+    # `dense_weight` it would decode itself) and for phase 4d.
+    t0 = time.perf_counter()
+    filled = decode_matrix(mat)
+    sl.dense_weight = torch.from_numpy(filled.to_dense()).to(sl.device)
+    host_decode_s = time.perf_counter() - t0
+    pb = comparator_pack(q, "bcsr", BLOCK)
+    db = BC.to_device(pb, "cuda")
+    bcsr_bytes, cells = _work(q, "bcsr", BLOCK, pb)
+    RESULTS["blocked"] = {
+        "nnz": q.nnz, "n_blocks": mat.n_blocks, "encode_s": enc_s,
+        "host_decode_s": host_decode_s,
+        "compressed_bytes": sl.compressed_bytes,
+        "compression_vs_dense": sl.compression_vs_dense,
+        "compression_vs_best_sparse": sl.compression_vs_best_sparse,
+        "slices": pm.n_slices, "max_nseg": pm.max_nseg,
+        "escapes": int(mat.esc_count_by_domain.sum()),
+        "bcsr_exact_bytes": bcsr_bytes, "bcsr_stored_bytes": db.nbytes,
+        "bcsr_slots": int(pb.values.shape[1])}
+    log(f"[blk] W^T {VOCAB}x{D_MODEL} f32 in {BLOCK[0]}x{BLOCK[1]} tiles, "
+        f"nnz {q.nnz} ({mat.n_blocks} blocks), BCSR-dtANS encode "
+        f"{enc_s:.1f} s: {sl.compressed_bytes} B, "
+        f"{sl.compression_vs_dense:.3f}x vs dense, "
+        f"{sl.compression_vs_best_sparse:.3f}x vs best sparse; S="
+        f"{pm.n_slices} L={pm.lane_width} max_nseg={pm.max_nseg}; host "
+        f"decode_matrix {host_decode_s:.1f} s")
+    log(f"[blk] BCSR {BLOCK[0]}x{BLOCK[1]}: {bcsr_bytes} B exact, "
+        f"{db.nbytes} B on the card ({pb.values.shape[1]} slots a block "
+        f"row); {_l2_note(db.nbytes)}")
+
+    rng = np.random.default_rng(SEED + 4)
+    xs = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                          device="cuda") for _, shape, _ in REQUESTS]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    ys = [sl.apply(x, bn=bn) for x, (_, _, bn) in zip(xs, REQUESTS)]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = dict(K.launches)
+    log(f"[blk] served {len(REQUESTS)} requests in {serve_s * 1e3:.1f} ms "
+        f"(first calls included); launches {counts}")
+    assert counts["dtans_spmv_shared"] > 0 and \
+        counts["dtans_spmm_shared"] > 0, counts
+    assert counts["dtans_spmv"] == 0 and counts["dtans_spmm"] == 0, counts
+    RESULTS["launches"].update(
+        {k: counts[k] for k in ("dtans_spmv_shared", "dtans_spmm_shared")})
+
+    Xs = [x.reshape(-1, D_MODEL).T.contiguous() for x in xs]
+    BC.reset_launches()
+    yb = [ops.bcsr_spmm(pb, X, bn=bn) for X, (_, _, bn) in zip(Xs, REQUESTS)]
+    torch.cuda.synchronize()
+    counts = dict(BC.launches)
+    log(f"[blk] the same requests as BCSR {BLOCK[0]}x{BLOCK[1]}: launches "
+        f"{counts}")
+    assert all(v > 0 for v in counts.values()), counts
+    RESULTS["launches"].update(counts)
+
+    errs = {k: 0.0 for k in ("dtans_spmv_shared", "dtans_spmm_shared",
+                             "bcsr_spmv", "bcsr_spmm")}
+    rels = dict(errs)
+    w_dense = sl.dense_weight
+    for (name, shape, bn), x, X, y, y_b in zip(REQUESTS, xs, Xs, ys, yb):
+        B = X.shape[1]
+        assert y.shape == (*shape[:-1], VOCAB) and torch.isfinite(y).all()
+        ref = sl.apply_dense_reference(x)
+        ok_ref = torch.allclose(y, ref, rtol=1e-4, atol=1e-5)
+        e_ref = (y - ref).abs().max().item()
+        fused = ops.spmm(pm, X, bn=bn)
+        generic = ops.spmm(pm, X, bn=bn, fused=False)
+        assert torch.equal(fused, generic), f"{name}: fused != fused=False"
+        assert torch.equal(y, fused.T.reshape(y.shape)), \
+            f"{name}: apply != ops.spmm"
+        if B == 1:
+            plain = K.dtans_spmv_plain(dm, X[:, 0], shared_cols=True)
+            plain_b = BC.bcsr_spmv_plain(db, X[:, 0])
+            kind = "spmv"
+        else:
+            plain = K.dtans_spmm_plain(dm, X, bn, shared_cols=True)
+            plain_b = BC.bcsr_spmm_plain(db, X, bn)
+            kind = "spmm"
+        plain = plain.reshape(-1, B)[:VOCAB]
+        plain_b = plain_b.reshape(-1, B)[:VOCAB]
+        torch.cuda.synchronize()
+        for kern, got, want in ((f"dtans_{kind}_shared", fused, plain),
+                                (f"bcsr_{kind}", y_b, plain_b)):
+            e_plain, _ = _err(got, want, torch.float32)
+            errs[kern] = max(errs[kern], e_plain)
+            rels[kern] = max(rels[kern], e_plain / max(
+                want.abs().max().item(), 1e-30))
+            assert torch.equal(got, want), f"{name}: {kern} != plain"
+        e_b, ok_b = _err(y_b, w_dense @ X, torch.float32)
+        log(f"[blk] {name:12s} out {tuple(y.shape)} |y-dense|={e_ref:.3e} "
+            f"fused == plain == fused=False bitwise; BCSR |y-dense|="
+            f"{e_b:.3e}, == plain bitwise")
+        assert ok_ref and ok_b, f"{name}: dense {e_ref} / BCSR {e_b}"
+    RESULTS["main_max_abs_err"].update(errs)
+    RESULTS["main_max_rel_err"].update(rels)
+    return {"sl": sl, "q": q, "pb": pb, "db": db, "filled": filled}
+
+
+# ---------------------------------------------------------------------------
+# 4d. decode
+# ---------------------------------------------------------------------------
+
+def phase_decode(sl: SparseLinear, csr: CSR, blk: dict) -> None:
+    """``ops.decode`` of the head and of the blocked matrix: columns and
+    value bits equal to `decode_ref`, real entries exactly the host's
+    `decode_matrix`."""
+    mats = {"dtans L=128": (sl, csr),
+            "bcsr-dtans 4x4": (blk["sl"], blk["filled"])}
+    torch.cuda.synchronize()
+    DD.reset_launches()
+    outs = {label: ops.decode(s.packed) for label, (s, _) in mats.items()}
+    torch.cuda.synchronize()
+    counts = dict(DD.launches)
+    log(f"[dec] decoded {len(outs)} matrices; launches {counts}")
+    assert counts["dtans_decode"] > 0, counts
+    RESULTS["launches"].update(counts)
+    sizes = {}
+    for label, (s, host) in mats.items():
+        cols, vals = outs[label]
+        want_c, want_v = decode_ref(s.packed, device="cuda")
+        assert torch.equal(cols, want_c), f"{label}: columns != decode_ref"
+        assert torch.equal(_bits(vals), _bits(want_v)), \
+            f"{label}: value bits != decode_ref"
+        m = s.mat.shape[0]
+        c = cols.reshape(-1, cols.shape[-1])[:m]
+        v = vals.reshape(-1, vals.shape[-1])[:m]
+        real = c >= 0
+        indptr = torch.as_tensor(host.indptr, device="cuda")
+        assert torch.equal(real.sum(dim=1), indptr.diff()), \
+            f"{label}: real entries per row != decode_matrix"
+        assert torch.equal(c[real].long(),
+                           torch.as_tensor(host.indices, device="cuda")), \
+            f"{label}: columns != decode_matrix"
+        assert torch.equal(_bits(v[real]), _bits(torch.as_tensor(
+            host.values, device="cuda"))), f"{label}: values != decode_matrix"
+        nbytes = cols.nbytes + vals.nbytes
+        sizes[label] = {"shape": list(cols.shape), "out_bytes": nbytes}
+        log(f"[dec] {label:14s} out {tuple(cols.shape)} int32 + "
+            f"{str(vals.dtype).replace('torch.', '')}, {nbytes} B: == "
+            f"decode_ref bitwise, real entries == decode_matrix")
+    RESULTS["main_max_abs_err"]["dtans_decode"] = 0.0
+    RESULTS["main_max_rel_err"]["dtans_decode"] = 0.0
+    RESULTS["decode"] = sizes
 
 
 # ---------------------------------------------------------------------------
@@ -539,70 +845,159 @@ def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
     return (*_roofline(nbytes, flops, item), nbytes, flops)
 
 
-def comparator_bound(csr: CSR, fmt: str, rows: int,
+def comparator_bound(csr: CSR, fmt: str, rows, pk,
                      B: int) -> tuple[float, str, int, int]:
-    """Least time for one SELL / RGCSR pass at batch B: the real entries'
-    bytes (`_real_bytes`, no padding), x and y once each, against 2 nnz B
-    operations."""
+    """Least time for one SELL / RGCSR / BCSR pass at batch B: the bytes of
+    `_work` (no padding; BCSR's stored blocks with their fill-in), x and y
+    once each, against 2 multiply-adds per stored cell and column."""
     item = csr.values.dtype.itemsize
-    nbytes = (_real_bytes(csr, fmt, rows) + D_MODEL * B * item
-              + VOCAB * B * item)
-    flops = 2 * csr.nnz * B
+    nbytes, cells = _work(csr, fmt, rows, pk)
+    nbytes += D_MODEL * B * item + VOCAB * B * item
+    flops = 2 * cells * B
     return (*_roofline(nbytes, flops, item), nbytes, flops)
 
 
-def phase_times(sl: SparseLinear, csr: CSR, packs: dict) -> list:
-    dm = to_device(sl.packed, "cuda")
+def decode_bound(sl: SparseLinear) -> tuple[float, str, int, int]:
+    """Least time for one decode: the compressed bytes `bound` counts
+    without x and y, plus the (S, L, max_nnz) columns and values written
+    once; no arithmetic is counted."""
+    pm = sl.packed
+    _, _, read, _ = bound(sl, 0)
+    written = pm.n_slices * pm.lane_width * pm.max_nseg * (pm.params.l // 2) \
+        * (4 + pm.dtype.itemsize)
+    return (*_roofline(read + written, 0, pm.dtype.itemsize),
+            read + written, 0)
+
+
+def library_call(csr: CSR, block_shape=None):
+    """One PyTorch call for the same product on the card, for timing only:
+    BSR (``torch.sparse_bsr_tensor @ x``) at ``block_shape`` where it runs
+    on this card, else cuSPARSE CSR. Returns (name, fn of x)."""
     a_csr = torch.sparse_csr_tensor(
         torch.as_tensor(csr.indptr, device="cuda"),
         torch.as_tensor(csr.indices, device="cuda"),
         torch.as_tensor(csr.values, device="cuda"),
         size=csr.shape, check_invariants=False)
+    if block_shape is not None:
+        b = BCSR.from_csr(csr, block_shape)
+        a_bsr = torch.sparse_bsr_tensor(
+            torch.as_tensor(b.block_ptr, device="cuda"),
+            torch.as_tensor(b.block_cols, device="cuda"),
+            torch.as_tensor(b.values, device="cuda"),
+            size=csr.shape, check_invariants=False)
+        x = torch.ones((csr.shape[1], 2), dtype=a_bsr.dtype, device="cuda")
+        try:
+            want = a_csr @ x
+            ok = torch.allclose(a_bsr @ x, want, rtol=1e-4, atol=1e-4)
+        except (RuntimeError, NotImplementedError) as exc:
+            log(f"[times] torch BSR {block_shape} @ x does not run here "
+                f"({str(exc).splitlines()[0][:100]}); cuSPARSE CSR instead")
+        else:
+            if ok:
+                return (f"BSR {block_shape[0]}x{block_shape[1]}",
+                        lambda v: a_bsr @ v)
+            log(f"[times] torch BSR {block_shape} @ x disagrees with CSR; "
+                f"cuSPARSE CSR instead")
+    return "cuSPARSE CSR", lambda v: a_csr @ v
+
+
+def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
+    dm = to_device(sl.packed, "cuda")
+    bsl = blk["sl"]
+    bdm = to_device(bsl.packed, "cuda")
+    libs = {"csr": library_call(csr), "bcsr 2x2": library_call(csr, (2, 2)),
+            "blocked": library_call(blk["q"], BLOCK),
+            "blocked csr": library_call(blk["q"])}
     w_dense = sl.dense_weight
+    wb_dense = bsl.dense_weight
     rng = np.random.default_rng(SEED + 2)
     log(f"[times] compressed head {RESULTS['head']['compressed_bytes']} B, "
         f"CSR {sl.mat.nnz * 8 + (sl.d_out + 1) * 4} B, dense "
         f"{sl.dense_bytes} B, the 50 MB L2 holds all but dense, so repeated "
         f"dtANS launches run with the matrix warm in L2 (the comparator "
-        f"packs: see [cmp])")
+        f"packs: see [cmp] and [blk]); library calls: "
+        f"{ {k: v[0] for k, v in libs.items()} }")
     rows = []
 
-    def add(kern, label, B, bn, k_ms, p_ms, lib_ms, dense_ms, b):
+    def add(kern, label, B, bn, k_ms, p_ms, lib, lib_ms, dense_ms, b,
+            csr_ms=None):
         b_ms, b_by, nbytes, flops = b
         rows.append({"kernel": kern, "pack": label, "B": B, "bn": bn,
-                     "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                     "ms": k_ms, "plain_ms": p_ms, "library": lib,
+                     "library_ms": lib_ms, "csr_ms": csr_ms,
                      "dense_ms": dense_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": nbytes, "flops": flops})
-        log(f"[times] {kern:10s} {label:10s} B={B:3d} bn={bn} kernel "
-            f"{k_ms:.4f} ms | plain {p_ms:.2f} ms | cuSPARSE {lib_ms:.4f} ms"
-            f" | dense {dense_ms:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | "
-            f"{card()}")
+        lib_s = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
+        csr_s = "" if csr_ms is None else \
+            f" | cuSPARSE CSR {csr_ms:.4f} ms"
+        dense_s = "-" if dense_ms is None else f"{dense_ms:.4f} ms"
+        log(f"[times] {kern:17s} {label:14s} B={B:3d} bn={bn} kernel "
+            f"{k_ms:.4f} ms | plain {p_ms:.2f} ms | {lib or 'library'} "
+            f"{lib_s}{csr_s} | dense {dense_s} | bound {b_ms:.5f} ms "
+            f"({b_by}) | {card()}")
+
+    def pair(one, many, x1, x, bn):
+        """(kernel ms, plain ms) of a SpMV (B == 1) or SpMM pass."""
+        if x.shape[1] == 1:
+            return time_ms(lambda: one[0](x1), 50), \
+                time_ms(lambda: one[1](x1), 3, 1)
+        return time_ms(lambda: many[0](x, bn), 20), \
+            time_ms(lambda: many[1](x, bn), 3, 1)
 
     for B, bn in ((1, None), (4, None), (8, None), (64, None), (512, 64)):
         x = torch.as_tensor(rng.standard_normal((D_MODEL, B)),
                             dtype=torch.float32, device="cuda")
         x1 = x[:, 0].contiguous()
-        lib_ms = time_ms(lambda: a_csr @ x, 50)
+        lib_ms = {k: time_ms(lambda: fn(x), 50) for k, (_, fn) in
+                  libs.items()}
         dense_ms = time_ms(lambda: w_dense @ x, 50)
-        if B == 1:
-            k_ms = time_ms(lambda: K.dtans_spmv(dm, x1), 50)
-            p_ms = time_ms(lambda: K.dtans_spmv_plain(dm, x1), 3, 1)
-        else:
-            k_ms = time_ms(lambda: K.dtans_spmm(dm, x, bn=bn), 20)
-            p_ms = time_ms(lambda: K.dtans_spmm_plain(dm, x, bn), 3, 1)
-        add("dtans_spmv" if B == 1 else "dtans_spmm", "dtans L=128", B, bn,
-            k_ms, p_ms, lib_ms, dense_ms, bound(sl, B))
-        for label, (fmt, prows, _, cm) in packs.items():
+        dense_b_ms = time_ms(lambda: wb_dense @ x, 50)
+        kind = "spmv" if B == 1 else "spmm"
+        k_ms, p_ms = pair(
+            (lambda v: K.dtans_spmv(dm, v), lambda v: K.dtans_spmv_plain(dm, v)),
+            (lambda v, b: K.dtans_spmm(dm, v, bn=b),
+             lambda v, b: K.dtans_spmm_plain(dm, v, b)), x1, x, bn)
+        add(f"dtans_{kind}", "dtans L=128", B, bn, k_ms, p_ms,
+            libs["csr"][0], lib_ms["csr"], dense_ms, bound(sl, B))
+        for label, (fmt, prows, pk, cm) in packs.items():
             spmv, spmm, spmv_plain, spmm_plain, *_ = WRAPPERS[fmt]
-            if B == 1:
-                k_ms = time_ms(lambda: spmv(cm, x1), 50)
-                p_ms = time_ms(lambda: spmv_plain(cm, x1), 3, 1)
-            else:
-                k_ms = time_ms(lambda: spmm(cm, x, bn=bn), 20)
-                p_ms = time_ms(lambda: spmm_plain(cm, x, bn), 3, 1)
-            add(f"{fmt}_spmv" if B == 1 else f"{fmt}_spmm", label, B, bn,
-                k_ms, p_ms, lib_ms, dense_ms,
-                comparator_bound(csr, fmt, prows, B))
+            k_ms, p_ms = pair(
+                (lambda v: spmv(cm, v), lambda v: spmv_plain(cm, v)),
+                (lambda v, b: spmm(cm, v, bn=b),
+                 lambda v, b: spmm_plain(cm, v, b)), x1, x, bn)
+            lib = "bcsr 2x2" if fmt == "bcsr" else "csr"
+            add(f"{fmt}_{kind}", label, B, bn, k_ms, p_ms, libs[lib][0],
+                lib_ms[lib], dense_ms,
+                comparator_bound(csr, fmt, prows, pk, B),
+                lib_ms["csr"] if fmt == "bcsr" else None)
+        # the blocked matrix of phase 4c: fused, generic and BCSR 4x4
+        for shared in (True, False):
+            k_ms, p_ms = pair(
+                (lambda v: K.dtans_spmv(bdm, v, shared_cols=shared),
+                 lambda v: K.dtans_spmv_plain(bdm, v, shared_cols=shared)),
+                (lambda v, b: K.dtans_spmm(bdm, v, bn=b, shared_cols=shared),
+                 lambda v, b: K.dtans_spmm_plain(bdm, v, b,
+                                                 shared_cols=shared)),
+                x1, x, bn)
+            add(f"dtans_{kind}" + ("_shared" if shared else ""),
+                "bcsr-dtans 4x4", B, bn, k_ms, p_ms, libs["blocked"][0],
+                lib_ms["blocked"], dense_b_ms, bound(bsl, B),
+                lib_ms["blocked csr"])
+        db = blk["db"]
+        k_ms, p_ms = pair(
+            (lambda v: BC.bcsr_spmv(db, v), lambda v: BC.bcsr_spmv_plain(db, v)),
+            (lambda v, b: BC.bcsr_spmm(db, v, bn=b),
+             lambda v, b: BC.bcsr_spmm_plain(db, v, b)), x1, x, bn)
+        add(f"bcsr_{kind}", "bcsr 4x4", B, bn, k_ms, p_ms,
+            libs["blocked"][0], lib_ms["blocked"], dense_b_ms,
+            comparator_bound(blk["q"], "bcsr", BLOCK, blk["pb"], B),
+            lib_ms["blocked csr"])
+    for label, s in (("dtans L=128", sl), ("bcsr-dtans 4x4", bsl)):
+        d = to_device(s.packed, "cuda")
+        add("dtans_decode", label, 0, None,
+            time_ms(lambda: DD.dtans_decode(d), 20),
+            time_ms(lambda: DD.dtans_decode_plain(d), 3, 1), None, None,
+            None, decode_bound(s))
     RESULTS["times"] = rows
     return rows
 
@@ -613,18 +1008,38 @@ def main() -> int:
                     help="also write every measured number to this file")
     args = ap.parse_args()
     t_start = time.perf_counter()
+
+    def done(phase: str) -> None:
+        t = time.perf_counter() - t_start
+        RESULTS.setdefault("phase_end_s", {})[phase] = t
+        log(f"[time] phase {phase} done at {t:.1f} s")
+
     phase_device()
     phase_build()
+    done("2")
     phase_kernels()
+    done("3")
     sl = phase_main_path()
+    done("4")
     csr, packs = phase_comparators(sl)
-    times = phase_times(sl, csr, packs)
+    done("4b")
+    blk = phase_blocked()
+    done("4c")
+    phase_decode(sl, csr, blk)
+    done("4d")
+    times = phase_times(sl, csr, packs, blk)
+    done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
-    # at the format registry's layouts
+    # at the format registry's layouts, BCSR and the fused kernels on the
+    # blocked matrix of phase 4c, decode on the head
     pick = {"dtans_spmv": ("dtans L=128", 1),
             "dtans_spmm": ("dtans L=128", 64),
             "sell_spmv": ("sell L=32", 1), "sell_spmm": ("sell L=32", 64),
-            "rgcsr_spmv": ("rgcsr G=4", 1), "rgcsr_spmm": ("rgcsr G=4", 64)}
+            "rgcsr_spmv": ("rgcsr G=4", 1), "rgcsr_spmm": ("rgcsr G=4", 64),
+            "bcsr_spmv": ("bcsr 4x4", 1), "bcsr_spmm": ("bcsr 4x4", 64),
+            "dtans_spmv_shared": ("bcsr-dtans 4x4", 1),
+            "dtans_spmm_shared": ("bcsr-dtans 4x4", 64),
+            "dtans_decode": ("dtans L=128", 0)}
     kernels = []
     for name, (label, B) in pick.items():
         t = next(r for r in times if r["kernel"] == name

@@ -8,23 +8,28 @@ store it), reading attributes only: it works on the JAX package's objects
 and on this package's alike, without importing either's framework.
 `sparse_linear_from_arrays` rebuilds this package's `CSRdtANS`,
 `PackedMatrix` and `SparseLinear` from such a dict. No bit is re-encoded:
-the rebuilt stream is the reference's stream.
+the rebuilt stream is the reference's stream. A matrix that is a
+`BCSRdtANS` carries its ``block_shape`` and ``n_blocks`` across and comes
+back as one, so its pack keeps ``shared_cols`` and serves through the
+fused contraction.
 
-`packed_sell_to_arrays` / `packed_rgcsr_to_arrays` do the same for a
-packed uncompressed comparator (`PackedSELL`, `PackedRGCSR`) of either
-package, and the ``*_from_arrays`` pair rebuilds this package's pack and
-uploads it.
+`packed_sell_to_arrays` / `packed_rgcsr_to_arrays` /
+`packed_bcsr_to_arrays` do the same for a packed uncompressed comparator
+(`PackedSELL`, `PackedRGCSR`, `PackedBCSR`) of either package, and the
+``*_from_arrays`` pair rebuilds this package's pack and uploads it.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.bcsr_dtans import BCSRdtANS
 from repro_torch.core.csr_dtans import CSRdtANS
 from repro_torch.core.dtans_vec import StackedTables
 from repro_torch.core.params import DtansParams
 from repro_torch.core.tables import CodingTable
-from repro_torch.kernels import rgcsr_spmv, sell_spmv
+from repro_torch.kernels import bcsr_spmv, rgcsr_spmv, sell_spmv
+from repro_torch.kernels.bcsr_spmv import PackedBCSR
 from repro_torch.kernels.pack import check_device, pack_matrix, to_device
 from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
 from repro_torch.kernels.sell_spmv import PackedSELL
@@ -39,6 +44,7 @@ _TABLE_SCALARS = ("esc_first", "esc_base", "esc_raw_bits", "K", "M",
 _LAYER_SCALARS = ("d_in", "d_out", "dense_bytes", "baseline_bytes")
 _SELL_ARRAYS = ("indices", "values")
 _RGCSR_ARRAYS = ("deltas", "values", "nnz")
+_BCSR_ARRAYS = ("block_cols", "values")
 
 
 def sparse_linear_to_arrays(sl) -> dict:
@@ -61,6 +67,9 @@ def sparse_linear_to_arrays(sl) -> dict:
                                                 dtype=np.int64)
     for f in _LAYER_SCALARS:
         out[f] = np.asarray(int(getattr(sl, f)), dtype=np.int64)
+    if getattr(mat, "block_shape", None) is not None:      # a BCSRdtANS
+        out["block_shape"] = np.asarray(mat.block_shape, dtype=np.int64)
+        out["n_blocks"] = np.asarray(int(mat.n_blocks), dtype=np.int64)
     return out
 
 
@@ -89,7 +98,14 @@ def sparse_linear_from_arrays(arrays: dict, *, device="cuda"
     params = DtansParams(**{f: int(v) for f, v in
                             zip(_PARAM_FIELDS, arrays["params"])})
     tables = [_table(arrays, t) for t in range(int(arrays["n_tables"]))]
-    mat = CSRdtANS(
+    blocked = {}
+    cls = CSRdtANS
+    if "block_shape" in arrays:
+        cls = BCSRdtANS
+        blocked = dict(
+            block_shape=tuple(int(v) for v in arrays["block_shape"]),
+            n_blocks=int(arrays["n_blocks"]))
+    mat = cls(
         params=params,
         pattern=np.asarray(arrays["pattern"], dtype=np.int64),
         domain=np.asarray(arrays["domain"]),
@@ -106,6 +122,7 @@ def sparse_linear_from_arrays(arrays: dict, *, device="cuda"
         row_nnz=np.asarray(arrays["row_nnz"], dtype=np.int64),
         esc_count_by_domain=np.asarray(arrays["esc_count_by_domain"],
                                        dtype=np.int64),
+        **blocked,
     )
     sl = SparseLinear(mat=mat, packed=pack_matrix(mat),
                       device=dev, **{f: int(arrays[f])
@@ -153,3 +170,23 @@ def packed_rgcsr_from_arrays(arrays: dict, *,
                      group_size=int(arrays["group_size"]))
     rgcsr_spmv.to_device(pr, device)
     return pr
+
+
+def packed_bcsr_to_arrays(pb) -> dict:
+    """Flatten a `PackedBCSR` (of either package) into numpy arrays."""
+    out = {f: np.asarray(getattr(pb, f)) for f in _BCSR_ARRAYS}
+    out["shape"] = np.asarray(pb.shape, dtype=np.int64)
+    out["block_shape"] = np.asarray(pb.block_shape, dtype=np.int64)
+    return out
+
+
+def packed_bcsr_from_arrays(arrays: dict, *, device="cuda") -> PackedBCSR:
+    """This package's `PackedBCSR` from `packed_bcsr_to_arrays` output,
+    uploaded to ``device``."""
+    pb = PackedBCSR(block_cols=np.asarray(arrays["block_cols"],
+                                          dtype=np.int32),
+                    values=np.asarray(arrays["values"]),
+                    shape=tuple(int(v) for v in arrays["shape"]),
+                    block_shape=tuple(int(v) for v in arrays["block_shape"]))
+    bcsr_spmv.to_device(pb, device)
+    return pb

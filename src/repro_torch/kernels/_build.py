@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("dtans_spmv", "sell_spmv", "rgcsr_spmv")
+SOURCES = ("dtans_spmv", "dtans_decode", "sell_spmv", "rgcsr_spmv",
+           "bcsr_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

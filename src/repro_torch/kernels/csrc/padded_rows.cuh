@@ -1,13 +1,17 @@
-// SpMV / SpMM over a padded row layout, shared by the SELL and RGCSR
-// kernels (sell_spmv.cu, rgcsr_spmv.cu). Each format supplies a `Row`
-// policy that yields, per stored position w of a row, the column to gather
-// and whether the position holds a real entry:
+// SpMV / SpMM over a padded row layout, shared by the SELL, RGCSR and
+// BCSR kernels (sell_spmv.cu, rgcsr_spmv.cu, bcsr_spmv.cu). Each format
+// supplies a `Row` policy that yields, per stored position w of a row, the
+// column to gather and whether the position holds a real entry:
 //
 //   struct Row {
 //     struct Args { ... };                       // the format's index arrays
 //     __device__ Row(const Args&, long long r);  // row r's state
 //     __device__ bool next(long long e, int w, long long* col);
 //   };
+//
+// A fresh Row is made for every pass over a row, and `next` is called for
+// w = 0, 1, 2, ... in order, so a policy may carry state from one position
+// to the next.
 //
 // Layout on the card (kernels/padded.py::interleave): the flat (R, wg) view
 // of the reference's (S, rows, wg) arrays, stored in chunks of 32 rows as

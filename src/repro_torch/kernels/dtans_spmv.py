@@ -14,8 +14,14 @@ contract each segment in the kernels' own order,
 then ``acc += s``. They work on CPU and CUDA tensors alike; the kernels
 are held against them on the card.
 
-`launches` counts kernel launches per wrapper (and nothing else), so a run
-can show that its path went through the kernels.
+``shared_cols=True`` is the fused BCSR-dtANS contraction of a block-filled
+pack (`PackedMatrix.shared_cols`): every lane gathers x at lane 0's
+decoded columns, as the reference does (``cols[:, 0]``). On such a pack a
+valid term multiplies the same x either way, so the result is bitwise the
+generic one.
+
+`launches` counts kernel launches per wrapper and variant (and nothing
+else), so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
 from repro_torch.kernels.pack import DeviceMatrix, check_rhs
 
-launches = {"dtans_spmv": 0, "dtans_spmm": 0}
+launches = {"dtans_spmv": 0, "dtans_spmm": 0, "dtans_spmv_shared": 0,
+            "dtans_spmm_shared": 0}
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
+MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
                 _I, _I, _I, _I, _I]
 
 
@@ -44,10 +51,11 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dtans_spmv")
     if not getattr(lib, "_repro_declared", False):
-        lib.dtans_spmv_launch.argtypes = _MATRIX_ARGS + [_VP, _LL, _VP, _VP]
+        lib.dtans_spmv_launch.argtypes = MATRIX_ARGS + [_I, _VP, _LL, _VP,
+                                                         _VP]
         lib.dtans_spmv_launch.restype = _I
-        lib.dtans_spmm_launch.argtypes = _MATRIX_ARGS + [_VP, _LL, _LL, _I,
-                                                         _VP, _VP]
+        lib.dtans_spmm_launch.argtypes = MATRIX_ARGS + [_I, _VP, _LL, _LL,
+                                                         _I, _VP, _VP]
         lib.dtans_spmm_launch.restype = _I
         lib.dtans_spmm_static_smem.argtypes = [ctypes.POINTER(_LL)]
         lib.dtans_spmm_static_smem.restype = _I
@@ -57,9 +65,9 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _kernel_args(dm: DeviceMatrix) -> list:
-    """The C entries' matrix arguments; refuses what the kernels do not
-    take."""
+def kernel_args(dm: DeviceMatrix) -> list:
+    """The C entries' matrix arguments (shared by the decode-only kernel);
+    refuses what the kernels do not take."""
     if dm.params != PAPER:
         raise NotImplementedError(
             f"the CUDA kernels are built for the paper's parameters "
@@ -101,7 +109,9 @@ def _check_tile(lane_width: int, B: int, bt: int, itemsize: int) -> None:
         raise ValueError(f"{B} columns in tiles of {bt} exceed the grid")
 
 
-def _raise_on(lib, rc: int, name: str) -> None:
+def raise_on(lib, rc: int, name: str) -> None:
+    """Raises on a C entry's nonzero CUDA error code; ``lib`` exports
+    ``dtans_error_string``."""
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.dtans_error_string(rc).decode()})")
@@ -112,8 +122,8 @@ def static_smem_bytes() -> int:
     it; `tiling.STATIC_SMEM_BYTES` must not be less."""
     lib = _lib()
     out = _LL(0)
-    _raise_on(lib, lib.dtans_spmm_static_smem(ctypes.byref(out)),
-              "dtans_spmm_static_smem")
+    raise_on(lib, lib.dtans_spmm_static_smem(ctypes.byref(out)),
+             "dtans_spmm_static_smem")
     return int(out.value)
 
 
@@ -129,20 +139,28 @@ def _segment_sum(c: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def dtans_spmv_plain(dm: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
+def _gather_cols(cols: torch.Tensor, shared_cols: bool) -> torch.Tensor:
+    """The columns each lane gathers x at, (h, S, L) or, shared, lane 0's
+    as (h, S, 1)."""
+    return cols[..., :1] if shared_cols else cols
+
+
+def dtans_spmv_plain(dm: DeviceMatrix, x: torch.Tensor,
+                     shared_cols: bool = False) -> torch.Tensor:
     """Per-slice rows (S, L) of A x, in torch."""
     n = dm.shape[1]
     acc = torch.zeros((dm.n_slices, dm.lane_width), dtype=dm.dtype,
                       device=x.device)
     for _, cols, vbits, valid in iter_segments(dm):
         vals = bits_to_value(vbits, dm.dtype)                # (h, S, L)
-        xg = x[cols.clamp(0, n - 1)]
+        xg = x[_gather_cols(cols, shared_cols).clamp(0, n - 1)]
         acc = acc + _segment_sum(torch.where(valid, vals * xg, 0))
     return acc
 
 
 def dtans_spmm_plain(dm: DeviceMatrix, x: torch.Tensor,
-                     bn: int | None = None) -> torch.Tensor:
+                     bn: int | None = None,
+                     shared_cols: bool = False) -> torch.Tensor:
     """Per-slice rows (S, L, B) of A X, X (n, B), in torch. ``bn`` bounds
     the columns gathered at once, as the kernel's column tiles do; the
     arithmetic of every column is the same at any ``bn``."""
@@ -152,7 +170,7 @@ def dtans_spmm_plain(dm: DeviceMatrix, x: torch.Tensor,
                       device=x.device)
     for _, cols, vbits, valid in iter_segments(dm):
         vals = bits_to_value(vbits, dm.dtype)[..., None]     # (h, S, L, 1)
-        ci = cols.clamp(0, n - 1)
+        ci = _gather_cols(cols, shared_cols).clamp(0, n - 1)
         for b0 in range(0, B, step):
             xg = x[:, b0:b0 + step][ci]                      # (h, S, L, bt)
             c = torch.where(valid[..., None], vals * xg, 0)
@@ -164,29 +182,35 @@ def dtans_spmm_plain(dm: DeviceMatrix, x: torch.Tensor,
 # wrappers
 # ---------------------------------------------------------------------------
 
-def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor) -> torch.Tensor:
+def _variant(kind: str, shared_cols: bool) -> str:
+    return f"{kind}_shared" if shared_cols else kind
+
+
+def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor,
+               shared_cols: bool = False) -> torch.Tensor:
     """Per-slice rows (S, L) of A x, x (n,): the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
     check_rhs(dm, x, 1)
     if x.device.type == "cpu":
-        return dtans_spmv_plain(dm, x)
-    args = _kernel_args(dm)
+        return dtans_spmv_plain(dm, x, shared_cols)
+    args = kernel_args(dm)
     x = x.contiguous()
     y = torch.empty((dm.n_slices, dm.lane_width), dtype=dm.dtype,
                     device=x.device)
     if dm.n_slices == 0:
         return y
     lib = _lib()
-    rc = lib.dtans_spmv_launch(*args, x.data_ptr(), x.shape[0],
-                               y.data_ptr(),
+    rc = lib.dtans_spmv_launch(*args, int(shared_cols), x.data_ptr(),
+                               x.shape[0], y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)
-    launches["dtans_spmv"] += 1
-    _raise_on(lib, rc, "dtans_spmv")
+    name = _variant("dtans_spmv", shared_cols)
+    launches[name] += 1
+    raise_on(lib, rc, name)
     return y
 
 
-def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor,
-               bn: int | None = None) -> torch.Tensor:
+def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor, bn: int | None = None,
+               shared_cols: bool = False) -> torch.Tensor:
     """Per-slice rows (S, L, B) of A X, X (n, B): the CUDA kernel on a CUDA
     tensor (grid (S, ceil(B / bn)); ``bn=None`` is one tile of all B
     columns), the plain version on a CPU tensor."""
@@ -196,8 +220,8 @@ def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor,
         raise ValueError(f"bn must be >= 1; got {bn}")
     bt = B if bn is None or int(bn) >= B else int(bn)
     if x.device.type == "cpu":
-        return dtans_spmm_plain(dm, x, None if bt == B else bt)
-    args = _kernel_args(dm)
+        return dtans_spmm_plain(dm, x, None if bt == B else bt, shared_cols)
+    args = kernel_args(dm)
     _check_tile(dm.lane_width, B, bt, x.element_size())
     x = x.contiguous()
     y = torch.empty((dm.n_slices, dm.lane_width, B), dtype=dm.dtype,
@@ -205,9 +229,10 @@ def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor,
     if dm.n_slices == 0 or B == 0:
         return y
     lib = _lib()
-    rc = lib.dtans_spmm_launch(*args, x.data_ptr(), x.shape[0], B, bt,
-                               y.data_ptr(),
+    rc = lib.dtans_spmm_launch(*args, int(shared_cols), x.data_ptr(),
+                               x.shape[0], B, bt, y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)
-    launches["dtans_spmm"] += 1
-    _raise_on(lib, rc, "dtans_spmm")
+    name = _variant("dtans_spmm", shared_cols)
+    launches[name] += 1
+    raise_on(lib, rc, name)
     return y

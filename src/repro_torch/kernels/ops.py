@@ -9,18 +9,21 @@ B == 1 delegates to `spmv`, so spmm results at B=1 are bitwise equal to it;
 B == 0 returns an empty result without reaching a kernel.
 
 The uncompressed comparators share that ``(mat, x, y=None)`` signature:
-`sell_spmv` / `sell_spmm` on a `PackedSELL` and `rgcsr_spmv` /
-`rgcsr_spmm` on a `PackedRGCSR`, with the same B == 0 and B == 1 rules.
-An `RGCSRdtANS` is a `CSRdtANS` and runs through `spmv` / `spmm`.
+`sell_spmv` / `sell_spmm` on a `PackedSELL`, `rgcsr_spmv` /
+`rgcsr_spmm` on a `PackedRGCSR` and `bcsr_spmv` / `bcsr_spmm` on a
+`PackedBCSR`, with the same B == 0 and B == 1 rules. An `RGCSRdtANS` or a
+`BCSRdtANS` is a `CSRdtANS` and runs through `spmv` / `spmm`; a
+BCSR-dtANS pack has ``shared_cols`` set, and ``fused`` (`_resolve_fused`)
+then runs the fused shared-column contraction, bitwise equal to the
+generic one. `decode` decompresses a CSR-dtANS matrix through the
+decode-only kernel.
 
 All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain torch versions run. A CUDA request on a
 machine without a card raises.
 
 Not ported yet, and refused with `NotImplementedError` naming the
-ROADMAP.md item: `decode` and the BCSR entry points, ``mesh=`` /
-``n_shards > 1``, ``pipeline=True``, ``fused=True`` and packs with
-``shared_cols`` set.
+ROADMAP.md item: ``mesh=`` / ``n_shards > 1`` and ``pipeline=True``.
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.csr_dtans import CSRdtANS
+from repro_torch.kernels import bcsr_spmv as _bcsr
 from repro_torch.kernels import rgcsr_spmv as _rgcsr
 from repro_torch.kernels import sell_spmv as _sell
 from repro_torch.kernels import tiling
+from repro_torch.kernels.bcsr_spmv import PackedBCSR
+from repro_torch.kernels.dtans_decode import dtans_decode
 from repro_torch.kernels.dtans_spmv import dtans_spmm, dtans_spmv
 from repro_torch.kernels.pack import (PackedMatrix, pack_matrix, to_device,
                                       torch_dtype)
@@ -89,7 +95,7 @@ def get_packed(mat: CSRdtANS) -> PackedMatrix:
     return pm
 
 
-def _refuse(mesh, n_shards, pipeline, fused, pm: PackedMatrix) -> None:
+def _refuse(mesh, n_shards, pipeline) -> None:
     """Knobs of the JAX package's entry points that this port does not run
     yet: each raises rather than being ignored."""
     if mesh is not None or (n_shards is not None and int(n_shards) != 1):
@@ -99,11 +105,24 @@ def _refuse(mesh, n_shards, pipeline, fused, pm: PackedMatrix) -> None:
     if pipeline:
         raise NotImplementedError(
             "pipeline=True (decode j+1 before contracting j) is not ported "
-            "yet (ROADMAP.md queue B items 1-2)")
-    if fused or getattr(pm, "shared_cols", False):
-        raise NotImplementedError(
-            "the fused shared-column contraction (fused=True, shared_cols "
-            "packs) is not ported yet (ROADMAP.md queue B items 1-2)")
+            "yet (ROADMAP.md queue B, redesign queue item 1)")
+
+
+def _resolve_fused(pm: PackedMatrix, fused) -> bool:
+    """Whether this pass runs the shared-column (fused block-decode)
+    contraction: ``fused=None`` follows the pack's ``shared_cols`` flag
+    (BCSR-dtANS encodes fuse, everything else doesn't); ``fused=False``
+    forces the generic path (the comparator); ``fused=True`` on a pack that
+    is not block-filled is an error, since lanes with distinct columns
+    cannot share lane 0's gather."""
+    shared = bool(getattr(pm, "shared_cols", False))
+    if fused is None:
+        return shared
+    if fused and not shared:
+        raise ValueError(
+            "fused=True needs a block-filled (shared-column) pack; only "
+            "BCSR-dtANS encodes set PackedMatrix.shared_cols")
+    return bool(fused)
 
 
 def _check_rhs(x: torch.Tensor, n: int) -> None:
@@ -169,11 +188,16 @@ def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
 def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
          mesh=None, n_shards=None, pipeline: bool = False,
          fused=None) -> torch.Tensor:
-    """y = A x + y with on-the-fly dtANS decoding (fused decode kernel)."""
+    """y = A x + y with on-the-fly dtANS decoding (fused decode kernel).
+
+    ``fused`` selects the shared-column contraction (None: the pack's own
+    ``shared_cols`` flag); it gives bitwise the generic result."""
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards, pipeline, fused, pm)
+    _refuse(mesh, n_shards, pipeline)
+    shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
-    return _one_rhs("dtans_spmv", dm, x, y, lambda v: dtans_spmv(dm, v),
+    return _one_rhs("dtans_spmv", dm, x, y,
+                    lambda v: dtans_spmv(dm, v, shared_cols=shared),
                     decodes=True)
 
 
@@ -186,13 +210,26 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
 
     ``bn`` pins the column-tile width (None = `tiling.choose_bn`, untiled
     when the whole batch fits); every tile width
-    gives bitwise the same result as the untiled kernel."""
+    gives bitwise the same result as the untiled kernel. ``fused`` as in
+    `spmv`."""
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards, pipeline, fused, pm)
+    _refuse(mesh, n_shards, pipeline)
+    shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
     return _many_rhs("dtans_spmm", dm, pm.lane_width, x, y, bn,
-                     lambda v: spmv(pm, v, device=dm.device),
-                     lambda X, b: dtans_spmm(dm, X, bn=b), decodes=True)
+                     lambda v: spmv(pm, v, device=dm.device, fused=fused),
+                     lambda X, b: dtans_spmm(dm, X, bn=b, shared_cols=shared),
+                     decodes=True)
+
+
+def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decompress to the padded (S, L, max_nseg * l/2) ``(cols, vals)``
+    (cols == -1 and vals == +0 mark padding) with the decode-only kernel."""
+    pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
+    dm = to_device(pm, device)
+    obs.default_registry().counter("kernels.decode_invocations").add(1)
+    return dtans_decode(dm)
 
 
 def sell_spmv(ps: PackedSELL, x, y=None, *, device="cuda") -> torch.Tensor:
@@ -235,15 +272,20 @@ def rgcsr_spmm(pr: PackedRGCSR, x, y=None, *, device="cuda",
                      lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b))
 
 
-def _not_ported(name: str, item: str):
-    def entry(*args, **kwargs):
-        raise NotImplementedError(
-            f"ops.{name} is not ported to PyTorch/CUDA yet ({item})")
-    entry.__name__ = name
-    entry.__doc__ = f"Not ported yet: raises NotImplementedError ({item})."
-    return entry
+def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:
+    """Blocked-CSR SpMV: y = A x + y (dense r x c tiles in the kernel).
+    Shares the `spmv` / `sell_spmv` signature."""
+    db = _bcsr.to_device(pb, device)
+    return _one_rhs("bcsr_spmv", db, x, y, lambda v: _bcsr.bcsr_spmv(db, v))
 
 
-decode = _not_ported("decode", "ROADMAP.md queue B item 3")
-bcsr_spmv = _not_ported("bcsr_spmv", "ROADMAP.md queue B item 8")
-bcsr_spmm = _not_ported("bcsr_spmm", "ROADMAP.md queue B item 9")
+def bcsr_spmm(pb: PackedBCSR, x, y=None, *, device="cuda",
+              bn=None) -> torch.Tensor:
+    """Multi-RHS BCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
+    signature; B == 1 delegates to `bcsr_spmv` (bitwise equal), every
+    ``bn`` gives bitwise the untiled result, and the tile is sized for the
+    block height r rows."""
+    db = _bcsr.to_device(pb, device)
+    return _many_rhs("bcsr_spmm", db, pb.block_shape[0], x, y, bn,
+                     lambda v: bcsr_spmv(pb, v, device=db.device),
+                     lambda X, b: _bcsr.bcsr_spmm(db, X, bn=b))

@@ -46,8 +46,8 @@ class PackedMatrix:
     lane_width: int
     max_nseg: int           # static loop bound
     # Block-filled encode (BCSR-dtANS at lane_width == block height): every
-    # in-bounds lane of a slice decodes the SAME column sequence. Not
-    # produced by this package yet; the ops refuse such a pack.
+    # in-bounds lane of a slice decodes the SAME column sequence, so the
+    # ops run the fused contraction (x gathered at lane 0's columns).
     shared_cols: bool = False
 
     @property

@@ -1,9 +1,10 @@
 """The device layout, plain contraction and launch plumbing shared by the
-SELL and RGCSR kernels (`sell_spmv.py`, `rgcsr_spmv.py`).
+SELL, RGCSR and BCSR kernels (`sell_spmv.py`, `rgcsr_spmv.py`,
+`bcsr_spmv.py`).
 
-Both formats pack a matrix into ``(S, rows, Wg)`` arrays: S slices (SELL)
-or groups (RGCSR) of ``rows`` rows, every row padded to ``Wg``, the
-matrix-wide longest row. Row-major, neighbouring rows lie ``Wg`` elements
+The formats pack a matrix into ``(S, rows, Wg)`` arrays: S slices (SELL),
+groups (RGCSR) or block rows (BCSR, ``Wg`` = blocks x block width) of
+``rows`` rows, every row padded to ``Wg``, the matrix-wide longest row. Row-major, neighbouring rows lie ``Wg`` elements
 apart, so a warp running one row per thread would touch 32 cache lines per
 load. On the device the flat ``(R, Wg)`` view (``R = S * rows``) is stored
 in chunks of 32 rows, ``(ceil(R / 32), Wg, 32)`` (`interleave`): element w
@@ -105,14 +106,16 @@ def contract(terms: Iterable, x: torch.Tensor, R: int,
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def library(fmt: str, n_mat: int) -> ctypes.CDLL:
+def library(fmt: str, n_mat: int, n_int: int = 0) -> ctypes.CDLL:
     """``csrc/<fmt>_spmv.cu`` built and loaded, its C entries declared:
     ``<fmt>_spmv_launch`` / ``<fmt>_spmm_launch`` take the value-type flag,
-    ``n_mat`` matrix pointers, the values, R and Wg, then x and n (and B
-    and the tile width), y and the stream."""
+    ``n_mat`` matrix pointers, ``n_int`` integer sizes of the format, the
+    values, R and Wg, then x and n (and B and the tile width), y and the
+    stream."""
     lib = _build.load(f"{fmt}_spmv")
     if not getattr(lib, "_repro_declared", False):
-        head = [_I] + [_VP] * n_mat + [_VP, _LL, _I, _VP, _LL]
+        head = ([_I] + [_VP] * n_mat + [_I] * n_int
+                + [_VP, _LL, _I, _VP, _LL])
         spmv = getattr(lib, f"{fmt}_spmv_launch")
         spmv.argtypes = head + [_VP, _VP]
         spmv.restype = _I
@@ -127,11 +130,13 @@ def library(fmt: str, n_mat: int) -> ctypes.CDLL:
 
 
 def launch(name: str, launches: dict, mats: list, val: torch.Tensor,
-           R: int, x: torch.Tensor, bt: int | None = None) -> torch.Tensor:
+           R: int, x: torch.Tensor, bt: int | None = None,
+           ints: tuple = ()) -> torch.Tensor:
     """Runs the kernel ``name`` (``<fmt>_spmv`` or ``<fmt>_spmm``) on CUDA
     tensors and returns y, ``(R,)`` or ``(R, B)``, counting the launch in
-    ``launches[name]``. A matrix without rows or columns, or an empty
-    batch, launches nothing: its result is zero."""
+    ``launches[name]``; ``ints`` are the format's integer sizes. A matrix
+    without rows or columns, or an empty batch, launches nothing: its
+    result is zero."""
     if R == 0 or x.numel() == 0:
         return torch.zeros((R, *x.shape[1:]), dtype=x.dtype,
                            device=x.device)
@@ -139,11 +144,12 @@ def launch(name: str, launches: dict, mats: list, val: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError("device matrix tensors must be contiguous")
     fmt, kind = name.split("_")
-    lib = library(fmt, len(mats))
+    lib = library(fmt, len(mats), len(ints))
     x = x.contiguous()
     y = torch.empty((R, *x.shape[1:]), dtype=x.dtype, device=x.device)
     args = [int(x.dtype == torch.float64), *(t.data_ptr() for t in mats),
-            val.data_ptr(), R, int(val.shape[1]), x.data_ptr(), x.shape[0]]
+            *(int(v) for v in ints), val.data_ptr(), R, int(val.shape[1]),
+            x.data_ptr(), x.shape[0]]
     if kind == "spmm":
         args += [x.shape[1], bt]
     stream = torch.cuda.current_stream(x.device).cuda_stream

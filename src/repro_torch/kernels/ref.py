@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import bits_to_value, iter_segments
+from repro_torch.kernels.dtans_decode import dtans_decode_plain
 from repro_torch.kernels.pack import PackedMatrix, to_device
 
 
@@ -34,16 +35,6 @@ def spmv_ref(pm: PackedMatrix, x, y=None, *, device="cpu") -> torch.Tensor:
 def decode_ref(pm: PackedMatrix, *, device="cpu"
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Oracle decompression: (cols, vals) as (S, L, max_nseg * l/2) padded
-    tensors (cols == -1 marks padding, vals == 0 there)."""
-    dm = to_device(pm, device)
-    cols_out, vals_out = [], []
-    for _, cols, vbits, valid in iter_segments(dm):
-        vals = bits_to_value(vbits, dm.dtype)
-        cols_out.append(torch.where(valid, cols, -1).to(torch.int32))
-        vals_out.append(torch.where(valid, vals, 0))
-    # (max_nseg, h, S, L) -> (S, L, max_nseg * h), segment-major per lane
-    cols = torch.stack(cols_out).permute(2, 3, 0, 1)
-    vals = torch.stack(vals_out).permute(2, 3, 0, 1)
-    S, L = cols.shape[:2]
-    return (cols.reshape(S, L, -1).contiguous(),
-            vals.reshape(S, L, -1).contiguous())
+    tensors (cols == -1 marks padding, vals == 0 there); the decode-only
+    kernel's plain version on ``device``."""
+    return dtans_decode_plain(to_device(pm, device))

@@ -12,6 +12,13 @@ once.
 `apply` contracts a batch of activations against the matrix through the
 fused multi-RHS decode kernel (`ops.spmm`): one entropy decode per call
 (per column tile), amortized over every request in the batch.
+
+A layer whose ``mat`` is a `BCSRdtANS` (structured-pruned weights encoded
+by `core.bcsr_dtans.encode_bcsr_matrix`, built with the dataclass
+constructor, as the JAX package's ``from_dense(auto=True)`` builds one
+for a ``bcsr_dtans`` decision) serves the same way: its pack has
+``shared_cols`` set, so `ops.spmm` runs the fused shared-column
+contraction.
 """
 
 from __future__ import annotations

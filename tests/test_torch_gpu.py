@@ -19,15 +19,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
 from repro_torch.core.params import TOY
 from repro_torch.kernels import _build, ops, tiling
+from repro_torch.kernels import bcsr_spmv as BC
+from repro_torch.kernels import dtans_decode as DD
 from repro_torch.kernels import dtans_spmv as K
 from repro_torch.kernels import rgcsr_spmv as RG
 from repro_torch.kernels import sell_spmv as SE
 from repro_torch.kernels.pack import pack_matrix, to_device
+from repro_torch.kernels.ref import decode_ref
 from repro_torch.serving.sparse_linear import SparseLinear
+from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES
 from repro_torch.sparse.formats import CSR
+from repro_torch.sparse.random_graphs import block_sparse
 from repro_torch.sparse.rgcsr import RGCSR
 
 RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
@@ -157,6 +163,9 @@ COMPARATORS = {
     "rgcsr": (lambda a, rows: RG.pack_rgcsr(RGCSR.from_csr(a, rows)),
               RG.to_device, RG.rgcsr_spmv, RG.rgcsr_spmm,
               RG.rgcsr_spmv_plain, RG.rgcsr_spmm_plain, RG.launches),
+    "bcsr": (lambda a, rows: BC.pack_bcsr(BCSR.from_csr(a, (rows, 2))),
+             BC.to_device, BC.bcsr_spmv, BC.bcsr_spmm, BC.bcsr_spmv_plain,
+             BC.bcsr_spmm_plain, BC.launches),
 }
 
 
@@ -193,10 +202,12 @@ def test_comparator_kernels_vs_plain_on_card(fmt, dtype, rows):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("fmt", list(COMPARATORS))
+@pytest.mark.parametrize("fmt", ["sell", "rgcsr"])
 def test_comparator_kernels_mask_padding_on_card(fmt):
     """A NaN in x[0] reaches no padded entry: column 0 of the matrix is
-    empty, so every row stays finite."""
+    empty, so every row stays finite. (A BCSR block that covers column 0
+    multiplies its zero cells there, as the reference does:
+    `test_bcsr_edge_cells_multiply_last_x_on_card`.)"""
     _need_card()
     pack, upload, spmv, spmm, *_ = COMPARATORS[fmt]
     d = _dense(40, 12, 0.5, np.float32, 12)
@@ -238,6 +249,137 @@ def test_comparator_ops_on_card_vs_dense():
         _close(got.cpu(), torch.from_numpy(d @ X), got.dtype)
         _close(one(ps, X[:, 0]).cpu(), torch.from_numpy(d @ X[:, 0]),
                got.dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", BCSR_BLOCK_SHAPES, ids=str)
+def test_bcsr_kernels_bitwise_plain_on_card(bs, dtype):
+    """At every registry block shape: SpMV and SpMM bitwise their plain
+    versions, column tiles and B = 1 bitwise the untiled kernel and SpMV."""
+    _need_card()
+    d = _dense(61, 43, 0.15, dtype, 15)        # ragged edge blocks
+    db = BC.to_device(BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), bs)),
+                      "cuda")
+    X = torch.as_tensor(np.random.default_rng(16).standard_normal((43, 64)),
+                        dtype=db.dtype, device="cuda")
+    x = X[:, 0].contiguous()
+    y = BC.bcsr_spmv(db, x)
+    assert torch.equal(y, BC.bcsr_spmv_plain(db, x))
+    for B in (3, 64):
+        Y = BC.bcsr_spmm(db, X[:, :B].contiguous())
+        assert torch.equal(Y, BC.bcsr_spmm_plain(db, X[:, :B].contiguous()))
+        assert torch.equal(BC.bcsr_spmm(db, X[:, :B].contiguous(), bn=24), Y)
+    assert torch.equal(BC.bcsr_spmm(db, X[:, :1].contiguous())[..., 0], y)
+    _close(y.reshape(-1)[:61].cpu(), torch.from_numpy(d @ x.cpu().numpy()),
+           db.dtype)
+
+
+@pytest.mark.gpu
+def test_bcsr_edge_cells_multiply_last_x_on_card():
+    """A real block's cells past column n - 1 multiply x[n - 1], as in the
+    reference: an inf there makes those rows NaN, in kernel and plain
+    version alike; padded slots stay selects."""
+    _need_card()
+    d = np.zeros((8, 7))
+    d[0, 6] = 1.0                       # block (0, 3) of 2x2 holds col 7
+    d[5, 1] = 2.0
+    db = BC.to_device(BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), (2, 2))),
+                      "cuda")
+    x = torch.ones(7, dtype=torch.float64, device="cuda")
+    x[6] = float("inf")
+    y = BC.bcsr_spmv(db, x)
+    torch.testing.assert_close(y, BC.bcsr_spmv_plain(db, x), rtol=0, atol=0,
+                               equal_nan=True)
+    assert bool(y.reshape(-1)[:2].isnan().all())
+    assert bool(torch.isfinite(y.reshape(-1)[2:]).all())
+
+
+def _bcsr_dtans(bs, dtype, seed):
+    a = block_sparse(30, 7, (2, 3), 0.3, np.random.default_rng(seed),
+                     dtype=dtype)
+    d = a.to_dense()
+    d[np.random.default_rng(seed + 1).random(d.shape) < 0.2] = 0
+    return d, pack_matrix(encode_bcsr_matrix(CSR.from_dense(d), bs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [(2, 2), (4, 4), (40, 2)], ids=str)
+def test_shared_cols_kernels_on_card(bs, dtype):
+    """The fused BCSR-dtANS kernels: bitwise their plain versions and the
+    generic kernels, tiles and B = 1 included; L = 40 spans two warps."""
+    _need_card()
+    d, pm = _bcsr_dtans(bs, dtype, 17)
+    assert pm.shared_cols and pm.lane_width == bs[0]
+    dm = to_device(pm, "cuda")
+    X = torch.as_tensor(np.random.default_rng(18).standard_normal(
+        (d.shape[1], 9)), dtype=dm.dtype, device="cuda")
+    x = X[:, 0].contiguous()
+    before = dict(K.launches)
+    y = K.dtans_spmv(dm, x, shared_cols=True)
+    assert torch.equal(y, K.dtans_spmv_plain(dm, x, shared_cols=True))
+    assert torch.equal(y, K.dtans_spmv(dm, x))
+    Y = K.dtans_spmm(dm, X, shared_cols=True)
+    assert torch.equal(Y, K.dtans_spmm_plain(dm, X, shared_cols=True))
+    assert torch.equal(Y, K.dtans_spmm(dm, X))
+    assert torch.equal(K.dtans_spmm(dm, X, bn=4, shared_cols=True), Y)
+    assert torch.equal(ops.spmm(pm, X), ops.spmm(pm, X, fused=False))
+    torch.cuda.synchronize()
+    _close(y.reshape(-1)[:d.shape[0]].cpu(),
+           torch.from_numpy(d @ x.cpu().numpy()), dm.dtype)
+    assert K.launches["dtans_spmv_shared"] - before["dtans_spmv_shared"] == 1
+    assert K.launches["dtans_spmm_shared"] - before["dtans_spmm_shared"] == 3
+
+
+@pytest.mark.gpu
+def test_sparse_linear_over_bcsr_dtans_reaches_shared_kernels():
+    _need_card()
+    d, pm = _bcsr_dtans((2, 2), np.float32, 19)
+    mat = encode_bcsr_matrix(CSR.from_dense(d), (2, 2))
+    sl = SparseLinear(mat=mat, packed=pack_matrix(mat), d_in=d.shape[1],
+                      d_out=d.shape[0], dense_bytes=d.nbytes,
+                      baseline_bytes=0, device=torch.device("cuda"))
+    K.reset_launches()
+    x = torch.randn(5, d.shape[1], device="cuda")
+    y = sl.apply(x)
+    y1 = sl.apply(x[0])
+    torch.cuda.synchronize()
+    assert K.launches == {"dtans_spmv": 0, "dtans_spmm": 0,
+                          "dtans_spmv_shared": 1, "dtans_spmm_shared": 1}
+    torch.testing.assert_close(y, sl.apply_dense_reference(x), rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(y1, sl.apply_dense_reference(x[0]),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_decode_kernel_exact_on_card(packed):
+    """Columns exactly, values bit for bit, padding -1 / +0."""
+    _need_card()
+    _, pm = packed
+    before = DD.launches["dtans_decode"]
+    cols, vals = ops.decode(pm)
+    want_c, want_v = decode_ref(pm, device="cuda")
+    torch.cuda.synchronize()
+    assert DD.launches["dtans_decode"] - before == 1
+    assert cols.dtype == torch.int32 and torch.equal(cols, want_c)
+    bits = torch.int64 if vals.dtype == torch.float64 else torch.int32
+    assert torch.equal(vals.view(bits), want_v.view(bits))
+    assert not bool(vals[cols < 0].view(bits).any())
+
+
+@pytest.mark.gpu
+def test_bcsr_ops_on_card_vs_dense():
+    _need_card()
+    d = _dense(100, 60, 0.3, np.float64, 20)
+    pb = BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), (4, 2)))
+    X = np.random.default_rng(21).standard_normal((60, 5))
+    got = ops.bcsr_spmm(pb, X, bn=2)
+    assert got.device.type == "cuda"
+    _close(got.cpu(), torch.from_numpy(d @ X), got.dtype)
+    _close(ops.bcsr_spmv(pb, X[:, 0]).cpu(), torch.from_numpy(d @ X[:, 0]),
+           got.dtype)
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:

@@ -303,21 +303,17 @@ class TestRefusals:
                                     dict(pipeline=True), dict(fused=True)])
     @pytest.mark.parametrize("fn", ["spmv", "spmm"])
     def test_unported_knobs_raise(self, pm, kw, fn):
+        """Sharding and ``pipeline`` are not ported; ``fused=True`` runs,
+        but on a pack that is not block-filled it is a ValueError, as in
+        the JAX package."""
         x = np.ones(10, np.float32) if fn == "spmv" else np.ones((10, 2),
                                                                  np.float32)
+        if "fused" in kw:
+            with pytest.raises(ValueError, match="block-filled"):
+                getattr(ops, fn)(pm, x, device="cpu", **kw)
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(ops, fn)(pm, x, device="cpu", **kw)
-
-    def test_shared_cols_pack_raises(self, pm):
-        import dataclasses
-        shared = dataclasses.replace(pm, shared_cols=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.spmv(shared, np.ones(10, np.float32), device="cpu")
-
-    @pytest.mark.parametrize("name", ["decode", "bcsr_spmv", "bcsr_spmm"])
-    def test_unported_entry_points_raise(self, pm, name):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(ops, name)(pm)
 
     def test_cuda_request_without_card_raises(self, pm):
         if torch.cuda.is_available():
