@@ -16,9 +16,13 @@ Phases, each raising on failure (no phase falls back to the CPU):
    128), RGCSR (groups 4, 8, 16, 32) and BCSR (every registry block shape)
    go through the comparator kernels the same way, bitwise their plain
    versions, each SpMM column bitwise its SpMV; two RGCSR-dtANS encodes go
-   through the dtANS kernels, and BCSR-dtANS encodes at 2x2 and 4x4 through
-   the fused shared-column kernels, bitwise their plain versions and the
-   generic kernels.
+   through the dtANS kernels, and BCSR-dtANS encodes at 2x2, 4x4 and 40x2
+   through the fused shared-column kernels, bitwise their plain versions
+   and the generic kernels. A lane-width sweep (L in `SWEEP_L`, 1 to 1024)
+   holds the dtANS kernels and decode bitwise against their plain versions
+   on an escape-heavy quantized f32 matrix, an f64 matrix with two tables
+   and a matrix whose table base reaches 256 (a digit group's radix of
+   2^32), with tiles, B=1 SpMM vs SpMV and ``pipeline=True`` vs ``False``.
 4. the main path at full width: the tied LM head of SmolLM-135M (d_model
    576, vocab 49152) compressed by ``SparseLinear.from_dense`` with its
    defaults, serving a few requests through ``apply``; each is held
@@ -41,9 +45,10 @@ Phases, each raising on failure (no phase falls back to the CPU):
    columns and value bits equal to `decode_ref` and the real entries
    exactly the host's `decode_matrix`; the kernel's counter must rise.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
-   the library call (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, BSR
-   ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
-   timed only), dense matmul, and the bound, for every kernel.
+   the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
+   BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
+   timed only; a row's ``library_ms`` is the faster of them), dense
+   matmul, and the bound, for every kernel.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -414,7 +419,7 @@ def phase_kernels() -> None:
         log(f"[kernels] {name:28s} max|k-plain|={worst:.3e} ok")
     for name, factory, _, shared in CASES:
         a = factory()
-        for bs in ((2, 2), (4, 4)):
+        for bs in ((2, 2), (4, 4), (40, 2)):
             what = f"bcsr-dtans {name} {bs[0]}x{bs[1]}"
             mat = encode_bcsr_matrix(a, block_shape=bs, shared_table=shared)
             worst = _check_dtans(what, a, mat, rng)
@@ -424,6 +429,95 @@ def phase_kernels() -> None:
             log(f"[kernels] {what:36s} max|k-plain|={worst:.3e}, fused "
                 f"bitwise plain and generic ok")
     RESULTS["kernel_cases"] = rows
+    phase_sweep()
+
+
+# The lane widths of the sweep: packed narrow slices (1 to 32 lanes, several
+# slices a warp), one warp, and slices over 2 to 32 warps (SpMM takes up to
+# `tiling.MAX_SPMM_LANE_WIDTH`).
+SWEEP_L = (1, 3, 4, 8, 31, 32, 33, 40, 64, 100, 128, 256, 1024)
+
+
+def _sweep_csr(L: int, kind: str, seed: int) -> CSR:
+    """A matrix of 1.5 slices of L rows (at least 600 rows), 160 columns and
+    0 to 23 nonzeros a row (so the lanes of a slice end at different
+    segments, some rows are empty), about 7,000 to 18,500 nonzeros:
+    ``quant`` f32 quantized to 2^-16 (more levels than a table's 4096
+    slots: escapes at many positions), ``f64`` random doubles (the same),
+    ``base256`` f32 of two values in runs (table base 256)."""
+    rng = np.random.default_rng(seed)
+    m, n = max(L + L // 2 + 1, 600), 160
+    lens = rng.integers(0, 24, size=m)
+    indptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    if kind == "base256":
+        starts = rng.integers(0, n - 24, size=m)
+        indices = np.concatenate([s0 + np.arange(k)
+                                  for s0, k in zip(starts, lens)])
+        values = np.where(np.arange(indptr[-1]) % 7 == 0, -1.0, 1.0)
+    else:
+        indices = np.concatenate([np.sort(rng.choice(n, k, replace=False))
+                                  for k in lens])
+        values = rng.standard_normal(indptr[-1]) * 2
+        if kind == "quant":
+            values = np.round(values * 65536) / 65536
+    dtype = np.float64 if kind == "f64" else np.float32
+    return CSR(indptr, indices.astype(np.int32), values.astype(dtype),
+               (m, n))
+
+
+def _check_sweep(label: str, pm, rng) -> None:
+    """One sweep matrix: SpMV, SpMM, tiles, B=1, ``pipeline`` and decode,
+    kernel vs plain bitwise."""
+    dm = to_device(pm, "cuda")
+    n = pm.shape[1]
+    X = torch.as_tensor(rng.standard_normal((n, 7)), dtype=dm.dtype,
+                        device="cuda")
+    x = X[:, 0].contiguous()
+    y = K.dtans_spmv(dm, x)
+    assert torch.equal(y, K.dtans_spmv_plain(dm, x)), f"{label}: spmv"
+    assert torch.equal(ops.spmv(pm, x, pipeline=True), ops.spmv(pm, x)), \
+        f"{label}: spmv pipeline"
+    if pm.lane_width <= tiling.MAX_SPMM_LANE_WIDTH:
+        Y = K.dtans_spmm(dm, X)
+        assert torch.equal(Y, K.dtans_spmm_plain(dm, X)), f"{label}: spmm"
+        assert torch.equal(K.dtans_spmm(dm, X, bn=3), Y), f"{label}: bn=3"
+        assert torch.equal(K.dtans_spmm(dm, X[:, :1].contiguous())[..., 0],
+                           y), f"{label}: spmm B=1 != spmv"
+        assert torch.equal(ops.spmm(pm, X, pipeline=True), ops.spmm(pm, X)), \
+            f"{label}: spmm pipeline"
+    else:
+        try:
+            K.dtans_spmm(dm, X)
+        except ValueError as exc:
+            assert "lane widths up to" in str(exc), exc
+        else:
+            raise AssertionError(f"{label}: spmm took L={pm.lane_width}")
+    _check_decode(label, pm)
+    torch.cuda.synchronize()
+
+
+def phase_sweep() -> None:
+    rng = np.random.default_rng(SEED + 5)
+    rows, seen_esc, seen_256 = [], 0, 0
+    for L in SWEEP_L:
+        for kind, shared in (("quant", True), ("f64", False),
+                             ("base256", True)):
+            a = _sweep_csr(L, kind, L)
+            mat = encode_matrix(a, lane_width=L, shared_table=shared)
+            pm = pack_matrix(mat)
+            esc = int(mat.esc_count_by_domain.sum())
+            base = int(pm.tab_base.max())
+            label = f"sweep L={L} {kind}"
+            _check_sweep(label, pm, rng)
+            seen_esc = max(seen_esc, esc)
+            seen_256 += base == 256
+            rows.append({"case": label, "nnz": a.nnz, "tables":
+                         len(mat.tables), "escapes": esc, "max_base": base,
+                         "bitwise": True})
+        log(f"[sweep] L={L:4d}: quant / f64 2-table / base-256 matrices, "
+            f"spmv, spmm, bn=3, B=1, pipeline and decode bitwise plain")
+    assert seen_esc > 1000 and seen_256 > 0, (seen_esc, seen_256)
+    RESULTS["sweep_cases"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -831,7 +925,8 @@ def _roofline(nbytes: int, flops: int, itemsize: int) -> tuple[float, str]:
 def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
     """Least time for one dtANS pass at batch B: the larger of the bytes
     the function must move (compressed stream and escape words actually
-    present, one per-lane count array, coding tables, x, y; each once)
+    present, one per-lane count array, coding tables at 12 bytes a slot,
+    x, y; each once)
     over the HBM rate, and its multiply-adds (2 nnz B) over the f32 rate.
     The kernels also read ``ns``, but it is ``2 * nnz`` and not needed."""
     mat, pm = sl.mat, sl.packed
@@ -839,7 +934,7 @@ def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
     nbytes = (int(mat.stream.size) * 4
               + sum(int(e.size) for e in mat.esc_streams) * 8
               + pm.nnz.nbytes
-              + pm.tab_symbol.size * (8 + 4 + 4 + 4)
+              + pm.tab_symbol.size * 12
               + sl.d_in * B * item + sl.d_out * B * item)
     flops = 2 * mat.nnz * B
     return (*_roofline(nbytes, flops, item), nbytes, flops)
@@ -894,7 +989,7 @@ def library_call(csr: CSR, block_shape=None):
                 f"({str(exc).splitlines()[0][:100]}); cuSPARSE CSR instead")
         else:
             if ok:
-                return (f"BSR {block_shape[0]}x{block_shape[1]}",
+                return (f"torch BSR {block_shape[0]}x{block_shape[1]}",
                         lambda v: a_bsr @ v)
             log(f"[times] torch BSR {block_shape} @ x disagrees with CSR; "
                 f"cuSPARSE CSR instead")
@@ -921,20 +1016,25 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
 
     def add(kern, label, B, bn, k_ms, p_ms, lib, lib_ms, dense_ms, b,
             csr_ms=None):
+        """One row; its ``library`` is the faster of the PyTorch calls
+        timed for the same product on the same matrix (``lib`` and, where
+        given, cuSPARSE CSR)."""
         b_ms, b_by, nbytes, flops = b
+        calls = {} if lib_ms is None else {lib: lib_ms}
+        if csr_ms is not None:
+            calls["cuSPARSE CSR"] = csr_ms
+        best = min(calls, key=calls.get) if calls else None
         rows.append({"kernel": kern, "pack": label, "B": B, "bn": bn,
-                     "ms": k_ms, "plain_ms": p_ms, "library": lib,
-                     "library_ms": lib_ms, "csr_ms": csr_ms,
+                     "ms": k_ms, "plain_ms": p_ms, "library": best,
+                     "library_ms": calls.get(best), "library_calls": calls,
                      "dense_ms": dense_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": nbytes, "flops": flops})
-        lib_s = "-" if lib_ms is None else f"{lib_ms:.4f} ms"
-        csr_s = "" if csr_ms is None else \
-            f" | cuSPARSE CSR {csr_ms:.4f} ms"
+        lib_s = " | ".join(f"{k} {v:.4f} ms" for k, v in calls.items()) \
+            or "library -"
         dense_s = "-" if dense_ms is None else f"{dense_ms:.4f} ms"
         log(f"[times] {kern:17s} {label:14s} B={B:3d} bn={bn} kernel "
-            f"{k_ms:.4f} ms | plain {p_ms:.2f} ms | {lib or 'library'} "
-            f"{lib_s}{csr_s} | dense {dense_s} | bound {b_ms:.5f} ms "
-            f"({b_by}) | {card()}")
+            f"{k_ms:.4f} ms | plain {p_ms:.2f} ms | {lib_s} | dense "
+            f"{dense_s} | bound {b_ms:.5f} ms ({b_by}) | {card()}")
 
     def pair(one, many, x1, x, bn):
         """(kernel ms, plain ms) of a SpMV (B == 1) or SpMM pass."""
@@ -1051,7 +1151,8 @@ def main() -> int:
             "max_rel_err": RESULTS["main_max_rel_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "B": B})
+            "library_ms": t["library_ms"], "library": t["library"],
+            "B": B})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -1,22 +1,47 @@
-// The lock-step dtANS decoder for Hopper (sm_90a), shared by the fused
-// SpMV / SpMM kernels (dtans_spmv.cu) and the decode-only kernel
+// The warp-synchronous dtANS decoder for Hopper (sm_90a), shared by the
+// fused SpMV / SpMM kernels (dtans_spmv.cu) and the decode-only kernel
 // (dtans_decode.cu).
 //
 // It is the CUDA form of the JAX package's kernels/common.py::init_state
-// and segment_step, one thread per lane (row) of a slice, one block per
-// slice:
-//   * stream claims (`_claim`) are a block-wide exclusive scan in lane
-//     order: __ballot_sync + __popc per warp, warp totals through shared
-//     memory. The cursor is block-uniform.
-//   * escapes: per position, a block scan of is_esc (gated by `active`,
-//     not by `valid`) ranks each lane in its table's escape stream; the
-//     scan is skipped when no lane of the block escapes.
-//   * state as in the reference: words as uint32, d and r as three 32-bit
-//     limbs in 64-bit registers, digit groups (gacc/racc) in 64 bits (racc
-//     can be exactly 2^32).
-// Every thread of the block must call block_rank, init_lane,
-// decode_segment and block_nseg: they hold block-wide barriers. Threads
-// past L take part with nsegs = 0.
+// and segment_step. One thread decodes one lane (row) of a slice. The
+// threads that decode one slice form its group, and a unit is what one
+// warp (or, for wide slices, a few warps) decodes together:
+//   * L <= 32 ("narrow"): the group is L rounded up to a power of two, G,
+//     and one warp packs 32 / G slices. A claim's rank and total are
+//     __popc of the warp's __ballot_sync masked to the group's bits; no
+//     barrier at all.
+//   * L > 32 ("wide"): the group is ceil(L / 32) warps, one warp per 32
+//     lanes. The warps exchange their counts through shared memory behind
+//     one named barrier (bar.sync id, n) over only the group's warps.
+//     All three refill claims of a segment and its escape count travel in
+//     one 64-bit word of 16-bit fields per warp, so a segment costs one
+//     barrier (two when some lane escapes).
+// The geometry (group size, warps per unit, units per block) is computed
+// in Python (kernels/tiling.py::geometry) and passed in.
+//
+// Per segment:
+//   * the 8 table lookups are issued before any of them is used; the
+//     coding tables are staged once per block in shared memory, 12 bytes a
+//     slot: the u64 symbol, then one u32 of digit | base << 8 |
+//     is_esc << 17 (kernels/pack.py::pack_tables);
+//   * escapes are ranked only when some lane of the unit escapes (one
+//     __any_sync, or the exchanged total): the rank of position k, lane l
+//     in table t's stream is esc_cur[t] + the group's escapes at positions
+//     k' < k of table t + the escapes at position k of lanes before l, the
+//     order of the reference's per-position scan;
+//   * the refill's stream words are prefetched: a segment's only claims
+//     are its refill at the end, so when segment j starts the refill's
+//     cursor is known, and the window [cursor, cursor + 3 G) of the
+//     slice's stream row goes to shared memory with cp.async; the refill
+//     then reads the window, not a dependent global load;
+//   * the state is three 32-bit limbs (d, r) multiplied with __umulhi. A
+//     digit group's radix racc can be exactly 2^32 (a table base of 256,
+//     4 digits a group): that multiply is a shift by one limb. With a
+//     32-bit word, limb_ge_w and limb_shr are limb moves.
+// Every thread of a unit must call init_lane and decode_segment the same
+// number of times: they hold warp votes (and, wide, the group's barrier).
+// Threads past L, or in a group past the last slice, take part with
+// nsegs = 0.
 
 #pragma once
 
@@ -34,14 +59,11 @@ constexpr int O = 3;     // words per segment
 constexpr int F = 2;     // conditional loads per segment
 constexpr int MB = 8;    // log2(M): multiplicity cap bits
 constexpr int H = LS / 2;                       // nonzeros per segment
-constexpr int G = (32 / MB) > 0 ? (32 / MB) : 1;  // digits per fold group
-constexpr unsigned long long M32 = 0xFFFFFFFFull;
-constexpr unsigned long long WM1 = (1ull << WB) - 1;
-constexpr unsigned long long KM1 = (1ull << KB) - 1;
-// Each kernel's static shared memory is warp_tot[MAX_WARPS] plus smax,
-// 132 B, laid out in 144 B; kernels/tiling.py::STATIC_SMEM_BYTES must
-// match what dtans_spmm_static_smem reports.
-constexpr int MAX_WARPS = 32;
+constexpr int DG = (32 / MB) > 0 ? (32 / MB) : 1;  // digits per fold group
+constexpr int KSLOTS = 1 << KB;
+constexpr uint32_t KM1 = (1u << KB) - 1u;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+static_assert(WB == 32, "limb moves below assume 32-bit stream words");
 
 struct Args {
   const uint32_t* stream;            // (S, wmax)
@@ -50,116 +72,342 @@ struct Args {
   long long emax;
   const int* ns;                     // (S, L)
   const int* nnz;                    // (S, L)
-  const unsigned long long* tab_symbol;  // (T, K)
-  const int* tab_digit;              // (T, K)
-  const int* tab_base;               // (T, K)
-  const int* tab_is_esc;             // (T, K)
-  int K;
+  const int* tables;                 // (T, 3 K): K u64 symbols, K u32 meta
+  int T;
   int pattern_bits;                  // bit k = table of segment position k
   int S;
   int L;
   int max_nseg;
 };
 
+// Launch geometry (kernels/tiling.py::geometry).
+struct Geom {
+  int group;     // threads per slice: pow2 <= 32, or uw * 32
+  int uw;        // warps per unit
+  int spu;       // slices per unit (32 / group when narrow, else 1)
+  long long units;
+  int upb;       // units decoded at once per block (SpMM: 1)
+  int cw;        // SpMM contraction warps (0 otherwise)
+};
+
+// ---- shared-memory plan ---------------------------------------------------
+// tables | per concurrent unit: window, exchange | (SpMM) ring, accumulator.
+// kernels/tiling.py::smem_plan computes the same sizes.
+__host__ __device__ inline long long align16(long long v) {
+  return (v + 15) & ~15ll;
+}
+__host__ __device__ inline long long tables_bytes(int T) {
+  return align16((long long)T * KSLOTS * 12);
+}
+__host__ __device__ inline long long window_bytes(int uw) {
+  return align16(2ll * O * uw * 32 * 4);
+}
+__host__ __device__ inline long long exchange_bytes(int uw) {
+  return align16(2ll * uw * 2 * 8) + align16(2ll * uw * 4);
+}
+__host__ __device__ inline long long unit_bytes(int uw) {
+  return window_bytes(uw) + exchange_bytes(uw);
+}
+
+struct UnitSmem {
+  uint32_t* win;              // [2][O * uw * 32]
+  unsigned long long* xa;     // [2][uw][2]
+  int* xm;                    // [2][uw]
+};
+
+__device__ __forceinline__ UnitSmem unit_smem(unsigned char* base, int uw) {
+  UnitSmem u;
+  u.win = reinterpret_cast<uint32_t*>(base);
+  u.xa = reinterpret_cast<unsigned long long*>(base + window_bytes(uw));
+  u.xm = reinterpret_cast<int*>(base + window_bytes(uw) +
+                                align16(2ll * uw * 2 * 8));
+  return u;
+}
+
+struct Tables {
+  const unsigned long long* sym;  // table t at sym + t * 3K / 2 (u64s)
+  const uint32_t* meta;           // table t at meta + t * 3K (u32s)
+};
+
+// Copies the packed tables verbatim into the front of shared memory, then
+// syncs the block. Every thread of the block must call it.
+__device__ __forceinline__ Tables stage_tables(const Args& a,
+                                               unsigned char* smem) {
+  const int4* src = reinterpret_cast<const int4*>(a.tables);
+  int4* dst = reinterpret_cast<int4*>(smem);
+  const int n16 = a.T * KSLOTS * 12 / 16;
+  for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = __ldg(src + i);
+  __syncthreads();
+  Tables tb;
+  tb.sym = reinterpret_cast<const unsigned long long*>(smem);
+  tb.meta = reinterpret_cast<const uint32_t*>(smem) + 2 * KSLOTS;
+  return tb;
+}
+
+// ---- barriers and async copies -------------------------------------------
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ unsigned lanemask_lt() {
+  return (1u << (threadIdx.x & 31u)) - 1u;
+}
+
+// ---- the group ------------------------------------------------------------
+struct Group {
+  long long s;     // slice this thread decodes (>= S: none)
+  const uint32_t* row;  // its stream row (slice 0's when s >= S)
+  int lane;        // lane within the slice
+  bool in;         // lane < L and s < S
+  int gthreads;    // threads of the group
+  int gbase;       // warp lane of the group's lane 0 (0 when wide)
+  unsigned gmask;  // the group's bits in the warp
+  bool wide;
+  int uw;          // warps of the group (wide)
+  int wi;          // this warp's index in the group
+  int bar;         // named barrier id (wide)
+  uint32_t* win;   // window, parity 0; parity 1 at + O * gthreads
+  unsigned long long* xa;
+  int* xm;
+  int xc;          // exchanges so far (slot = xc & 1)
+  int r;           // thread index within the unit: wi * 32 + warp lane
+};
+
+// The group of unit u for a thread in warp `wi` of the unit.
+__device__ __forceinline__ Group make_group(const Args& a, const Geom& gm,
+                                            const UnitSmem& us, long long u,
+                                            int wi, int bar) {
+  Group g;
+  const int wl = threadIdx.x & 31;
+  g.wide = gm.uw > 1;
+  g.uw = gm.uw;
+  g.wi = wi;
+  g.bar = bar;
+  g.xa = us.xa;
+  g.xm = us.xm;
+  g.xc = 0;
+  g.r = wi * 32 + wl;
+  if (gm.uw == 1) {
+    const int G = gm.group;
+    const int gi = wl / G;
+    g.gthreads = G;
+    g.gbase = gi * G;
+    g.gmask = (G == 32) ? FULL : (((1u << G) - 1u) << g.gbase);
+    g.lane = wl - g.gbase;
+    g.s = u * gm.spu + gi;
+    g.win = us.win + gi * 2 * O * G;
+  } else {
+    g.gthreads = gm.uw * 32;
+    g.gbase = 0;
+    g.gmask = FULL;
+    g.lane = g.r;
+    g.s = u;
+    g.win = us.win;
+  }
+  g.in = g.lane < a.L && g.s < a.S;
+  g.row = a.stream + (g.s < a.S ? g.s : 0) * a.wmax;
+  return g;
+}
+
+// Sums `nw` packed words of 16-bit fields over the group's warps (one
+// word per warp, written by its lane 0): `pre` over the warps before this
+// one, `tot` over all; `mx` gets the largest `mine_max`. Wide groups only.
+template <int NW>
+__device__ __forceinline__ void exchange(Group& g,
+                                         const unsigned long long* mine,
+                                         unsigned long long* pre,
+                                         unsigned long long* tot,
+                                         int mine_max, int* mx) {
+  unsigned long long* slot = g.xa + (g.xc & 1) * g.uw * 2;
+  int* mslot = g.xm + (g.xc & 1) * g.uw;
+  ++g.xc;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) slot[g.wi * 2 + w] = mine[w];
+    mslot[g.wi] = mine_max;
+  }
+  bar_sync(g.bar, g.uw * 32);
+  int m = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) pre[w] = tot[w] = 0ull;
+  for (int k = 0; k < g.uw; ++k) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const unsigned long long v = slot[k * 2 + w];
+      tot[w] += v;
+      if (k < g.wi) pre[w] += v;
+    }
+    m = max(m, mslot[k]);
+  }
+  *mx = m;
+}
+
+__device__ __forceinline__ int field(unsigned long long v, int k) {
+  return (int)((v >> (16 * k)) & 0xFFFFull);
+}
+
+struct Claims {
+  int off[O];   // this lane's word offset from the cursor, per claim
+  int total;    // words the group claims in all
+};
+
+// O claims in k order (`take`), plus the unit-uniform escape flag and the
+// largest segment count. Includes the group's synchronisation, so shared
+// memory written before it (the window) is visible after it.
+__device__ __forceinline__ Claims claim(Group& g, const bool take[O],
+                                        int esc_count, int nsegs,
+                                        bool* esc_any, int* nseg_max) {
+  Claims c;
+  const unsigned lt = lanemask_lt();
+  unsigned b[O];
+#pragma unroll
+  for (int k = 0; k < O; ++k) b[k] = __ballot_sync(FULL, take[k]);
+  if (!g.wide) {
+    __syncwarp(FULL);
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < O; ++k) {
+      const unsigned m = b[k] & g.gmask;
+      c.off[k] = acc + __popc(m & lt);
+      acc += __popc(m);
+    }
+    c.total = acc;
+    *esc_any = __any_sync(FULL, esc_count > 0);
+    *nseg_max = __reduce_max_sync(FULL, (unsigned)nsegs);
+    return c;
+  }
+  unsigned long long mine = 0ull;
+#pragma unroll
+  for (int k = 0; k < O; ++k)
+    mine |= (unsigned long long)__popc(b[k]) << (16 * k);
+  mine |= (unsigned long long)__reduce_add_sync(FULL, (unsigned)esc_count)
+          << 48;
+  unsigned long long pre, tot;
+  exchange<1>(g, &mine, &pre, &tot,
+           (int)__reduce_max_sync(FULL, (unsigned)nsegs), nseg_max);
+  int acc = 0;
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    c.off[k] = acc + field(pre, k) + __popc(b[k] & lt);
+    acc += field(tot, k);
+  }
+  c.total = acc;
+  *esc_any = field(tot, 3) > 0;
+  return c;
+}
+
+// ---- limbs -----------------------------------------------------------------
+// d = d * m + a (mod 2^96) in three 32-bit limbs; m <= 2^32, a < 2^32.
+__device__ __forceinline__ void limb_mul_add(uint32_t d[3],
+                                             unsigned long long m,
+                                             uint32_t a) {
+  if (m >> 32) {  // m == 2^32: a shift by one limb
+    d[2] = d[1];
+    d[1] = d[0];
+    d[0] = a;
+    return;
+  }
+  const uint32_t mm = (uint32_t)m;
+  uint32_t lo0 = d[0] * mm;
+  uint32_t hi0 = __umulhi(d[0], mm);
+  lo0 += a;
+  hi0 += (lo0 < a) ? 1u : 0u;
+  uint32_t lo1 = d[1] * mm;
+  uint32_t hi1 = __umulhi(d[1], mm);
+  lo1 += hi0;
+  hi1 += (lo1 < hi0) ? 1u : 0u;
+  d[2] = d[2] * mm + hi1;
+  d[1] = lo1;
+  d[0] = lo0;
+}
+
+__device__ __forceinline__ bool limb_ge_w(const uint32_t r[3]) {
+  return (r[1] | r[2]) != 0u;
+}
+
+__device__ __forceinline__ void limb_shr(uint32_t d[3]) {
+  d[0] = d[1];
+  d[1] = d[2];
+  d[2] = 0u;
+}
+
+__device__ __forceinline__ int clampi(int v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+// ---- lane state and segments ---------------------------------------------
 struct Lane {
   uint32_t w[O];
-  unsigned long long d[3];
-  unsigned long long r[3];
-  long long col;
+  uint32_t d[3];
+  uint32_t r[3];
+  int col;               // running column (columns < 2^31)
+  int cursor;            // group-uniform stream cursor
+  int esc0, esc1;        // group-uniform escape cursors, tables 0 / 1
   int nsegs;
   int nnz;
 };
 
-struct BlockCtx {
-  int* warp_tot;  // shared, MAX_WARPS ints
-  int nwarps;
+struct Seg {
+  int col[H];
+  unsigned long long vb[H];
+  unsigned valid;  // bit i: position i holds an entry
 };
 
-// Exclusive rank of this thread among the block's threads with `take`, in
-// thread order; *total receives the block's count. Every thread of the
-// block must call it.
-__device__ __forceinline__ int block_rank(bool take, const BlockCtx& bc,
-                                          int* total) {
-  const unsigned lane = threadIdx.x & 31u;
-  const int warp = (int)(threadIdx.x >> 5);
-  const unsigned mask = __ballot_sync(0xFFFFFFFFu, take);
-  const int r = __popc(mask & ((1u << lane) - 1u));
-  if (lane == 0) bc.warp_tot[warp] = __popc(mask);
-  __syncthreads();
-  int off = 0, tot = 0;
-  for (int w = 0; w < bc.nwarps; ++w) {
-    const int c = bc.warp_tot[w];
-    off += (w < warp) ? c : 0;
-    tot += c;
-  }
-  __syncthreads();
-  *total = tot;
-  return off + r;
-}
-
-__device__ __forceinline__ long long clampll(long long v, long long hi) {
-  return v < 0 ? 0 : (v > hi ? hi : v);
-}
-
-__device__ __forceinline__ void limb_mul_add(unsigned long long d[3],
-                                             unsigned long long m,
-                                             unsigned long long a) {
-  const unsigned long long t0 = d[0] * m + a;
-  const unsigned long long t1 = d[1] * m + (t0 >> 32);
-  const unsigned long long t2 = d[2] * m + (t1 >> 32);
-  d[0] = t0 & M32;
-  d[1] = t1 & M32;
-  d[2] = t2 & M32;
-}
-
-__device__ __forceinline__ bool limb_ge_w(const unsigned long long r[3]) {
-  const bool hi = (r[1] > 0) || (r[2] > 0);
-  if (WB == 32) return hi;
-  return hi || ((r[0] >> WB) > 0);
-}
-
-__device__ __forceinline__ void limb_shr(unsigned long long d[3]) {
-  const unsigned long long full0 = d[0] | (d[1] << 32);
-  const unsigned long long full1 = d[1] | (d[2] << 32);
-  d[0] = (full0 >> WB) & M32;
-  d[1] = (full1 >> WB) & M32;
-  d[2] = d[2] >> WB;
-}
-
 // init_state (kernels/common.py): O claims in k order by every live lane.
-__device__ __forceinline__ void init_lane(const Args& a, int s, bool in,
-                                          const BlockCtx& bc, Lane& st,
-                                          long long& cursor) {
-  const int ns = in ? a.ns[(long long)s * a.L + threadIdx.x] : 0;
-  st.nnz = in ? a.nnz[(long long)s * a.L + threadIdx.x] : 0;
+// Returns the unit's segment count (the loop bound of every thread).
+__device__ __forceinline__ int init_lane(const Args& a, Group& g, Lane& st) {
+  const long long at = g.s * a.L + g.lane;
+  const int ns = g.in ? a.ns[at] : 0;
+  st.nnz = g.in ? a.nnz[at] : 0;
   st.nsegs = (ns + LS - 1) / LS;
   const bool live = ns > 0;
-  const uint32_t* row = a.stream + (long long)s * a.wmax;
-  cursor = 0;
+  const bool take[O] = {live, live, live};
+  bool esc_any;
+  int nseg;
+  const Claims c = claim(g, take, 0, st.nsegs, &esc_any, &nseg);
 #pragma unroll
-  for (int k = 0; k < O; ++k) {
-    int tot;
-    const int rank = block_rank(live, bc, &tot);
-    st.w[k] = live ? row[clampll(cursor + rank, a.wmax - 1)] : 0u;
-    cursor += tot;
-  }
-  st.d[0] = st.d[1] = st.d[2] = 0;
-  st.r[0] = 1;
-  st.r[1] = st.r[2] = 0;
+  for (int k = 0; k < O; ++k)
+    st.w[k] = live ? __ldg(g.row + clampi(c.off[k], (int)a.wmax - 1)) : 0u;
+  st.cursor = c.total;
+  st.esc0 = st.esc1 = 0;
+  st.d[0] = st.d[1] = st.d[2] = 0u;
+  st.r[0] = 1u;
+  st.r[1] = st.r[2] = 0u;
   st.col = 0;
+  return nseg < a.max_nseg ? nseg : a.max_nseg;
 }
 
-// segment_step (kernels/common.py) for one lane: decodes segment j and
-// returns its H (column, value bits, valid) triples.
-__device__ __forceinline__ void decode_segment(
-    const Args& a, int s, int j, const BlockCtx& bc, Lane& st,
-    long long& cursor, long long esc_cur[2], long long cols[H],
-    unsigned long long vbits[H], bool valid[H]) {
-  const bool active = j < st.nsegs;  // nsegs == 0 past L
-  unsigned long long syms[LS];
-  uint32_t digs[LS], bass[LS];
+// segment_step (kernels/common.py) for one lane: decodes segment j into
+// `out` and advances the state.
+__device__ __forceinline__ void decode_segment(const Args& a,
+                                               const Tables& tb, Group& g,
+                                               Lane& st, int j, Seg& out) {
+  const bool active = j < st.nsegs;  // nsegs == 0 outside the matrix
 
-  // ---- unpack + table lookups -----------------------------------------
+  // ---- this segment's refill window, prefetched -----------------------
+  uint32_t* win = g.win + (j & 1) * O * g.gthreads;
+  if (g.s < a.S) {
+#pragma unroll
+    for (int i = 0; i < O; ++i) {
+      const int e = g.lane + i * g.gthreads;
+      cp_async4(win + e, g.row + clampi(st.cursor + e, (int)a.wmax - 1));
+    }
+  }
+
+  // ---- unpack + all 8 table lookups ------------------------------------
+  unsigned long long syms[LS];
+  uint32_t meta[LS];
 #pragma unroll
   for (int k = 0; k < LS; ++k) {
     const int lo = k * KB;
@@ -167,77 +415,145 @@ __device__ __forceinline__ void decode_segment(
     // little-endian word view: word wi is w[O - 1 - wi]
     unsigned long long pair = st.w[O - 1 - wi];
     if (wi + 1 < O) pair |= (unsigned long long)st.w[O - 2 - wi] << WB;
-    const int slot = (int)((pair >> sh) & KM1);
+    const uint32_t slot = (uint32_t)(pair >> sh) & KM1;
     const int t = (a.pattern_bits >> k) & 1;
-    const int ti = t * a.K + slot;
-    unsigned long long sym = __ldg(a.tab_symbol + ti);
-    const bool is_esc = active && (__ldg(a.tab_is_esc + ti) > 0);
-    if (__syncthreads_or(is_esc)) {
-      int tot;
-      const int rank = block_rank(is_esc, bc, &tot);
-      if (is_esc) {
-        const long long e = clampll(esc_cur[t] + rank, a.emax - 1);
-        sym = a.esc[((long long)t * a.S + s) * a.emax + e];
-      }
-      esc_cur[t] += tot;
-    }
-    syms[k] = sym;
-    digs[k] = active ? (uint32_t)__ldg(a.tab_digit + ti) : 0u;
-    bass[k] = active ? (uint32_t)__ldg(a.tab_base + ti) : 1u;
+    syms[k] = tb.sym[t * (3 * KSLOTS / 2) + slot];
+    meta[k] = tb.meta[t * 3 * KSLOTS + slot];
+  }
+  unsigned escm = 0u;
+  uint32_t digs[LS], bass[LS];
+#pragma unroll
+  for (int k = 0; k < LS; ++k) {
+    if (active && ((meta[k] >> 17) & 1u)) escm |= 1u << k;
+    digs[k] = active ? (meta[k] & 0xFFu) : 0u;
+    bass[k] = active ? ((meta[k] >> 8) & 0x1FFu) : 1u;
   }
 
-  // ---- positions: even = delta, odd = value bits ------------------------
+  // ---- fold digits into the limb state (groups fit 32 bits) ------------
+  // gacc < racc <= 2^32 fits 32 bits; racc's last factor is widened.
+  static_assert(DG == 4 && MB == 8, "fold groups of four 8-bit digits");
 #pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const int q = j * H + i;
-    const bool ok = active && (q < st.nnz);
-    if (ok) st.col += (long long)syms[2 * i];
-    cols[i] = st.col;
-    vbits[i] = syms[2 * i + 1];
-    valid[i] = ok;
-  }
-
-  // ---- fold digits into the limb state (groups fit 32 bits) -------------
+  for (int g0 = 0; g0 < LS; g0 += DG) {
+    uint32_t gacc = 0u, r3 = 1u;
 #pragma unroll
-  for (int g0 = 0; g0 < LS; g0 += G) {
-    unsigned long long gacc = 0, racc = 1;
+    for (int k = g0; k < g0 + DG; ++k) gacc = gacc * bass[k] + digs[k];
 #pragma unroll
-    for (int k = g0; k < g0 + G && k < LS; ++k) {
-      gacc = gacc * bass[k] + digs[k];
-      racc = racc * bass[k];
-    }
+    for (int k = g0; k < g0 + DG - 1; ++k) r3 *= bass[k];
+    const unsigned long long racc =
+        (unsigned long long)r3 * bass[g0 + DG - 1];
     limb_mul_add(st.d, racc, gacc);
-    limb_mul_add(st.r, racc, 0ull);
+    limb_mul_add(st.r, racc, 0u);
   }
 
-  // ---- refill -----------------------------------------------------------
+  // ---- refill: local conditions first, then one round of claims --------
   const bool refill = active && (j < st.nsegs - 1);
-  const uint32_t* row = a.stream + (long long)s * a.wmax;
+  bool take[O];
+  uint32_t wk[O];
 #pragma unroll
   for (int k = 0; k < O; ++k) {
-    uint32_t wk = 0u;
-    bool popl = refill;
+    wk[k] = 0u;
+    take[k] = refill;
     if (k < F) {
       const bool cond = limb_ge_w(st.r) && refill;
-      wk = (uint32_t)(st.d[0] & WM1);
+      wk[k] = st.d[0];
       if (cond) {
         limb_shr(st.d);
         limb_shr(st.r);
       }
-      popl = refill && !cond;
+      take[k] = refill && !cond;
     }
-    int tot;
-    const int rank = block_rank(popl, bc, &tot);
-    if (popl) wk = row[clampll(cursor + rank, a.wmax - 1)];
-    cursor += tot;
-    if (refill) st.w[k] = wk;
+  }
+  cp_async_wait_all();
+  bool esc_any;
+  int unused;
+  const Claims c = claim(g, take, __popc(escm), 0, &esc_any, &unused);
+#pragma unroll
+  for (int k = 0; k < O; ++k) {
+    if (take[k]) wk[k] = win[c.off[k]];
+    if (refill) st.w[k] = wk[k];
+  }
+  st.cursor += c.total;
+
+  // ---- escapes (rare): rank, then fetch ---------------------------------
+  if (esc_any) {
+    const unsigned lt = lanemask_lt();
+    int cnt[LS], pre[LS];
+    unsigned bk[LS];
+#pragma unroll
+    for (int k = 0; k < LS; ++k) bk[k] = __ballot_sync(FULL, (escm >> k) & 1u);
+    if (!g.wide) {
+#pragma unroll
+      for (int k = 0; k < LS; ++k) {
+        const unsigned m = bk[k] & g.gmask;
+        cnt[k] = __popc(m);
+        pre[k] = __popc(m & lt);
+      }
+    } else {
+      unsigned long long mine[2] = {0ull, 0ull}, wpre[2], wtot[2];
+#pragma unroll
+      for (int k = 0; k < LS; ++k)
+        mine[k >> 2] |= (unsigned long long)__popc(bk[k]) << (16 * (k & 3));
+      int unused2;
+      exchange<2>(g, mine, wpre, wtot, 0, &unused2);
+#pragma unroll
+      for (int k = 0; k < LS; ++k) {
+        cnt[k] = field(wtot[k >> 2], k & 3);
+        pre[k] = field(wpre[k >> 2], k & 3) + __popc(bk[k] & lt);
+      }
+    }
+    const long long sl = g.s < a.S ? g.s : 0;
+    const int emax1 = (int)a.emax - 1;
+#pragma unroll
+    for (int k = 0; k < LS; ++k) {
+      const int t = (a.pattern_bits >> k) & 1;
+      const int cur = t ? st.esc1 : st.esc0;
+      if ((escm >> k) & 1u) {
+        const int e = clampi(cur + pre[k], emax1);
+        syms[k] = __ldg(a.esc + ((long long)t * a.S + sl) * a.emax + e);
+      }
+      if (t) {
+        st.esc1 += cnt[k];
+      } else {
+        st.esc0 += cnt[k];
+      }
+    }
+  }
+
+  // ---- positions: even = delta, odd = value bits -------------------------
+  out.valid = 0u;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const int q = j * H + i;
+    const bool ok = active && (q < st.nnz);
+    if (ok) {
+      st.col = (int)((uint32_t)st.col + (uint32_t)syms[2 * i]);
+      out.valid |= 1u << i;
+    }
+    out.col[i] = st.col;
+    out.vb[i] = syms[2 * i + 1];
+  }
+}
+
+// The columns a segment's entries gather x at, clamped to [0, n - 1]: the
+// lane's own, or (SHARED) the group's lane 0's, as the reference gathers
+// at cols[:, 0]. In a wide group the shuffle reaches the warp's lane 0,
+// which decodes lane 0's columns whenever any lane of its warp holds an
+// entry (in-bounds lanes of a block-filled pack form a prefix). Every
+// thread of the warp must call it.
+template <bool SHARED>
+__device__ __forceinline__ void gather_cols(const Group& g, const Seg& sg,
+                                            int n, int cols[H]) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const int c = SHARED ? __shfl_sync(FULL, sg.col[i], g.gbase) : sg.col[i];
+    cols[i] = clampi(c, n - 1);
   }
 }
 
 template <typename V> struct Num;
 template <> struct Num<float> {
   __device__ static float value(unsigned long long bits) {
-    return __uint_as_float((unsigned)(bits & M32));
+    return __uint_as_float((unsigned)(bits & 0xFFFFFFFFull));
   }
   __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
   __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
@@ -250,22 +566,10 @@ template <> struct Num<double> {
   __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
 };
 
-// Last segment any lane of this slice decodes, block-uniform.
-__device__ __forceinline__ int block_nseg(const Args& a, const Lane& st,
-                                          int* smax) {
-  if (threadIdx.x == 0) *smax = 0;
-  __syncthreads();
-  if (st.nsegs > 0) atomicMax(smax, st.nsegs);
-  __syncthreads();
-  const int n = *smax;
-  return n < a.max_nseg ? n : a.max_nseg;
-}
-
 inline Args make_args(const void* stream, long long wmax, const void* esc,
                       long long emax, const void* ns, const void* nnz,
-                      const void* tab_symbol, const void* tab_digit,
-                      const void* tab_base, const void* tab_is_esc, int K,
-                      int pattern_bits, int S, int L, int max_nseg) {
+                      const void* tables, int T, int pattern_bits, int S,
+                      int L, int max_nseg) {
   Args a;
   a.stream = static_cast<const uint32_t*>(stream);
   a.wmax = wmax;
@@ -273,11 +577,8 @@ inline Args make_args(const void* stream, long long wmax, const void* esc,
   a.emax = emax;
   a.ns = static_cast<const int*>(ns);
   a.nnz = static_cast<const int*>(nnz);
-  a.tab_symbol = static_cast<const unsigned long long*>(tab_symbol);
-  a.tab_digit = static_cast<const int*>(tab_digit);
-  a.tab_base = static_cast<const int*>(tab_base);
-  a.tab_is_esc = static_cast<const int*>(tab_is_esc);
-  a.K = K;
+  a.tables = static_cast<const int*>(tables);
+  a.T = T;
   a.pattern_bits = pattern_bits;
   a.S = S;
   a.L = L;
@@ -285,6 +586,24 @@ inline Args make_args(const void* stream, long long wmax, const void* esc,
   return a;
 }
 
-inline int threads_for(int L) { return ((L + 31) / 32) * 32; }
+inline Geom make_geom(int group, int uw, int spu, long long units, int upb,
+                      int cw) {
+  Geom g;
+  g.group = group;
+  g.uw = uw;
+  g.spu = spu;
+  g.units = units;
+  g.upb = upb;
+  g.cw = cw;
+  return g;
+}
+
+// Opts the kernel in to `smem` bytes of dynamic shared memory (above 48 KB
+// it must be asked for); returns the error, if any.
+template <typename Fn>
+cudaError_t opt_in(Fn fn, long long smem) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
 
 }  // namespace

@@ -5,7 +5,8 @@ in the reference's padded layout: ``(cols, vals)``, each ``(S, L,
 max_nseg * l/2)``, lane by lane and segment-major, ``cols == -1`` and
 ``vals == +0`` at padding. On a CUDA matrix it launches the hand-written
 kernel of ``csrc/dtans_decode.cu`` (which replaces the JAX package's
-``dtans_decode_pallas``); on a CPU matrix it runs `dtans_decode_plain`, the
+``dtans_decode_pallas``, on the warp-synchronous decoder and in the SpMV
+kernel's geometry); on a CPU matrix it runs `dtans_decode_plain`, the
 torch lock-step decoder (`kernels.common`). There is no fallback: a CUDA
 matrix never reaches the plain version, and a build or launch failure
 raises. Kernel and plain version agree exactly: columns as integers,
@@ -22,7 +23,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import bits_to_value, iter_segments
-from repro_torch.kernels.dtans_spmv import MATRIX_ARGS, kernel_args, raise_on
+from repro_torch.kernels.dtans_spmv import (GEOM_ARGS, MATRIX_ARGS,
+                                           kernel_args, n_sm, raise_on,
+                                           spmv_geometry)
 from repro_torch.kernels.pack import DeviceMatrix
 
 launches = {"dtans_decode": 0}
@@ -38,7 +41,8 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dtans_decode")
     if not getattr(lib, "_repro_declared", False):
-        lib.dtans_decode_launch.argtypes = MATRIX_ARGS + [_VP, _VP, _VP]
+        lib.dtans_decode_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
+            _VP, _VP, _VP]
         lib.dtans_decode_launch.restype = _I
         lib.dtans_error_string.argtypes = [_I]
         lib.dtans_error_string.restype = ctypes.c_char_p
@@ -74,6 +78,7 @@ def dtans_decode(dm: DeviceMatrix) -> tuple[torch.Tensor, torch.Tensor]:
     if dm.device.type == "cpu":
         return dtans_decode_plain(dm)
     args = kernel_args(dm)
+    geom = spmv_geometry(dm, n_sm(dm.device))
     shape = (dm.n_slices, dm.lane_width, out_width(dm))
     cols = torch.empty(shape, dtype=torch.int32, device=dm.device)
     vals = torch.empty(shape, dtype=dm.dtype, device=dm.device)
@@ -81,7 +86,7 @@ def dtans_decode(dm: DeviceMatrix) -> tuple[torch.Tensor, torch.Tensor]:
         return cols, vals
     lib = _lib()
     rc = lib.dtans_decode_launch(
-        *args, cols.data_ptr(), vals.data_ptr(),
+        *args, *geom.args(), cols.data_ptr(), vals.data_ptr(),
         torch.cuda.current_stream(dm.device).cuda_stream)
     launches["dtans_decode"] += 1
     raise_on(lib, rc, "dtans_decode")

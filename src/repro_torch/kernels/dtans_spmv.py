@@ -20,6 +20,12 @@ decoded columns, as the reference does (``cols[:, 0]``). On such a pack a
 valid term multiplies the same x either way, so the result is bitwise the
 generic one.
 
+Both kernels run the reference's ``pipeline`` schedule (decode segment
+j + 1, then contract segment j, in the same contraction order), so
+``ops``' ``pipeline=True`` and ``pipeline=False`` launch them alike and
+give the same bits. The launch geometry and shared-memory plan come from
+`kernels.tiling`, through `spmv_geometry` / `spmm_geometry` here.
+
 `launches` counts kernel launches per wrapper and variant (and nothing
 else), so a run can show that its path went through the kernels.
 """
@@ -39,8 +45,8 @@ launches = {"dtans_spmv": 0, "dtans_spmm": 0, "dtans_spmv_shared": 0,
             "dtans_spmm_shared": 0}
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP,
-                _I, _I, _I, _I, _I]
+MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I]
+GEOM_ARGS = [_I, _I, _I, _LL, _I, _I, _I, _I, _LL]
 
 
 def reset_launches() -> None:
@@ -51,12 +57,14 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dtans_spmv")
     if not getattr(lib, "_repro_declared", False):
-        lib.dtans_spmv_launch.argtypes = MATRIX_ARGS + [_I, _VP, _LL, _VP,
-                                                         _VP]
+        lib.dtans_spmv_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
+            _I, _VP, _LL, _VP, _VP]
         lib.dtans_spmv_launch.restype = _I
-        lib.dtans_spmm_launch.argtypes = MATRIX_ARGS + [_I, _VP, _LL, _LL,
-                                                         _I, _VP, _VP]
+        lib.dtans_spmm_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
+            _I, _VP, _LL, _LL, _I, _VP, _VP]
         lib.dtans_spmm_launch.restype = _I
+        lib.dtans_smem_need.argtypes = [_I, _I, _I, _I, _I, _I]
+        lib.dtans_smem_need.restype = _LL
         lib.dtans_spmm_static_smem.argtypes = [ctypes.POINTER(_LL)]
         lib.dtans_spmm_static_smem.restype = _I
         lib.dtans_error_string.argtypes = [_I]
@@ -73,40 +81,65 @@ def kernel_args(dm: DeviceMatrix) -> list:
             f"the CUDA kernels are built for the paper's parameters "
             f"{PAPER}, not {dm.params}; other parameter sets are a later "
             f"item of ROADMAP.md queue B")
-    T, K = dm.tab_symbol.shape
+    T = dm.tables.shape[0]
     if T > 2 or any(t >= T for t in dm.pattern):
         raise ValueError(f"pattern {dm.pattern} needs at most 2 tables")
+    if dm.tables.shape[1] != 3 * tiling.TABLE_SLOTS:
+        raise ValueError(f"packed tables of shape {tuple(dm.tables.shape)}"
+                         f", want (T, {3 * tiling.TABLE_SLOTS})")
     L = dm.lane_width
     if not 1 <= L <= 1024:
         raise ValueError(f"lane_width {L} outside 1..1024")
-    for t in (dm.stream, dm.esc, dm.ns, dm.nnz, dm.tab_symbol, dm.tab_digit,
-              dm.tab_base, dm.tab_is_esc):
+    for t in (dm.stream, dm.esc, dm.ns, dm.nnz, dm.tables):
         if not t.is_contiguous():
             raise ValueError("device matrix tensors must be contiguous")
     pattern_bits = sum(int(t) << k for k, t in enumerate(dm.pattern))
     return [int(dm.dtype == torch.float64),
             dm.stream.data_ptr(), dm.stream.shape[1],
             dm.esc.data_ptr(), dm.esc.shape[2],
-            dm.ns.data_ptr(), dm.nnz.data_ptr(),
-            dm.tab_symbol.data_ptr(), dm.tab_digit.data_ptr(),
-            dm.tab_base.data_ptr(), dm.tab_is_esc.data_ptr(),
-            K, pattern_bits, dm.n_slices, L, dm.max_nseg]
+            dm.ns.data_ptr(), dm.nnz.data_ptr(), dm.tables.data_ptr(),
+            T, pattern_bits, dm.n_slices, L, dm.max_nseg]
 
 
-def _check_tile(lane_width: int, B: int, bt: int, itemsize: int) -> None:
-    """Refuses a column tile the SpMM kernel cannot launch: its ``(bt,
-    threads)`` accumulator must fit the block's shared memory beside the
-    kernel's static arrays, and its tile count the grid's y dimension."""
-    threads = -(-lane_width // tiling.WARP) * tiling.WARP
-    smem = bt * threads * itemsize
+def n_sm(device: torch.device) -> int:
+    """SMs of the card the launch goes to."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def spmv_geometry(dm: DeviceMatrix, n_sms: int = tiling.SM_COUNT
+                  ) -> tiling.Geometry:
+    """The SpMV (and decode) launch of a device matrix."""
+    geom = tiling.geometry(dm.n_slices, dm.lane_width, dm.tables.shape[0],
+                           dm.dtype.itemsize, n_sm=n_sms)
+    check_plan(geom.smem)
+    return geom
+
+
+def check_plan(smem: int) -> None:
+    """Refuses a shared-memory plan a block cannot hold beside the
+    kernels' static shared memory."""
     room = tiling.MAX_SMEM_BYTES - tiling.STATIC_SMEM_BYTES
     if smem > room:
         raise ValueError(
-            f"a column tile of {bt} needs {smem} B of shared memory, more "
-            f"than the {room} B a block has beside the kernel's static "
-            f"shared memory; pass a smaller bn")
-    if -(-B // max(bt, 1)) > 65535:
-        raise ValueError(f"{B} columns in tiles of {bt} exceed the grid")
+            f"the kernel's plan needs {smem} B of shared memory, more than "
+            f"the {room} B a block has; pass a smaller bn")
+
+
+def spmm_geometry(dm: DeviceMatrix, B: int, bt: int,
+                  n_sms: int = tiling.SM_COUNT) -> tiling.Geometry:
+    """The SpMM launch of a device matrix over ``B`` columns in tiles of
+    ``bt``; refuses a lane width wider than the SpMM block takes and a
+    tile whose plan does not fit the block's shared memory."""
+    if dm.lane_width > tiling.MAX_SPMM_LANE_WIDTH:
+        raise ValueError(
+            f"the SpMM kernel takes lane widths up to "
+            f"{tiling.MAX_SPMM_LANE_WIDTH} (its decoder warps and a "
+            f"contraction warp share a 1024-thread block), not "
+            f"{dm.lane_width}; SpMV (B = 1) takes up to 1024")
+    geom = tiling.geometry(dm.n_slices, dm.lane_width, dm.tables.shape[0],
+                           dm.dtype.itemsize, bn=bt, batch=B, n_sm=n_sms)
+    check_plan(geom.smem)
+    return geom
 
 
 def raise_on(lib, rc: int, name: str) -> None:
@@ -118,13 +151,23 @@ def raise_on(lib, rc: int, name: str) -> None:
 
 
 def static_smem_bytes() -> int:
-    """The SpMM kernel's static shared memory as the built library reports
-    it; `tiling.STATIC_SMEM_BYTES` must not be less."""
+    """The kernels' static shared memory as the built library reports it;
+    `tiling.STATIC_SMEM_BYTES` must not be less."""
     lib = _lib()
     out = _LL(0)
     raise_on(lib, lib.dtans_spmm_static_smem(ctypes.byref(out)),
              "dtans_spmm_static_smem")
     return int(out.value)
+
+
+def smem_need(spmm: bool, n_tables: int, lane_width: int, itemsize: int,
+              bn: int = 0) -> int:
+    """The built kernels' own count of the shared memory a plan needs;
+    `tiling.smem_plan` must give the same."""
+    upb = tiling.geometry(1, lane_width, n_tables, itemsize).units_per_block
+    return int(_lib().dtans_smem_need(int(spmm), n_tables,
+                                      tiling.unit_warps(lane_width), upb,
+                                      bn, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -194,14 +237,15 @@ def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor,
     if x.device.type == "cpu":
         return dtans_spmv_plain(dm, x, shared_cols)
     args = kernel_args(dm)
+    geom = spmv_geometry(dm, n_sm(x.device))
     x = x.contiguous()
     y = torch.empty((dm.n_slices, dm.lane_width), dtype=dm.dtype,
                     device=x.device)
     if dm.n_slices == 0:
         return y
     lib = _lib()
-    rc = lib.dtans_spmv_launch(*args, int(shared_cols), x.data_ptr(),
-                               x.shape[0], y.data_ptr(),
+    rc = lib.dtans_spmv_launch(*args, *geom.args(), int(shared_cols),
+                               x.data_ptr(), x.shape[0], y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)
     name = _variant("dtans_spmv", shared_cols)
     launches[name] += 1
@@ -212,8 +256,9 @@ def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor,
 def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor, bn: int | None = None,
                shared_cols: bool = False) -> torch.Tensor:
     """Per-slice rows (S, L, B) of A X, X (n, B): the CUDA kernel on a CUDA
-    tensor (grid (S, ceil(B / bn)); ``bn=None`` is one tile of all B
-    columns), the plain version on a CPU tensor."""
+    tensor (work items of one unit and one column tile of ``bn`` columns;
+    ``bn=None`` is one tile of all B columns), the plain version on a CPU
+    tensor."""
     check_rhs(dm, x, 2)
     B = x.shape[1]
     if bn is not None and int(bn) < 1:
@@ -222,15 +267,15 @@ def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor, bn: int | None = None,
     if x.device.type == "cpu":
         return dtans_spmm_plain(dm, x, None if bt == B else bt, shared_cols)
     args = kernel_args(dm)
-    _check_tile(dm.lane_width, B, bt, x.element_size())
+    geom = spmm_geometry(dm, B, max(bt, 1), n_sm(x.device))
     x = x.contiguous()
     y = torch.empty((dm.n_slices, dm.lane_width, B), dtype=dm.dtype,
                     device=x.device)
     if dm.n_slices == 0 or B == 0:
         return y
     lib = _lib()
-    rc = lib.dtans_spmm_launch(*args, int(shared_cols), x.data_ptr(),
-                               x.shape[0], B, bt, y.data_ptr(),
+    rc = lib.dtans_spmm_launch(*args, *geom.args(), int(shared_cols),
+                               x.data_ptr(), x.shape[0], B, bt, y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)
     name = _variant("dtans_spmm", shared_cols)
     launches[name] += 1

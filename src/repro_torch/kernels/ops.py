@@ -22,8 +22,13 @@ All run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 on the CPU the kernels' plain torch versions run. A CUDA request on a
 machine without a card raises.
 
-Not ported yet, and refused with `NotImplementedError` naming the
-ROADMAP.md item: ``mesh=`` / ``n_shards > 1`` and ``pipeline=True``.
+``pipeline=True`` (the reference's decode-ahead schedule, decode segment
+j + 1 before contracting j) is accepted by `spmv` / `spmm`: the CUDA
+kernels always run that schedule, in the same contraction order, so both
+values launch the same kernels and give the same bits (on the CPU the
+plain versions run either way). Not ported yet, and refused with
+`NotImplementedError` naming the ROADMAP.md item: ``mesh=`` /
+``n_shards > 1``.
 """
 
 from __future__ import annotations
@@ -67,15 +72,19 @@ def _record_pass(kind: str, dm, n: int, m: int, batch: int,
     r.histogram("kernels.col_tiles").observe(col_tiles)
 
 
-def _resolve_bn(rows: int, batch: int, itemsize: int, bn) -> int | None:
+def _resolve_bn(rows: int, batch: int, itemsize: int, bn,
+                choose=None) -> int | None:
     """Effective column-tile width of one SpMM pass: an explicit ``bn``
-    wins (untiled when it covers the whole batch); otherwise the
-    shared-memory budget's choice (`tiling.choose_bn`)."""
+    wins (untiled when it covers the whole batch); otherwise ``choose``'s
+    (batch -> tile) or the shared-memory budget's choice
+    (`tiling.choose_bn`)."""
     if bn is not None:
         b = int(bn)
         if b < 1:
             raise ValueError(f"bn must be >= 1; got {bn}")
         return None if b >= batch else b
+    if choose is not None:
+        return choose(batch)
     return tiling.choose_bn(rows, batch, itemsize)
 
 
@@ -95,17 +104,13 @@ def get_packed(mat: CSRdtANS) -> PackedMatrix:
     return pm
 
 
-def _refuse(mesh, n_shards, pipeline) -> None:
+def _refuse(mesh, n_shards) -> None:
     """Knobs of the JAX package's entry points that this port does not run
     yet: each raises rather than being ignored."""
     if mesh is not None or (n_shards is not None and int(n_shards) != 1):
         raise NotImplementedError(
             "sharded spmv/spmm (mesh= / n_shards > 1) is not ported yet "
             "(ROADMAP.md queue A item 10)")
-    if pipeline:
-        raise NotImplementedError(
-            "pipeline=True (decode j+1 before contracting j) is not ported "
-            "yet (ROADMAP.md queue B, redesign queue item 1)")
 
 
 def _resolve_fused(pm: PackedMatrix, fused) -> bool:
@@ -162,11 +167,12 @@ def _one_rhs(kind: str, dm, x, y, run, *, decodes: bool = False
 
 
 def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
-              decodes: bool = False) -> torch.Tensor:
+              decodes: bool = False, choose=None) -> torch.Tensor:
     """Body of every multi-RHS entry point: B == 0 returns `_empty_y`,
     B == 1 calls the single-vector entry ``one`` (bitwise equal to it),
     otherwise ``run(x, bn)`` gives the padded rows of A X in column tiles
-    of the resolved ``bn`` (``rows`` per slice or group sizes the tile)."""
+    of the resolved ``bn`` (``rows`` per slice or group sizes the tile,
+    unless the kernel's own ``choose`` picks it)."""
     m, n = dm.shape
     x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
     _check_rhs(x, n)
@@ -176,7 +182,7 @@ def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
     if B == 1:
         out = one(x[:, 0])[:, None]
     else:
-        bn_eff = _resolve_bn(rows, B, x.element_size(), bn)
+        bn_eff = _resolve_bn(rows, B, x.element_size(), bn, choose)
         _record_pass(kind, dm, n, m, B, x.element_size(), decodes=decodes,
                      col_tiles=_n_tiles(B, bn_eff))
         out = run(x, bn_eff).reshape(-1, B)[:m]
@@ -191,9 +197,11 @@ def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     """y = A x + y with on-the-fly dtANS decoding (fused decode kernel).
 
     ``fused`` selects the shared-column contraction (None: the pack's own
-    ``shared_cols`` flag); it gives bitwise the generic result."""
+    ``shared_cols`` flag); it gives bitwise the generic result.
+    ``pipeline`` names the reference's decode-ahead schedule, which the
+    kernel always runs: both values give the same bits."""
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards, pipeline)
+    _refuse(mesh, n_shards)
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
     return _one_rhs("dtans_spmv", dm, x, y,
@@ -208,18 +216,22 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     its columns in the fused kernel. B == 1 runs the single-vector `spmv`
     kernel, so the results are bitwise equal to it.
 
-    ``bn`` pins the column-tile width (None = `tiling.choose_bn`, untiled
+    ``bn`` pins the column-tile width (None = `tiling.dtans_bn`, untiled
     when the whole batch fits); every tile width
-    gives bitwise the same result as the untiled kernel. ``fused`` as in
-    `spmv`."""
+    gives bitwise the same result as the untiled kernel. ``fused`` and
+    ``pipeline`` as in `spmv`."""
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards, pipeline)
+    _refuse(mesh, n_shards)
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
-    return _many_rhs("dtans_spmm", dm, pm.lane_width, x, y, bn,
-                     lambda v: spmv(pm, v, device=dm.device, fused=fused),
+    L, T = pm.lane_width, int(pm.tab_symbol.shape[0])
+    return _many_rhs("dtans_spmm", dm, tiling.unit_rows(L), x, y, bn,
+                     lambda v: spmv(pm, v, device=dm.device, fused=fused,
+                                    pipeline=pipeline),
                      lambda X, b: dtans_spmm(dm, X, bn=b, shared_cols=shared),
-                     decodes=True)
+                     decodes=True,
+                     choose=lambda B: tiling.dtans_bn(
+                         L, T, B, dm.dtype.itemsize))
 
 
 def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"

@@ -9,7 +9,8 @@ counted in the format's compressed size (CSRdtANS.nbytes).
 `PackedMatrix` stays numpy and byte-equal to the JAX package's pack.
 `to_device` builds the torch tensors the kernels read, once per device,
 and caches them on the packed object (as `ops.get_packed` caches the pack
-on the matrix).
+on the matrix). Among them are the coding tables packed for the CUDA
+kernels (`pack_tables`), which stage them in shared memory.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ class DeviceMatrix:
     tab_digit: torch.Tensor   # (T, K) int32
     tab_base: torch.Tensor    # (T, K) int32
     tab_is_esc: torch.Tensor  # (T, K) int32
+    tables: torch.Tensor      # (T, 3 K) int32, `pack_tables`
     params: DtansParams
     pattern: tuple
     max_nseg: int
@@ -88,11 +90,51 @@ class DeviceMatrix:
 
     @functools.cached_property
     def nbytes(self) -> int:
-        """Bytes of the tensors the kernels read: the matrix-side traffic
-        of one pass (padded device arrays, not the compressed wire size)."""
+        """Bytes of the tensors the CUDA kernels read: the matrix-side
+        traffic of one pass (padded device arrays and the packed tables,
+        not the compressed wire size). The plain versions' separate
+        ``tab_*`` tables are not counted."""
         return sum(int(t.nbytes) for t in (
-            self.stream, self.esc, self.ns, self.nnz, self.tab_symbol,
-            self.tab_digit, self.tab_base, self.tab_is_esc))
+            self.stream, self.esc, self.ns, self.nnz, self.tables))
+
+
+#: Bit layout of a packed table slot's u32 word: digit | base << 8 |
+#: is_esc << 17 (digit < 256, base <= M = 256 < 512).
+_BASE_SHIFT, _ESC_SHIFT = 8, 17
+
+
+def pack_tables(symbol: np.ndarray, digit: np.ndarray, base: np.ndarray,
+                is_esc: np.ndarray) -> np.ndarray:
+    """The (T, K) coding tables as the CUDA kernels stage them in shared
+    memory: per table, K u64 symbols (as int32 pairs, little-endian), then
+    K u32 words of digit | base << 8 | is_esc << 17; 12 bytes a slot, a
+    (T, 3 K) int32 array. Refuses values the word cannot hold."""
+    digit, base = np.asarray(digit, np.int64), np.asarray(base, np.int64)
+    is_esc = np.asarray(is_esc, np.int64)
+    if digit.size and (digit.min() < 0 or digit.max() >= 1 << _BASE_SHIFT
+                       or base.min() < 0
+                       or base.max() >= 1 << (_ESC_SHIFT - _BASE_SHIFT)
+                       or not np.isin(is_esc, (0, 1)).all()):
+        raise ValueError("coding table out of the packed slot's range "
+                         "(digit < 256, base < 512, is_esc 0/1)")
+    T, K = digit.shape
+    sym = np.ascontiguousarray(symbol, dtype=np.uint64).view(np.int32)
+    meta = (digit | base << _BASE_SHIFT | is_esc << _ESC_SHIFT).astype(
+        np.uint32).view(np.int32)
+    return np.concatenate([sym.reshape(T, 2 * K), meta.reshape(T, K)],
+                          axis=1)
+
+
+def unpack_tables(tables: np.ndarray):
+    """Inverse of `pack_tables`: (symbol u64, digit, base, is_esc), each
+    (T, K)."""
+    tables = np.ascontiguousarray(tables, dtype=np.int32)
+    K = tables.shape[1] // 3
+    symbol = np.ascontiguousarray(tables[:, :2 * K]).view(np.uint64)
+    meta = tables[:, 2 * K:].view(np.uint32).astype(np.int64)
+    return (symbol, (meta & 0xFF).astype(np.int32),
+            (meta >> _BASE_SHIFT & 0x1FF).astype(np.int32),
+            (meta >> _ESC_SHIFT & 1).astype(np.int32))
 
 
 def pack_matrix(mat: CSRdtANS) -> PackedMatrix:
@@ -217,6 +259,8 @@ def to_device(pm: PackedMatrix, device="cuda") -> DeviceMatrix:
             tab_digit=t(pm.tab_digit.astype(np.int32)),
             tab_base=t(pm.tab_base.astype(np.int32)),
             tab_is_esc=t(pm.tab_is_esc.astype(np.int32)),
+            tables=t(pack_tables(pm.tab_symbol, pm.tab_digit, pm.tab_base,
+                                 pm.tab_is_esc)),
             params=pm.params,
             pattern=tuple(pm.pattern),
             max_nseg=int(pm.max_nseg),

@@ -1,63 +1,238 @@
-"""Column tiling of the SpMM kernel, sized for Hopper.
+"""Launch geometry, shared-memory plan and column tiling of the dtANS
+kernels, sized for Hopper.
 
-The SpMM kernel (`csrc/dtans_spmv.cu::dtans_spmm_kernel`) keeps one
-``(bn, rows)`` accumulator tile of the output in the block's shared memory
-and reads x straight from device memory (through L2) in its ``(n, B)``
-layout. So, unlike the JAX package's TPU budget, which had to hold the x
-columns in VMEM too, only the accumulator tile counts here:
-``rows * bn * itemsize`` against a shared-memory budget. ``rows`` is the
-lane width rounded up to whole warps, as the block is.
+The dtANS kernels (`csrc/dtans_spmv.cu`, `csrc/dtans_decode.cu`) decode
+with the warp-synchronous decoder of `csrc/dtans_decode.cuh`. Their
+geometry is computed here and handed to the C entries:
 
-The column tiles are the kernel's ``blockIdx.y``: each tile decodes the
-slice again and contracts it against its ``bn`` columns. Tiling splits
-only the B axis, so every output column sees exactly the arithmetic of the
-untiled kernel: tiled results are bitwise equal to untiled ones at every
-``bn``.
+* a slice of lane width ``L <= 32`` is decoded by a group of ``G`` threads,
+  ``L`` rounded up to a power of two, and one warp packs ``32 / G`` slices
+  (a *unit*); a wider slice is decoded by ``ceil(L / 32)`` warps (one unit
+  per slice). A unit has ``32 * unit_warps`` rows (thread lanes);
+* blocks are persistent: about as many as fit on the card's SMs, each
+  staging the coding tables in shared memory once and looping over its
+  share of the units (SpMV, decode: ``units_per_block`` units at a time;
+  SpMM: one unit and column tile at a time);
+* the SpMM block adds contraction warps beside the unit's decoder warps
+  (`consumer_warps`), at most 32 warps a block, so SpMM takes lane widths
+  up to `MAX_SPMM_LANE_WIDTH`.
 
-H100 facts behind the constants (NVIDIA's Hopper documentation): a block
-may use 48 KB of shared memory without opting in, and up to 227 KB
-(232,448 bytes) with ``cudaFuncAttributeMaxDynamicSharedMemorySize``; a
-warp is 32 threads.
+The shared-memory plan (`smem_plan`) is the coding tables (12 bytes a
+slot), per unit in flight the refill windows and the claim exchange, and
+for SpMM the decoded ring and the ``(rows, bn)`` accumulator tile. The C
+side computes the same sizes (``dtans_smem_need``) and refuses a launch
+given less.
+
+`dtans_bn` sizes the dtANS SpMM's column tile: `choose_bn`'s, at most
+`DTANS_BN_MAX` columns. `choose_bn`: the accumulator tile may take
+`DEFAULT_SMEM_BYTES`, and the whole plan must fit `MAX_SMEM_BYTES`. Tiling
+splits only the B axis, so every output column sees exactly the arithmetic
+of the untiled kernel: tiled results are bitwise equal to untiled ones at
+every ``bn``. (The comparator kernels call `choose_bn` with their own
+rows and no fixed part: their template walks its accumulator in 48 KB
+chunks.)
+
+H100 facts behind the constants (NVIDIA's Hopper documentation): 132 SMs
+on the SXM part; a block may use 48 KB of shared memory without opting in,
+and up to 227 KB (232,448 bytes) with
+``cudaFuncAttributeMaxDynamicSharedMemorySize``; an SM has 228 KB
+(233,472 bytes), 1 KB of it reserved per resident block, and runs at most
+2,048 threads; a warp is 32 threads.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 #: Shared memory an accumulator tile may take by default: the 48 KB a block
-#: gets without opting in. It leaves room for four such blocks per SM.
+#: gets without opting in.
 DEFAULT_SMEM_BYTES = 48 * 1024
 
 #: Most shared memory one H100 block can opt in to (227 KB), static and
 #: dynamic together.
 MAX_SMEM_BYTES = 232448
 
-#: The SpMM kernel's static shared memory: ``warp_tot[MAX_WARPS]`` and
-#: ``smax`` in ``csrc/dtans_spmv.cu`` are 132 B, which ptxas lays out in
-#: 144 B for sm_90a (``dtans_spmv.static_smem_bytes`` reads it from the
-#: built kernel). The accumulator tile gets the rest of `MAX_SMEM_BYTES`.
-STATIC_SMEM_BYTES = 144
+#: The kernels' static shared memory: none, every array is carved from
+#: the dynamic plan (``dtans_spmv.static_smem_bytes`` reads it from the
+#: built kernels).
+STATIC_SMEM_BYTES = 0
 
-#: Threads per warp: the block is the lane width rounded up to whole
-#: warps, and tile widths snap down to a multiple of this.
+#: Shared memory of one SM, and what the card reserves per resident block.
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_BYTES = 1024
+SM_THREADS = 2048
+
+#: SMs of an H100 SXM: the default where no card is asked.
+SM_COUNT = 132
+
+#: Threads per warp; tile widths snap down to a multiple of this.
 WARP = 32
 
 #: Floor tile width: below this the repeated decode per tile dwarfs the
-#: contraction. 8 columns of a 1024-row f64 tile still fit the opt-in
-#: limit.
+#: contraction (taken only where the plan still fits).
 MIN_BN = 8
 
+#: Widest dtANS SpMM column tile `dtans_bn` picks: on an H100 wider tiles
+#: ran slower (fewer blocks fit an SM; PERF.md).
+DTANS_BN_MAX = 64
 
-def choose_bn(rows: int, batch: int, itemsize: int) -> int | None:
-    """Widest column-tile width ``bn`` whose ``(rows, bn)`` accumulator
-    tile fits `DEFAULT_SMEM_BYTES`, or ``None`` when the whole batch fits
-    (untiled: one decode per slice for all columns)."""
+#: Table slots (K = 2^12 at the paper's parameters), bytes a slot, stream
+#: words claimed per lane and segment (o), entries per segment (l / 2).
+TABLE_SLOTS, SLOT_BYTES, WORDS, ENTRIES = 4096, 12, 3, 4
+
+#: SpMV / decode blocks hold this many warps of units (or one wide unit);
+#: the SpMM ring holds this many segments. Both chosen by timing the
+#: SmolLM-135M head and the 4x4-pruned head on an H100 (PERF.md).
+SPMV_WARPS = 4
+RING_DEPTH = 2
+
+#: Widest slice the SpMM block takes: its decoder warps and at least one
+#: contraction warp must fit a 1024-thread block.
+MAX_SPMM_LANE_WIDTH = 31 * WARP
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def group_size(lane_width: int) -> int:
+    """Threads decoding one slice: L rounded up to a power of two up to a
+    warp, to whole warps beyond."""
+    L = int(lane_width)
+    if L <= WARP:
+        return 1 << max(L - 1, 0).bit_length()
+    return -(-L // WARP) * WARP
+
+
+def unit_warps(lane_width: int) -> int:
+    return max(group_size(lane_width) // WARP, 1)
+
+
+def unit_rows(lane_width: int) -> int:
+    """Rows (thread lanes) of one unit: 32 for packed narrow slices, the
+    slice's warps times 32 beyond."""
+    return unit_warps(lane_width) * WARP
+
+
+def smem_plan(n_tables: int, lane_width: int, itemsize: int, *,
+              bn: int | None = None, units_per_block: int = 1) -> dict:
+    """Bytes of shared memory each part of a block takes, and their
+    ``total``. ``bn=None`` is the SpMV / decode block (``units_per_block``
+    units in flight), an integer the SpMM block at column tile ``bn``."""
+    uw = unit_warps(lane_width)
+    R = uw * WARP
+    per_unit = (_align16(2 * WORDS * R * 4) + _align16(2 * uw * 2 * 8)
+                + _align16(2 * uw * 4))
+    plan = {"tables": _align16(n_tables * TABLE_SLOTS * SLOT_BYTES)}
+    if bn is None:
+        plan["units"] = units_per_block * per_unit
+    else:
+        plan["units"] = per_unit
+        plan["ring"] = (_align16(RING_DEPTH * ENTRIES * R * 4)
+                        + _align16(RING_DEPTH * ENTRIES * R * itemsize))
+        plan["acc"] = _align16(R * int(bn) * itemsize)
+    plan["total"] = sum(plan.values())
+    return plan
+
+
+def spmm_fixed_bytes(n_tables: int, lane_width: int, itemsize: int) -> int:
+    """The SpMM plan without its accumulator tile."""
+    return smem_plan(n_tables, lane_width, itemsize, bn=0)["total"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of a dtANS kernel (the C entries' geometry arguments)."""
+    group: int            # threads per slice
+    unit_warps: int       # decoder warps per unit
+    slices_per_unit: int
+    units: int
+    units_per_block: int  # units in flight per block (SpMM: 1)
+    consumer_warps: int   # SpMM contraction warps (0 otherwise)
+    threads: int
+    blocks: int
+    smem: int             # dynamic shared memory, bytes
+    col_tiles: int = 1    # SpMM column tiles (work items = units x tiles)
+
+    def args(self) -> list:
+        return [self.group, self.unit_warps, self.slices_per_unit,
+                self.units, self.units_per_block, self.consumer_warps,
+                self.blocks, self.threads, self.smem]
+
+
+def consumer_warps(lane_width: int, bn: int) -> int:
+    """Contraction warps of the SpMM block: 4 for a tile narrower than a
+    warp, else one per 8 rows of the unit, 4 to 12 (the fastest of 4, 8
+    and 12 on an H100: PERF.md); blocks of up to 8 decoder warps stay
+    within 512 threads (the instantiation with 128 registers a thread),
+    every block within 1024."""
+    uw = unit_warps(lane_width)
+    room = 16 - uw if uw <= 8 else WARP - uw
+    want = max(4, uw * WARP // 8) if bn >= WARP else 4
+    return max(1, min(12, want, room))
+
+
+def _blocks(work: int, threads: int, smem: int, n_sm: int) -> int:
+    per_sm = max(1, min(SM_THREADS // threads,
+                        SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES)))
+    return max(1, min(work, n_sm * per_sm))
+
+
+def geometry(n_slices: int, lane_width: int, n_tables: int, itemsize: int,
+             *, bn: int | None = None, batch: int = 1,
+             n_sm: int = SM_COUNT) -> Geometry:
+    """The launch of the SpMV / decode kernels (``bn=None``) or of the SpMM
+    kernel at column tile ``bn`` over ``batch`` columns."""
+    G = group_size(lane_width)
+    uw = unit_warps(lane_width)
+    spu = WARP // G if uw == 1 else 1
+    units = -(-int(n_slices) // spu)
+    if bn is None:
+        upb = max(SPMV_WARPS // uw, 1)
+        threads = upb * uw * WARP
+        smem = smem_plan(n_tables, lane_width, itemsize,
+                         units_per_block=upb)["total"]
+        return Geometry(G, uw, spu, units, upb, 0, threads,
+                        _blocks(-(-units // upb), threads, smem, n_sm), smem)
+    cw = consumer_warps(lane_width, bn)
+    threads = (uw + cw) * WARP
+    smem = smem_plan(n_tables, lane_width, itemsize, bn=bn)["total"]
+    tiles = -(-int(batch) // int(bn))
+    return Geometry(G, uw, spu, units, 1, cw, threads,
+                    _blocks(units * tiles, threads, smem, n_sm), smem, tiles)
+
+
+def choose_bn(rows: int, batch: int, itemsize: int, fixed: int = 0,
+              widest: int | None = None) -> int | None:
+    """Widest column-tile width ``bn`` (at most ``widest``) whose ``(rows,
+    bn)`` accumulator tile fits `DEFAULT_SMEM_BYTES` and, beside ``fixed``
+    bytes of the kernel's other shared memory, `MAX_SMEM_BYTES`; ``None``
+    when the whole batch fits (untiled: one decode per slice for all
+    columns). ``rows`` rounds up to whole warps."""
     if batch <= 0:
         return None
     per_col = -(-int(rows) // WARP) * WARP * int(itemsize)
     if per_col <= 0:
         return None
-    bn = int(DEFAULT_SMEM_BYTES // per_col)
+    most = (MAX_SMEM_BYTES - int(fixed)) // per_col
+    bn = int(min(DEFAULT_SMEM_BYTES // per_col, most))
+    if widest is not None:
+        bn = min(bn, int(widest))
     if bn >= batch:
         return None
     if bn >= WARP:
         bn = (bn // WARP) * WARP
-    return max(bn, MIN_BN)
+    if bn < MIN_BN:
+        bn = min(MIN_BN, most)
+    return max(bn, 1)
+
+
+
+def dtans_bn(lane_width: int, n_tables: int, batch: int,
+             itemsize: int) -> int | None:
+    """Column tile of the dtANS SpMM: `choose_bn`'s beside the plan's fixed
+    part, at most `DTANS_BN_MAX` columns; ``None`` when the whole batch
+    fits one tile."""
+    return choose_bn(unit_rows(lane_width), batch, itemsize,
+                     spmm_fixed_bytes(n_tables, lane_width, itemsize),
+                     DTANS_BN_MAX)

@@ -114,7 +114,9 @@ class SparseLinear:
         `ops.spmv`). Accumulation happens in the packed matrix's dtype
         (`ops.out_dtype`). Large batches are column-tiled automatically
         when their accumulator tile overflows the shared-memory budget
-        (`tiling.choose_bn`); ``bn`` pins the tile width.
+        (`tiling.choose_bn`); ``bn`` pins the tile width. ``pipeline``
+        is the reference's decode-ahead schedule, which the kernels always
+        run: either value gives the same bits.
 
         ``metrics``: registry the ``serving.*`` instruments land in (the
         process default when omitted)."""

@@ -141,9 +141,14 @@ def test_kernels_refuse_what_they_do_not_take():
         K.dtans_spmv(toy, torch.zeros(10, dtype=torch.float64,
                                       device="cuda"))
     dm = to_device(pack_matrix(encode_matrix(CSR.from_dense(d),
-                                             lane_width=1024)), "cuda")
+                                             lane_width=992)), "cuda")
     with pytest.raises(ValueError, match="shared memory"):
         K.dtans_spmm(dm, torch.zeros(10, 64, dtype=torch.float64,
+                                     device="cuda"))
+    dm = to_device(pack_matrix(encode_matrix(CSR.from_dense(d),
+                                             lane_width=1024)), "cuda")
+    with pytest.raises(ValueError, match="lane widths up to 992"):
+        K.dtans_spmm(dm, torch.zeros(10, 2, dtype=torch.float64,
                                      device="cuda"))
 
 
@@ -380,6 +385,131 @@ def test_bcsr_ops_on_card_vs_dense():
     _close(got.cpu(), torch.from_numpy(d @ X), got.dtype)
     _close(ops.bcsr_spmv(pb, X[:, 0]).cpu(), torch.from_numpy(d @ X[:, 0]),
            got.dtype)
+
+
+# The redesigned dtANS kernels at every lane width of chip_smoke.py's sweep:
+# packed narrow slices (1 to 32 lanes), one warp, 2 to 32 warps.
+SWEEP_L = (1, 3, 4, 8, 31, 32, 33, 40, 64, 100, 128, 256, 1024)
+
+
+def _varied(m, n, dtype, seed):
+    """Rows of 0 to ~40% density, so the lanes (and the packed slices) of
+    a warp end at different segments."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((m, n)).astype(dtype)
+    d[rng.random((m, n)) >= rng.random(m)[:, None] * 0.4] = 0
+    return d
+
+
+def _check_dtans_bitwise(pm):
+    """SpMV, SpMM, tiles, B = 1, ``pipeline`` and decode: kernel vs plain
+    (and vs each other) bitwise."""
+    dm = to_device(pm, "cuda")
+    X = torch.as_tensor(np.random.default_rng(22).standard_normal(
+        (pm.shape[1], 6)), dtype=dm.dtype, device="cuda")
+    x = X[:, 0].contiguous()
+    y = K.dtans_spmv(dm, x)
+    assert torch.equal(y, K.dtans_spmv_plain(dm, x))
+    assert torch.equal(ops.spmv(pm, x, pipeline=True), ops.spmv(pm, x))
+    if pm.lane_width <= tiling.MAX_SPMM_LANE_WIDTH:
+        Y = K.dtans_spmm(dm, X)
+        assert torch.equal(Y, K.dtans_spmm_plain(dm, X))
+        assert torch.equal(K.dtans_spmm(dm, X, bn=4), Y)
+        assert torch.equal(K.dtans_spmm(dm, X[:, :1].contiguous())[..., 0], y)
+        assert torch.equal(ops.spmm(pm, X, pipeline=True), ops.spmm(pm, X))
+    else:
+        with pytest.raises(ValueError, match="lane widths up to"):
+            K.dtans_spmm(dm, X)
+    cols, vals = ops.decode(pm)
+    want_c, want_v = decode_ref(pm, device="cuda")
+    bits = torch.int64 if vals.dtype == torch.float64 else torch.int32
+    assert torch.equal(cols, want_c)
+    assert torch.equal(vals.view(bits), want_v.view(bits))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("L", SWEEP_L)
+def test_dtans_kernels_bitwise_at_every_lane_width(L, dtype):
+    """f32 on one table, f64 on two (escapes in both: random values)."""
+    _need_card()
+    d = _varied(max(L + L // 2 + 1, 100), 60, dtype, L)
+    _check_dtans_bitwise(pack_matrix(encode_matrix(
+        CSR.from_dense(d), lane_width=L,
+        shared_table=dtype == np.float32)))
+
+
+@pytest.mark.gpu
+def test_packed_slices_with_different_segment_counts():
+    """L = 4: eight slices share a warp; slice k's rows hold about 6k
+    entries, so the warp's slices end at eight different segment counts
+    (0 to 11; some lanes hold none)."""
+    _need_card()
+    d = np.zeros((64, 80))
+    rng = np.random.default_rng(23)
+    for i in range(64):
+        k = 6 * ((i // 4) % 8) - (i % 4)
+        if k > 0:
+            d[i, rng.choice(80, k, replace=False)] = rng.standard_normal(k)
+    pm = pack_matrix(encode_matrix(CSR.from_dense(d), lane_width=4))
+    nsegs = (pm.ns[:8] + 7) // 8
+    assert len(set(nsegs.max(axis=1).tolist())) == 8
+    _check_dtans_bitwise(pm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [(1, 2), (2, 2), (8, 1)], ids=str)
+def test_shared_cols_on_packed_slices_use_the_group_base_lane(bs):
+    """Packed BCSR-dtANS slices gather at their own lane 0's columns (the
+    group's base lane, not the warp's lane 0): every slice here has other
+    columns, so a wrong lane would change the result."""
+    _need_card()
+    a = block_sparse(48, 30, bs, 0.3, np.random.default_rng(24))
+    pm = pack_matrix(encode_bcsr_matrix(a, bs))
+    assert pm.shared_cols and pm.lane_width == bs[0]
+    dm = to_device(pm, "cuda")
+    X = torch.as_tensor(np.random.default_rng(25).standard_normal(
+        (a.shape[1], 5)), dtype=dm.dtype, device="cuda")
+    x = X[:, 0].contiguous()
+    y = K.dtans_spmv(dm, x, shared_cols=True)
+    assert torch.equal(y, K.dtans_spmv_plain(dm, x, shared_cols=True))
+    assert torch.equal(y, K.dtans_spmv(dm, x))
+    Y = K.dtans_spmm(dm, X, shared_cols=True)
+    assert torch.equal(Y, K.dtans_spmm_plain(dm, X, shared_cols=True))
+    assert torch.equal(Y, K.dtans_spmm(dm, X))
+    _close(y.reshape(-1)[:a.shape[0]].cpu(),
+           torch.from_numpy(a.to_dense() @ x.cpu().numpy()), dm.dtype)
+
+
+@pytest.mark.gpu
+def test_racc_two_pow_32_table_on_card():
+    """A table with base 256 (a digit group's radix of exactly 2^32, the
+    kernels' limb shift): kernels and decode bitwise their plain
+    versions."""
+    _need_card()
+    d = np.zeros((300, 300))
+    for i in range(300):
+        d[i, max(0, i - 4):i + 5] = np.where(np.arange(
+            max(0, i - 4), min(300, i + 5)) % 3 == 0, -1.0, 4.0)
+    pm = pack_matrix(encode_matrix(CSR.from_dense(d), lane_width=32))
+    assert int(pm.tab_base.max()) == 256
+    _check_dtans_bitwise(pm)
+
+
+@pytest.mark.gpu
+def test_smem_plan_matches_the_kernels():
+    """`tiling.smem_plan` and the built kernels' own count agree."""
+    _need_card()
+    for L in SWEEP_L:
+        for T in (1, 2):
+            for item in (4, 8):
+                upb = tiling.geometry(1, L, T, item).units_per_block
+                assert K.smem_need(False, T, L, item) == tiling.smem_plan(
+                    T, L, item, units_per_block=upb)["total"]
+                assert K.smem_need(True, T, L, item, 8) == tiling.smem_plan(
+                    T, L, item, bn=8)["total"]
+
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:

@@ -263,7 +263,8 @@ class TestWrappers:
 
     def test_matrix_bytes_counts_device_tensors(self):
         """`kernels.matrix_bytes` adds the bytes of the tensors the kernels
-        read (uint32 stream, no row_valid), once per pass at any tiling."""
+        read (uint32 stream, packed 12-byte table slots, no row_valid),
+        once per pass at any tiling."""
         from repro_torch import obs
         a = _random_dense(40, 30, 0.3, np.float32, 34)
         pm = pack_matrix(encode_matrix(CSR.from_dense(a), lane_width=16))
@@ -272,8 +273,7 @@ class TestWrappers:
                    if isinstance(v, np.ndarray))
         assert dm.nbytes == (pm.stream.size * 4 + pm.esc.nbytes
                              + pm.ns.nbytes + pm.nnz.nbytes
-                             + pm.tab_symbol.nbytes + pm.tab_digit.nbytes
-                             + pm.tab_base.nbytes + pm.tab_is_esc.nbytes)
+                             + pm.tab_symbol.size * 12)
         assert dm.nbytes < host
         c = obs.default_registry().counter("kernels.matrix_bytes")
         before = c.value
@@ -303,14 +303,19 @@ class TestRefusals:
                                     dict(pipeline=True), dict(fused=True)])
     @pytest.mark.parametrize("fn", ["spmv", "spmm"])
     def test_unported_knobs_raise(self, pm, kw, fn):
-        """Sharding and ``pipeline`` are not ported; ``fused=True`` runs,
-        but on a pack that is not block-filled it is a ValueError, as in
-        the JAX package."""
+        """Sharding is not ported; ``pipeline=True`` runs and gives bitwise
+        the ``pipeline=False`` result (the kernels always run that
+        schedule); ``fused=True`` runs, but on a pack that is not
+        block-filled it is a ValueError, as in the JAX package."""
         x = np.ones(10, np.float32) if fn == "spmv" else np.ones((10, 2),
                                                                  np.float32)
         if "fused" in kw:
             with pytest.raises(ValueError, match="block-filled"):
                 getattr(ops, fn)(pm, x, device="cpu", **kw)
+            return
+        if "pipeline" in kw:
+            got = getattr(ops, fn)(pm, x, device="cpu", **kw)
+            assert torch.equal(got, getattr(ops, fn)(pm, x, device="cpu"))
             return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(ops, fn)(pm, x, device="cpu", **kw)
@@ -339,25 +344,33 @@ class TestTiling:
         assert tiling.choose_bn(100, 512, 4) == tiling.choose_bn(128, 512, 4)
 
     def test_floor_fits_opt_in_limit(self):
+        """The floor tile fits the opt-in limit; where the dtANS plan's
+        fixed part leaves less than the floor, the tile shrinks to what
+        still fits."""
         bn = tiling.choose_bn(1024, 512, 8)
         assert bn == tiling.MIN_BN
         assert 1024 * bn * 8 <= (tiling.MAX_SMEM_BYTES
                                  - tiling.STATIC_SMEM_BYTES)
-        K._check_tile(1024, 512, bn, 8)
+        fixed = tiling.spmm_fixed_bytes(2, 992, 8)
+        bn = tiling.choose_bn(992, 512, 8, fixed)
+        assert 1 <= bn < tiling.MIN_BN
+        K.check_plan(tiling.smem_plan(2, 992, 8, bn=bn)["total"])
+        with pytest.raises(ValueError, match="smaller bn"):
+            K.check_plan(tiling.smem_plan(2, 992, 8, bn=bn + 1)["total"])
 
     def test_tile_beside_static_smem_refused(self):
-        """A tile that fits the opt-in limit alone but not beside the
-        kernels' static shared memory is refused with a clear message."""
+        """A tile whose plan fits only without the kernels' static shared
+        memory is refused with a clear message; tiles are work items of
+        the persistent grid, so their count has no limit."""
+        fixed = tiling.spmm_fixed_bytes(1, 128, 4)
         room = tiling.MAX_SMEM_BYTES - tiling.STATIC_SMEM_BYTES
-        bt = room // (128 * 4)
-        K._check_tile(128, 4096, bt, 4)
-        assert (bt + 1) * 128 * 4 > room
+        bt = (room - fixed) // (128 * 4)
+        K.check_plan(tiling.smem_plan(1, 128, 4, bn=bt)["total"])
+        assert tiling.smem_plan(1, 128, 4, bn=bt + 1)["total"] > room
         with pytest.raises(ValueError, match="smaller bn"):
-            K._check_tile(128, 4096, bt + 1, 4)
-        at_limit = tiling.MAX_SMEM_BYTES // (32 * 8)      # 908 f64 columns
-        assert at_limit * 32 * 8 == tiling.MAX_SMEM_BYTES
+            K.check_plan(tiling.smem_plan(1, 128, 4, bn=bt + 1)["total"])
         with pytest.raises(ValueError, match="smaller bn"):
-            K._check_tile(1, 4096, at_limit, 8)
-        with pytest.raises(ValueError, match="grid"):
-            K._check_tile(32, 65536 * 2, 1, 4)
-
+            K.check_plan(room + 1)
+        g = tiling.geometry(1, 32, 1, 4, bn=1, batch=65536 * 2)
+        assert g.col_tiles == 65536 * 2
+        assert g.blocks <= tiling.SM_COUNT * tiling.SM_THREADS // g.threads

@@ -148,11 +148,6 @@ def test_from_dense_refusals():
         SparseLinear.from_dense(w, n_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SparseLinear.from_dense(w, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _sl = SparseLinear.from_dense(
-            np.random.default_rng(7).standard_normal((8, 16)), device="cpu",
-            lane_width=8)
-        _sl.apply(np.ones((2, 8)), pipeline=True)
 
 
 def test_from_dense_defaults_to_cuda():
