@@ -48,7 +48,9 @@ Phases, each raising on failure (no phase falls back to the CPU):
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
    timed only; a row's ``library_ms`` is the faster of them), dense
-   matmul, and the bound, for every kernel.
+   matmul, and the bound, for every kernel; the SELL and RGCSR SpMM rows
+   (B = 4, 8, 64, 512) also as a ratio to cuSPARSE CSR. Phase 2 logs the
+   registers and spills of every SELL / RGCSR SpMM instantiation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -59,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -195,12 +198,52 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {stem}: {line.strip()}")
+    RESULTS["warp_spmm_build"] = rows = warp_spmm_registers()
+    for r in rows:
+        log(f"[build] {r['stem']} spmm_warp_kernel<{r['type']}, bw={r['bw']}"
+            f", nc={r['nc']}, {r['x']}>: {r['registers']} "
+            f"registers, spill {r['spill_stores']} B stores / "
+            f"{r['spill_loads']} B loads")
     static = K.static_smem_bytes()
     log(f"[build] SpMM static shared memory {static} B "
         f"(tiling.STATIC_SMEM_BYTES = {tiling.STATIC_SMEM_BYTES})")
     if static > tiling.STATIC_SMEM_BYTES:
         raise AssertionError("tiling.STATIC_SMEM_BYTES is below the "
                              "kernel's static shared memory")
+
+
+_WARP_KERNEL = re.compile(r"spmm_warp_kernelI([fd]).*?ELi(\d+)ELi(\d+)"
+                          r"ENS_\d+(StagedX|GlobalX)")
+
+
+def warp_spmm_registers() -> list:
+    """Registers and spills of every SELL / RGCSR SpMM instantiation
+    (``spmm_warp_kernel``), read from the builds' ``-Xptxas -v`` logs."""
+    rows = []
+    for stem in ("sell_spmv", "rgcsr_spmv"):
+        path = _build.log_path(stem)
+        cur, spill = None, (0, 0)
+        for line in (path.read_text() if path.exists() else "").splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                cur = _WARP_KERNEL.search(m.group(1))
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                rows.append({
+                    "stem": stem,
+                    "type": "float" if cur.group(1) == "f" else "double",
+                    "bw": int(cur.group(2)), "nc": int(cur.group(3)),
+                    "x": cur.group(4),
+                    "registers": int(m.group(1)), "spill_stores": spill[0],
+                    "spill_loads": spill[1]})
+                cur = None
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1092,6 +1135,13 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
             libs["blocked"][0], lib_ms["blocked"], dense_b_ms,
             comparator_bound(blk["q"], "bcsr", BLOCK, blk["pb"], B),
             lib_ms["blocked csr"])
+    for r in rows:
+        csr_ms = r["library_calls"].get("cuSPARSE CSR")
+        if r["kernel"] in ("sell_spmm", "rgcsr_spmm") and csr_ms:
+            r["ratio_csr"] = r["ms"] / csr_ms
+            log(f"[times] padded SpMM {r['pack']:10s} B={r['B']:3d} "
+                f"bn={r['bn']}: {r['ms']:.4f} ms = {r['ratio_csr']:.2f}x "
+                f"cuSPARSE CSR ({csr_ms:.4f} ms) | {card()}")
     for label, s in (("dtans L=128", sl), ("bcsr-dtans 4x4", bsl)):
         d = to_device(s.packed, "cuda")
         add("dtans_decode", label, 0, None,

@@ -3,21 +3,27 @@
 // Replaces the TPU kernels of the JAX package:
 //   src/repro/kernels/rgcsr_spmv.py::_rgcsr_kernel       (rgcsr_spmv_pallas)
 //   src/repro/kernels/rgcsr_spmv.py::_rgcsr_spmm_kernel  (rgcsr_spmm_pallas,
-//     with the column tiles of kernels/tiling.py::blocked_spmm as blockIdx.y)
+//     with the column tiles of kernels/tiling.py::blocked_spmm as work
+//     items of a flat grid)
 // Per row r: col = int32 running sum of deltas[r, 0..w]; the term at w is
 // w < nnz[r] ? val[r,w] * x[clip(col), b] : 0, summed left to right.
 //
 // What bounds it: bytes, as for SELL (sell_spmv.cu): a 4-byte delta and a
 // 4- or 8-byte value per stored entry, one multiply-add per column, plus
 // one 4-byte count per row. The running sum adds one integer add per
-// stored entry, which the loads hide.
+// stored entry, which the loads hide. At B >= 64 the x reads dominate, as
+// for SELL.
 //
-// Design, first and simple (padded_rows.cuh): one thread per row of the
-// flat (S * G) view, 128 per block, so a group of G rows is only where a
-// row's data lies and small groups (G = 4) do not make small blocks. The
-// running sum lives in the thread's register and is computed once per row
-// and column chunk, for all the chunk's columns. Layout, accumulators and
-// what is left for later as in sell_spmv.cu.
+// Design (padded_rows.cuh), the SELL kernels' with the RgcsrRow policy:
+//   * SpMV, first and simple: one thread per row of the flat (S * G) view,
+//     128 per block, so a group of G rows is only where a row's data lies
+//     and small groups (G = 4) do not make small blocks; the running sum
+//     lives in the thread's register.
+//   * SpMM: spmm_warp_kernel, one warp per chunk of 32 interleaved rows and
+//     slab of columns, lanes mapped to columns, accumulators in registers
+//     (sell_spmv.cu). Lane i keeps row i's int32 running sum and ballots
+//     w < nnz; the chunk stops at its longest row (__reduce_max_sync of
+//     the counts), since every later position is masked.
 //
 // Plain C interface (loaded with ctypes): every entry returns
 // cudaGetLastError() after its launch.
@@ -38,11 +44,16 @@ struct RgcsrRow {
   uint32_t col;  // int32 sum, wrapping as the reference's jnp.cumsum
   __device__ RgcsrRow(const Args& a, long long r)
       : deltas(a.deltas), nnz(__ldg(a.nnz + r)), col(0u) {}
-  __device__ bool next(long long e, int w, long long* c) {
-    col += (uint32_t)__ldg(deltas + e);
+  __device__ int fetch(long long e) const { return __ldg(deltas + e); }
+  __device__ bool take(int delta, int w, long long* c) {
+    col += (uint32_t)delta;
     *c = (long long)(int32_t)col;
     return w < nnz;
   }
+  __device__ bool next(long long e, int w, long long* c) {
+    return take(fetch(e), w, c);
+  }
+  __device__ int stop(int wg) const { return nnz < wg ? nnz : wg; }
 };
 
 }  // namespace
@@ -62,18 +73,22 @@ int rgcsr_spmv_launch(int f64, const void* deltas, const void* nnz,
                                                     stream);
 }
 
-// y (R, B) = A X, X (n, B) row-major, in column tiles of bt
-// (grid.y = ceil(B / bt)).
+// y (R, B) = A X, X (n, B) row-major, in column tiles of bt, through
+// spmm_warp_kernel with the geometry of kernels/tiling.py::padded_geometry
+// (bw, nc, warps, stage, blocks); a geometry that does not cover the
+// work is refused with cudaErrorInvalidValue.
 int rgcsr_spmm_launch(int f64, const void* deltas, const void* nnz,
                       const void* val, long long R, int wg, const void* x,
-                      long long n, long long B, int bt, void* y,
+                      long long n, long long B, int bt, int bw, int nc,
+                      int warps, int stage, long long blocks, void* y,
                       void* stream) {
   const RgcsrRow::Args a{static_cast<const int*>(deltas),
                          static_cast<const int*>(nnz)};
-  return f64 ? padded::launch_spmm<RgcsrRow, double>(a, val, R, wg, x, n, B,
-                                                     bt, y, stream)
-             : padded::launch_spmm<RgcsrRow, float>(a, val, R, wg, x, n, B,
-                                                    bt, y, stream);
+  const padded::WarpGeom g{bw, nc, warps, stage, blocks};
+  return f64 ? padded::launch_spmm_warp<RgcsrRow, double>(
+                   a, val, R, wg, x, n, B, bt, g, y, stream)
+             : padded::launch_spmm_warp<RgcsrRow, float>(
+                   a, val, R, wg, x, n, B, bt, g, y, stream);
 }
 
 const char* rgcsr_error_string(int code) {

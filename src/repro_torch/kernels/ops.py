@@ -256,12 +256,14 @@ def sell_spmv(ps: PackedSELL, x, y=None, *, device="cuda") -> torch.Tensor:
 def sell_spmm(ps: PackedSELL, x, y=None, *, device="cuda",
               bn=None) -> torch.Tensor:
     """Multi-RHS SELL: Y = A X + Y, X: (n, B). Shares the `spmm`
-    signature; B == 1 delegates to `sell_spmv` (bitwise equal), and every
-    ``bn`` gives bitwise the untiled result."""
+    signature; B == 1 delegates to `sell_spmv` (bitwise equal), ``bn=None``
+    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
+    untiled result."""
     ds = _sell.to_device(ps, device)
     return _many_rhs("sell_spmm", ds, ps.lane_width, x, y, bn,
                      lambda v: sell_spmv(ps, v, device=ds.device),
-                     lambda X, b: _sell.sell_spmm(ds, X, bn=b))
+                     lambda X, b: _sell.sell_spmm(ds, X, bn=b),
+                     choose=lambda B: tiling.padded_bn(B, ds.dtype.itemsize))
 
 
 def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
@@ -276,12 +278,14 @@ def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
 def rgcsr_spmm(pr: PackedRGCSR, x, y=None, *, device="cuda",
                bn=None) -> torch.Tensor:
     """Multi-RHS RGCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
-    signature; B == 1 delegates to `rgcsr_spmv` (bitwise equal), and every
-    ``bn`` gives bitwise the untiled result."""
+    signature; B == 1 delegates to `rgcsr_spmv` (bitwise equal), ``bn=None``
+    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
+    untiled result."""
     dr = _rgcsr.to_device(pr, device)
     return _many_rhs("rgcsr_spmm", dr, pr.group_size, x, y, bn,
                      lambda v: rgcsr_spmv(pr, v, device=dr.device),
-                     lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b))
+                     lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b),
+                     choose=lambda B: tiling.padded_bn(B, dr.dtype.itemsize))
 
 
 def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:

@@ -149,11 +149,12 @@ def sell_spmv(ds: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
 def sell_spmm(ds: DeviceSELL, x: torch.Tensor,
               bn: int | None = None) -> torch.Tensor:
     """Per-slice rows (S, L, B) of A X, X (n, B): the CUDA kernel on a CUDA
-    tensor (grid.y = the ceil(B / bn) column tiles; ``bn=None`` is one tile
-    of all B columns), the plain version on a CPU tensor."""
+    tensor (one warp per chunk of 32 rows and slab of columns of each of
+    the ceil(B / bn) column tiles, `tiling.padded_geometry`; ``bn=None`` is
+    one tile of all B columns), the plain version on a CPU tensor."""
     check_rhs(ds, x, 2)
     B = x.shape[1]
-    bt = padded.tile_width(B, bn)
+    bt = padded.tile_width(B, bn, most_tiles=None)
     if x.device.type == "cpu":
         return sell_spmm_plain(ds, x, None if bt == B else bt)
     y = padded.launch("sell_spmm", launches, [ds.indices], ds.values,

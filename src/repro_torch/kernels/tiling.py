@@ -28,9 +28,14 @@ given less.
 `DEFAULT_SMEM_BYTES`, and the whole plan must fit `MAX_SMEM_BYTES`. Tiling
 splits only the B axis, so every output column sees exactly the arithmetic
 of the untiled kernel: tiled results are bitwise equal to untiled ones at
-every ``bn``. (The comparator kernels call `choose_bn` with their own
-rows and no fixed part: their template walks its accumulator in 48 KB
-chunks.)
+every ``bn``. (The BCSR SpMM calls `choose_bn` with its own rows and no
+fixed part: its kernel walks its accumulator in 48 KB chunks.)
+
+The SELL and RGCSR SpMM kernel (``csrc/padded_rows.cuh::
+spmm_warp_kernel``) keeps its accumulators in registers; its shared memory
+holds only the slab's x columns, where they fit. `padded_geometry` gives
+its launch (one warp per chunk of 32 rows and slab of columns, lanes
+mapped to columns) and `padded_bn` its default column tile, one slab.
 
 H100 facts behind the constants (NVIDIA's Hopper documentation): 132 SMs
 on the SXM part; a block may use 48 KB of shared memory without opting in,
@@ -236,3 +241,137 @@ def dtans_bn(lane_width: int, n_tables: int, batch: int,
     return choose_bn(unit_rows(lane_width), batch, itemsize,
                      spmm_fixed_bytes(n_tables, lane_width, itemsize),
                      DTANS_BN_MAX)
+
+
+# ---------------------------------------------------------------------------
+# the SELL / RGCSR SpMM (csrc/padded_rows.cuh::spmm_warp_kernel)
+# ---------------------------------------------------------------------------
+
+#: Accumulator registers (32-bit words) a lane of the padded SpMM may hold:
+#: 32 rows x 2 f32 columns, or 32 rows x 1 f64 column.
+PADDED_ACC_WORDS = 64
+
+#: Warps a block at one column a lane (and the fewest at two): chosen by
+#: timing the SmolLM-135M head on an H100 (``experiments/padded_geometry/``,
+#: PERF.md).
+PADDED_WARPS = 8
+
+#: Most warps a block: the kernel's ``__launch_bounds__(512)``. Two
+#: columns a lane take up to this many, one block an SM.
+PADDED_MAX_WARPS = 16
+
+#: Most blocks of the flat grid (its x dimension).
+MAX_GRID_BLOCKS = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedGeometry:
+    """One launch of the SELL / RGCSR SpMM kernel (its C entry's geometry
+    arguments). A work item is one chunk of 32 rows and one slab of
+    ``slab`` columns of a column tile of ``bt``; blocks run slab-major,
+    ``warps`` chunks a block. Lane ``(g, bl)``, ``g = lane // bw``, owns
+    rows ``g * bw + j`` (``j < bw``) of its chunk at the slab's columns
+    ``c * bw + bl`` (``c < cols_per_lane``)."""
+    bw: int               # lanes of a row group: a power of two <= 32
+    cols_per_lane: int    # 1, or 2 at bw == 32 (f32)
+    warps: int            # warps (chunks) a block
+    stage: bool           # x of the slab staged in shared memory
+    smem: int             # dynamic shared memory: slab and row buffers
+    bt: int               # columns a tile
+    chunks: int           # ceil(R / 32)
+    tiles: int            # ceil(B / bt)
+    slabs_per_tile: int   # ceil(bt / slab)
+    blocks: int
+
+    @property
+    def row_groups(self) -> int:
+        return WARP // self.bw
+
+    @property
+    def slab(self) -> int:
+        """Columns of a work item."""
+        return self.bw * self.cols_per_lane
+
+    def acc_words(self, itemsize: int) -> int:
+        """32-bit registers a lane's accumulators take."""
+        return self.bw * self.cols_per_lane * int(itemsize) // 4
+
+    def args(self) -> list:
+        return [self.bw, self.cols_per_lane, self.warps, int(self.stage),
+                self.blocks]
+
+
+def padded_rows_bytes(itemsize: int) -> int:
+    """A warp's buffer of 32 (column, value) pairs: 8 bytes a pair at f32,
+    16 at f64 (the int padded to the double's alignment)."""
+    return WARP * (8 if int(itemsize) == 4 else 16)
+
+
+def _most_cols_per_lane(itemsize: int) -> int:
+    return max(1, PADDED_ACC_WORDS * 4 // (WARP * int(itemsize)))
+
+
+def _staged_bytes(n: int, slab: int, itemsize: int, warps: int) -> int:
+    """Shared memory of a block that stages the slab's x columns."""
+    return (_align16(int(n) * slab * int(itemsize))
+            + int(warps) * padded_rows_bytes(itemsize))
+
+
+def padded_geometry(rows: int, n: int, batch: int, bt: int, itemsize: int,
+                    *, cols_per_lane: int | None = None,
+                    warps: int | None = None, stage: bool | None = None,
+                    n_sm: int = SM_COUNT) -> PaddedGeometry:
+    """The launch of the SELL / RGCSR SpMM over ``rows`` padded rows, x of
+    ``n`` rows and ``batch`` columns in tiles of ``bt``. The slab is ``bt``
+    rounded up to a power of two up to a warp (``32 / bw`` row groups share
+    a warp below that); a tile wider than a warp of f32 columns gives each
+    lane two columns (a 64-column slab) where that slab's x columns fit a
+    block's shared memory. One column a lane runs `PADDED_WARPS` warps a
+    block; two run one block an SM, with as many warps (`PADDED_WARPS` to
+    `PADDED_MAX_WARPS`) as spread the work over ``n_sm`` SMs in one wave.
+    The slab's x columns are staged in shared memory wherever they fit
+    (``stage=None``); else x is read through L1."""
+    bt, batch, itemsize = int(bt), int(batch), int(itemsize)
+    if bt < 1 or batch < 1:
+        raise ValueError(f"need bt >= 1 and batch >= 1; got {bt}, {batch}")
+    bw = WARP if bt >= WARP else 1 << (bt - 1).bit_length()
+    most = _most_cols_per_lane(itemsize) if bw == WARP else 1
+    if cols_per_lane is None:
+        two = (bt > WARP and most >= 2 and _staged_bytes(
+            n, 2 * WARP, itemsize, PADDED_MAX_WARPS) <= MAX_SMEM_BYTES)
+        cols_per_lane = 2 if two else 1
+    if not 1 <= cols_per_lane <= most:
+        raise ValueError(f"{cols_per_lane} columns a lane at bw={bw} and "
+                         f"{itemsize}-byte values exceed the "
+                         f"{PADDED_ACC_WORDS}-register accumulator budget")
+    slab = bw * cols_per_lane
+    chunks = -(-int(rows) // WARP)
+    tiles = -(-batch // bt)
+    per_tile = -(-bt // slab)
+    if warps is None:
+        warps = PADDED_WARPS
+        if cols_per_lane == 2:
+            work = chunks * tiles * per_tile       # warps' work items
+            warps = min(PADDED_MAX_WARPS, max(warps, -(-work // int(n_sm))))
+    if not 1 <= int(warps) <= PADDED_MAX_WARPS:
+        raise ValueError(f"warps must be 1..{PADDED_MAX_WARPS}; got {warps}")
+    staged = _staged_bytes(n, slab, itemsize, warps)
+    if stage is None:
+        stage = staged <= MAX_SMEM_BYTES
+    if stage and staged > MAX_SMEM_BYTES:
+        raise ValueError(f"a slab of {staged} B does not fit a block")
+    blocks = tiles * per_tile * -(-chunks // int(warps))
+    if blocks > MAX_GRID_BLOCKS:
+        raise ValueError(f"{blocks} blocks exceed the grid")
+    rows_bytes = int(warps) * padded_rows_bytes(itemsize)
+    return PaddedGeometry(bw, int(cols_per_lane), int(warps), bool(stage),
+                          staged if stage else rows_bytes, bt, chunks, tiles,
+                          per_tile, blocks)
+
+
+def padded_bn(batch: int, itemsize: int) -> int | None:
+    """Default column tile of the SELL / RGCSR SpMM: the widest slab, 64
+    columns at f32 (two a lane) and 32 at f64, or ``None`` when the batch
+    fits one."""
+    slab = WARP * _most_cols_per_lane(itemsize)
+    return None if int(batch) <= slab else slab

@@ -12,6 +12,7 @@ torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
 failing compile must raise.
 """
 
+import dataclasses
 import os
 import stat
 
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
 from repro_torch.core.params import TOY
-from repro_torch.kernels import _build, ops, tiling
+from repro_torch.kernels import _build, ops, padded, tiling
 from repro_torch.kernels import bcsr_spmv as BC
 from repro_torch.kernels import dtans_decode as DD
 from repro_torch.kernels import dtans_spmv as K
@@ -237,6 +238,117 @@ def test_comparator_kernels_degenerate_shapes_on_card(fmt):
         assert not bool(spmv(dm, x[:, 0].contiguous()).any())
         assert not bool(spmm(dm, x, bn=2).any())
     torch.cuda.synchronize()
+
+
+# The SELL / RGCSR SpMM kernel (`padded_rows.cuh::spmm_warp_kernel`): the
+# batches and tiles of its geometry (narrow row groups, one and two columns
+# a lane, ragged tiles and slabs), and the layouts it runs on.
+WARP_SPMM_B = (2, 3, 4, 5, 8, 9, 16, 31, 32, 33, 63, 64, 65, 100)
+WARP_SPMM_BN = (None, 1, 4, 8, 24, 32, 40, 64)
+WARP_SPMM_LAYOUTS = [("sell", 16), ("sell", 32), ("sell", 128),
+                     ("rgcsr", 4), ("rgcsr", 8), ("rgcsr", 32)]
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fmt,rows", WARP_SPMM_LAYOUTS,
+                         ids=[f"{f}{r}" for f, r in WARP_SPMM_LAYOUTS])
+def test_warp_spmm_bitwise_plain_on_card(fmt, rows, dtype):
+    """Bitwise the plain version at every B and tile of the sweep, on a
+    matrix of 141 rows (R not a multiple of 32 at L = 16, G = 4 and 8) with
+    empty rows, a row of all 70 columns (the pack's Wg) and -0.0 in x; the
+    launches are counted."""
+    _need_card()
+    pack, upload, _, spmm, _, spmm_plain, launches = COMPARATORS[fmt]
+    d = _dense(141, 70, 0.2, dtype, 30)
+    d[[5, 6, 40]] = 0                                   # empty rows
+    d[3] = np.random.default_rng(31).standard_normal(70) + 3  # row at Wg
+    dm = upload(pack(CSR.from_dense(d), rows), "cuda")
+    assert dm.values.shape[1] == 70
+    rng = np.random.default_rng(32)
+    Xall = rng.standard_normal((70, max(WARP_SPMM_B)))
+    Xall[rng.random(Xall.shape) < 0.1] = -0.0
+    before = launches[f"{fmt}_spmm"]
+    for B in WARP_SPMM_B:
+        X = torch.as_tensor(Xall[:, :B], dtype=dm.dtype,
+                            device="cuda").contiguous()
+        for bn in WARP_SPMM_BN:
+            got = spmm(dm, X, bn=bn)
+            want = spmm_plain(dm, X, None if bn is None or bn >= B else bn)
+            assert torch.equal(_bits(got), _bits(want)), (B, bn)
+    torch.cuda.synchronize()
+    n = len(WARP_SPMM_B) * len(WARP_SPMM_BN)
+    assert launches[f"{fmt}_spmm"] - before == n
+
+
+def _warp_launch(fmt, dm, X, g):
+    """The SELL / RGCSR SpMM C entry with the geometry ``g``."""
+    mats = [dm.indices] if fmt == "sell" else [dm.deltas, dm.nnz]
+    y = torch.empty((dm.rows, X.shape[1]), dtype=dm.dtype, device="cuda")
+    rc = getattr(padded.library(fmt, len(mats)), f"{fmt}_spmm_launch")(
+        int(dm.dtype == torch.float64), *(t.data_ptr() for t in mats),
+        dm.values.data_ptr(), dm.rows, dm.values.shape[1], X.data_ptr(),
+        X.shape[0], X.shape[1], g.bt, *g.args(), y.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    return rc, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fmt", ["sell", "rgcsr"])
+def test_warp_spmm_staged_and_l1_reads_agree_on_card(fmt, dtype):
+    """x staged in shared memory and x read through L1 give the plain
+    version's bits at every slab width; and a matrix of 2,000 columns,
+    whose 32-column slab does not fit a block's shared memory, takes the L1
+    path through the wrapper."""
+    _need_card()
+    pack, upload, _, spmm, _, spmm_plain, _ = COMPARATORS[fmt]
+    rng = np.random.default_rng(34)
+    for n in (60, 2000):
+        d = _dense(90, n, 0.05, dtype, 35)
+        dm = upload(pack(CSR.from_dense(d), 16), "cuda")
+        for B in (3, 8, 33, 64):
+            X = torch.as_tensor(rng.standard_normal((n, B)), dtype=dm.dtype,
+                                device="cuda")
+            want = _bits(spmm_plain(dm, X).reshape(-1, B))
+            g = tiling.padded_geometry(dm.rows, n, B, B, X.element_size())
+            assert g.stage == (n == 60 or g.bw < 32)
+            assert torch.equal(_bits(spmm(dm, X).reshape(-1, B)), want)
+            for stage in (False, True):
+                if stage and n * g.slab * X.element_size() > 200000:
+                    continue                  # a slab no block can stage
+                gs = tiling.padded_geometry(dm.rows, n, B, B,
+                                            X.element_size(), stage=stage)
+                rc, y = _warp_launch(fmt, dm, X, gs)
+                assert rc == 0 and torch.equal(_bits(y), want), (n, B, stage)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["sell", "rgcsr"])
+def test_warp_spmm_refuses_a_geometry_short_of_the_work(fmt):
+    """The C entry checks the geometry it is given: one block too few,
+    three columns a lane (two at f64) or more warps than the kernel's
+    launch bounds is refused before anything runs."""
+    _need_card()
+    pack, upload, *_ = COMPARATORS[fmt]
+    for dtype in (np.float32, np.float64):
+        dm = upload(pack(CSR.from_dense(_dense(100, 30, 0.3, dtype, 33)),
+                         32), "cuda")
+        X = torch.ones((30, 64), dtype=dm.dtype, device="cuda")
+        g = tiling.padded_geometry(dm.rows, 30, 64, 64, X.element_size())
+        assert _warp_launch(fmt, dm, X, g)[0] == 0
+        bad = [dataclasses.replace(g, blocks=g.blocks - 1),
+               dataclasses.replace(g, cols_per_lane=3),
+               dataclasses.replace(g, warps=tiling.PADDED_MAX_WARPS + 1)]
+        if dtype == np.float64:
+            bad.append(dataclasses.replace(g, cols_per_lane=2))
+        for b in bad:
+            assert _warp_launch(fmt, dm, X, b)[0] != 0, (dtype, b)
 
 
 @pytest.mark.gpu
