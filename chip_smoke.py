@@ -22,7 +22,9 @@ Phases, each raising on failure (no phase falls back to the CPU):
    holds the dtANS kernels and decode bitwise against their plain versions
    on an escape-heavy quantized f32 matrix, an f64 matrix with two tables
    and a matrix whose table base reaches 256 (a digit group's radix of
-   2^32), with tiles, B=1 SpMM vs SpMV and ``pipeline=True`` vs ``False``.
+   2^32), with tiles, B=1 SpMM vs SpMV and ``pipeline=True`` vs ``False``;
+   ``ops.spmm`` at L = 1024 (one SpMV launch a column) and with ``bn=400``
+   at L = 128 (a tile cut to fit shared memory), bitwise the plain SpMM.
 4. the main path at full width: the tied LM head of SmolLM-135M (d_model
    576, vocab 49152) compressed by ``SparseLinear.from_dense`` with its
    defaults, serving a few requests through ``apply``; each is held
@@ -48,9 +50,13 @@ Phases, each raising on failure (no phase falls back to the CPU):
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
    timed only; a row's ``library_ms`` is the faster of them), dense
-   matmul, and the bound, for every kernel; the SELL and RGCSR SpMM rows
-   (B = 4, 8, 64, 512) also as a ratio to cuSPARSE CSR. Phase 2 logs the
-   registers and spills of every SELL / RGCSR SpMM instantiation.
+   matmul, and the bound, for every kernel; the SELL, RGCSR and BCSR SpMM
+   rows (B = 4, 8, 64, 512) also as a ratio to cuSPARSE CSR. The B=1
+   rows (kernel and library calls) are timed without the Python loop
+   around the entry point: the median of 5 replays of a CUDA graph of 20
+   calls (where capture fails, of loops of the C entry alone), the loop's
+   time of earlier runs beside. Phase 2 logs the registers and spills of
+   every SELL / RGCSR / BCSR SpMM and BCSR SpMV instantiation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -62,6 +68,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -198,12 +205,11 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {stem}: {line.strip()}")
-    RESULTS["warp_spmm_build"] = rows = warp_spmm_registers()
+    RESULTS["warp_spmm_build"] = rows = padded_registers()
     for r in rows:
-        log(f"[build] {r['stem']} spmm_warp_kernel<{r['type']}, bw={r['bw']}"
-            f", nc={r['nc']}, {r['x']}>: {r['registers']} "
-            f"registers, spill {r['spill_stores']} B stores / "
-            f"{r['spill_loads']} B loads")
+        log(f"[build] {r['stem']} {r['kernel']}<{r['type']}, {r['args']}>: "
+            f"{r['registers']} registers, spill {r['spill_stores']} B "
+            f"stores / {r['spill_loads']} B loads")
     static = K.static_smem_bytes()
     log(f"[build] SpMM static shared memory {static} B "
         f"(tiling.STATIC_SMEM_BYTES = {tiling.STATIC_SMEM_BYTES})")
@@ -214,19 +220,35 @@ def phase_build() -> None:
 
 _WARP_KERNEL = re.compile(r"spmm_warp_kernelI([fd]).*?ELi(\d+)ELi(\d+)"
                           r"ENS_\d+(StagedX|GlobalX)")
+_BCSR_SPMV = re.compile(r"bcsr_spmv_kernelI([fd])Lb([01])")
 
 
-def warp_spmm_registers() -> list:
-    """Registers and spills of every SELL / RGCSR SpMM instantiation
-    (``spmm_warp_kernel``), read from the builds' ``-Xptxas -v`` logs."""
+def _kernel_name(mangled: str) -> tuple | None:
+    """(kernel, value type, template arguments) of a padded SpMM or BCSR
+    SpMV instantiation's mangled name, else None."""
+    m = _WARP_KERNEL.search(mangled)
+    if m:
+        return ("spmm_warp_kernel", m.group(1),
+                f"bw={m.group(2)}, nc={m.group(3)}, {m.group(4)}")
+    m = _BCSR_SPMV.search(mangled)
+    if m:
+        return ("bcsr_spmv_kernel", m.group(1),
+                "staged" if m.group(2) == "1" else "L1")
+    return None
+
+
+def padded_registers() -> list:
+    """Registers and spills of every SELL / RGCSR / BCSR SpMM instantiation
+    (``spmm_warp_kernel``) and BCSR SpMV (``bcsr_spmv_kernel``), read from
+    the builds' ``-Xptxas -v`` logs."""
     rows = []
-    for stem in ("sell_spmv", "rgcsr_spmv"):
+    for stem in ("sell_spmv", "rgcsr_spmv", "bcsr_spmv"):
         path = _build.log_path(stem)
         cur, spill = None, (0, 0)
         for line in (path.read_text() if path.exists() else "").splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                cur = _WARP_KERNEL.search(m.group(1))
+                cur = _kernel_name(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -236,10 +258,9 @@ def warp_spmm_registers() -> list:
             m = re.search(r"Used (\d+) registers", line)
             if m and cur is not None:
                 rows.append({
-                    "stem": stem,
-                    "type": "float" if cur.group(1) == "f" else "double",
-                    "bw": int(cur.group(2)), "nc": int(cur.group(3)),
-                    "x": cur.group(4),
+                    "stem": stem, "kernel": cur[0],
+                    "type": "float" if cur[1] == "f" else "double",
+                    "args": cur[2],
                     "registers": int(m.group(1)), "spill_stores": spill[0],
                     "spill_loads": spill[1]})
                 cur = None
@@ -535,8 +556,30 @@ def _check_sweep(label: str, pm, rng) -> None:
             assert "lane widths up to" in str(exc), exc
         else:
             raise AssertionError(f"{label}: spmm took L={pm.lane_width}")
+    _check_c1(label, pm, dm, X, rng)
     _check_decode(label, pm)
     torch.cuda.synchronize()
+
+
+def _check_c1(label: str, pm, dm, X: torch.Tensor, rng) -> None:
+    """What the SpMM kernel refuses and ``ops.spmm`` serves, bitwise the
+    plain SpMM: a lane width past `tiling.MAX_SPMM_LANE_WIDTH` (one SpMV
+    launch a column, each counted) and, at L = 128, an explicit tile of
+    400 columns, wider than a block's shared memory holds (cut to
+    `tiling.dtans_widest_bn`)."""
+    m, n = pm.shape
+    if tiling.spmm_by_columns(pm.lane_width):
+        before = K.launches["dtans_spmv"]
+        got = ops.spmm(pm, X)
+        assert K.launches["dtans_spmv"] - before == X.shape[1], label
+    elif pm.lane_width == 128:
+        X = torch.as_tensor(rng.standard_normal((n, 400)), dtype=dm.dtype,
+                            device="cuda")
+        got = ops.spmm(pm, X, bn=400)
+    else:
+        return
+    want = K.dtans_spmm_plain(dm, X).reshape(-1, X.shape[1])[:m]
+    assert torch.equal(got, want), f"{label}: ops.spmm != plain SpMM (C1)"
 
 
 def phase_sweep() -> None:
@@ -558,7 +601,11 @@ def phase_sweep() -> None:
                          len(mat.tables), "escapes": esc, "max_base": base,
                          "bitwise": True})
         log(f"[sweep] L={L:4d}: quant / f64 2-table / base-256 matrices, "
-            f"spmv, spmm, bn=3, B=1, pipeline and decode bitwise plain")
+            f"spmv, spmm, bn=3, B=1, pipeline and decode bitwise plain"
+            + ("; ops.spmm by columns bitwise plain"
+               if tiling.spmm_by_columns(L) else "")
+            + ("; ops.spmm bn=400 cut to fit, bitwise plain"
+               if L == 128 else ""))
     assert seen_esc > 1000 and seen_256 > 0, (seen_esc, seen_256)
     RESULTS["sweep_cases"] = rows
 
@@ -664,12 +711,13 @@ def _work(csr: CSR, fmt: str, rows, pk) -> tuple[int, int]:
     """(bytes, stored cells) one pass needs, padding not counted: the real
     entries' index and value bytes, plus RGCSR's per-row counts (S * G of
     them); for BCSR each stored block's 4-byte column and r * c values,
-    fill-in included."""
+    fill-in included, plus its per-block-row stops (S of them)."""
     item = csr.values.dtype.itemsize
     if fmt == "bcsr":
         r, c = rows
         n_blocks = int((pk.block_cols >= 0).sum())
-        return n_blocks * (4 + r * c * item), n_blocks * r * c
+        return (n_blocks * (4 + r * c * item) + pk.block_cols.shape[0] * 4,
+                n_blocks * r * c)
     nbytes = csr.nnz * (4 + item)
     if fmt == "rgcsr":
         nbytes += -(-csr.shape[0] // rows) * rows * 4
@@ -956,6 +1004,81 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+RUNS = 5   # runs of a B=1 pass timed without the Python loop
+
+
+def _graph_runs(fn, calls: int = 20) -> list | None:
+    """ms a call of ``fn`` in each of `RUNS` replays of one CUDA graph of
+    ``calls`` calls (no host work between the launches); None where the
+    capture fails."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                fn()
+    except RuntimeError as exc:
+        log(f"[times] CUDA graph capture failed "
+            f"({str(exc).splitlines()[0][:100]})")
+        return None
+    g.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(RUNS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        runs.append(e0.elapsed_time(e1) / calls)
+    return runs
+
+
+def _c_entry_runs(fn, iters: int = 50) -> list:
+    """ms a call in each of `RUNS` event-timed loops of ``iters`` calls of
+    the C entry that ``fn``'s wrapper launches, with that launch's
+    arguments: the ctypes call alone, without the wrapper around it."""
+    seen, saved = [], []
+
+    def recorder(f):
+        def call(*args):
+            seen.append((f, args))
+            return f(*args)
+        return call
+    for lib in list(_build._loaded.values()):
+        for name, f in list(vars(lib).items()):
+            if name.endswith("_launch"):
+                saved.append((lib, name, f))
+                setattr(lib, name, recorder(f))
+    try:
+        out = fn()                  # keeps the output the entry writes
+    finally:
+        for lib, name, f in saved:
+            setattr(lib, name, f)
+    f, args = seen[-1]
+    runs = [time_ms(lambda: f(*args), iters) for _ in range(RUNS)]
+    del out
+    return runs
+
+
+def device_ms(fn, library: bool = False) -> dict:
+    """One call's device time without the Python loop of `time_ms`: the
+    median of `RUNS` runs (`_graph_runs`; where capture fails, a loop of
+    the C entry alone, or of a library call itself)."""
+    runs, by = _graph_runs(fn), "graph"
+    if runs is None:
+        by = "loop" if library else "C entry"
+        runs = ([time_ms(fn, 50) for _ in range(RUNS)] if library
+                else _c_entry_runs(fn))
+    return {"ms": statistics.median(runs), "runs": runs, "by": by}
+
+
 def _roofline(nbytes: int, flops: int, itemsize: int) -> tuple[float, str]:
     """The larger of bytes over the HBM rate and operations over the
     card's rate for the type, in ms, and which of the two it is."""
@@ -986,8 +1109,9 @@ def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
 def comparator_bound(csr: CSR, fmt: str, rows, pk,
                      B: int) -> tuple[float, str, int, int]:
     """Least time for one SELL / RGCSR / BCSR pass at batch B: the bytes of
-    `_work` (no padding; BCSR's stored blocks with their fill-in), x and y
-    once each, against 2 multiply-adds per stored cell and column."""
+    `_work` (no padding; BCSR's stored blocks with their fill-in and its
+    stops), x and y once each, against 2 multiply-adds per stored cell and
+    column."""
     item = csr.values.dtype.itemsize
     nbytes, cells = _work(csr, fmt, rows, pk)
     nbytes += D_MODEL * B * item + VOCAB * B * item
@@ -1057,65 +1181,79 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
         f"{ {k: v[0] for k, v in libs.items()} }")
     rows = []
 
-    def add(kern, label, B, bn, k_ms, p_ms, lib, lib_ms, dense_ms, b,
-            csr_ms=None):
-        """One row; its ``library`` is the faster of the PyTorch calls
-        timed for the same product on the same matrix (``lib`` and, where
-        given, cuSPARSE CSR)."""
+    def add(kern, label, B, bn, k, p_ms, lib, dense_ms, b, csr=None):
+        """One row; ``k`` is `pair`'s kernel timing. Its ``library`` is the
+        faster of the PyTorch calls timed for the same product on the same
+        matrix (``libs[lib]`` and, where given, ``libs[csr]``, cuSPARSE
+        CSR)."""
         b_ms, b_by, nbytes, flops = b
-        calls = {} if lib_ms is None else {lib: lib_ms}
-        if csr_ms is not None:
-            calls["cuSPARSE CSR"] = csr_ms
+        keys = {libs[key][0]: key for key in (lib, csr) if key is not None}
+        calls = {name: lib_ms[key] for name, key in keys.items()}
         best = min(calls, key=calls.get) if calls else None
         rows.append({"kernel": kern, "pack": label, "B": B, "bn": bn,
-                     "ms": k_ms, "plain_ms": p_ms, "library": best,
+                     **k, "plain_ms": p_ms, "library": best,
                      "library_ms": calls.get(best), "library_calls": calls,
                      "dense_ms": dense_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "bytes": nbytes, "flops": flops})
+        if best is not None and B == 1:
+            rows[-1]["library_loop_ms"] = lib_loop[keys[best]]
         lib_s = " | ".join(f"{k} {v:.4f} ms" for k, v in calls.items()) \
             or "library -"
         dense_s = "-" if dense_ms is None else f"{dense_ms:.4f} ms"
+        loop_s = (f" (median of {RUNS}, {k['timed_by']}; Python loop "
+                  f"{k['loop_ms']:.4f} ms)" if "loop_ms" in k else "")
         log(f"[times] {kern:17s} {label:14s} B={B:3d} bn={bn} kernel "
-            f"{k_ms:.4f} ms | plain {p_ms:.2f} ms | {lib_s} | dense "
-            f"{dense_s} | bound {b_ms:.5f} ms ({b_by}) | {card()}")
+            f"{k['ms']:.4f} ms{loop_s} | plain {p_ms:.2f} ms | {lib_s} | "
+            f"dense {dense_s} | bound {b_ms:.5f} ms ({b_by}) | {card()}")
 
     def pair(one, many, x1, x, bn):
-        """(kernel ms, plain ms) of a SpMV (B == 1) or SpMM pass."""
+        """(kernel timing, plain ms) of a SpMV (B == 1) or SpMM pass. At
+        B == 1 the kernel's ``ms`` is `device_ms`'s, the median of `RUNS`
+        runs without the Python loop, and ``loop_ms`` the loop's of
+        earlier PRs; else ``ms`` is the loop's."""
         if x.shape[1] == 1:
-            return time_ms(lambda: one[0](x1), 50), \
+            t = device_ms(lambda: one[0](x1))
+            return {"ms": t["ms"], "runs": t["runs"], "timed_by": t["by"],
+                    "loop_ms": time_ms(lambda: one[0](x1), 50)}, \
                 time_ms(lambda: one[1](x1), 3, 1)
-        return time_ms(lambda: many[0](x, bn), 20), \
+        return {"ms": time_ms(lambda: many[0](x, bn), 20)}, \
             time_ms(lambda: many[1](x, bn), 3, 1)
 
+    lib_loop = {}    # B == 1: the library calls' Python-loop times
     for B, bn in ((1, None), (4, None), (8, None), (64, None), (512, 64)):
         x = torch.as_tensor(rng.standard_normal((D_MODEL, B)),
                             dtype=torch.float32, device="cuda")
         x1 = x[:, 0].contiguous()
-        lib_ms = {k: time_ms(lambda: fn(x), 50) for k, (_, fn) in
-                  libs.items()}
+        if B == 1:
+            lib_ms = {k: device_ms(lambda: fn(x), library=True)["ms"]
+                      for k, (_, fn) in libs.items()}
+            lib_loop = {k: time_ms(lambda: fn(x), 50)
+                        for k, (_, fn) in libs.items()}
+        else:
+            lib_ms = {k: time_ms(lambda: fn(x), 50) for k, (_, fn) in
+                      libs.items()}
         dense_ms = time_ms(lambda: w_dense @ x, 50)
         dense_b_ms = time_ms(lambda: wb_dense @ x, 50)
         kind = "spmv" if B == 1 else "spmm"
-        k_ms, p_ms = pair(
+        kt, p_ms = pair(
             (lambda v: K.dtans_spmv(dm, v), lambda v: K.dtans_spmv_plain(dm, v)),
             (lambda v, b: K.dtans_spmm(dm, v, bn=b),
              lambda v, b: K.dtans_spmm_plain(dm, v, b)), x1, x, bn)
-        add(f"dtans_{kind}", "dtans L=128", B, bn, k_ms, p_ms,
-            libs["csr"][0], lib_ms["csr"], dense_ms, bound(sl, B))
+        add(f"dtans_{kind}", "dtans L=128", B, bn, kt, p_ms, "csr",
+            dense_ms, bound(sl, B))
         for label, (fmt, prows, pk, cm) in packs.items():
             spmv, spmm, spmv_plain, spmm_plain, *_ = WRAPPERS[fmt]
-            k_ms, p_ms = pair(
+            kt, p_ms = pair(
                 (lambda v: spmv(cm, v), lambda v: spmv_plain(cm, v)),
                 (lambda v, b: spmm(cm, v, bn=b),
                  lambda v, b: spmm_plain(cm, v, b)), x1, x, bn)
-            lib = "bcsr 2x2" if fmt == "bcsr" else "csr"
-            add(f"{fmt}_{kind}", label, B, bn, k_ms, p_ms, libs[lib][0],
-                lib_ms[lib], dense_ms,
+            add(f"{fmt}_{kind}", label, B, bn, kt, p_ms,
+                "bcsr 2x2" if fmt == "bcsr" else "csr", dense_ms,
                 comparator_bound(csr, fmt, prows, pk, B),
-                lib_ms["csr"] if fmt == "bcsr" else None)
+                "csr" if fmt == "bcsr" else None)
         # the blocked matrix of phase 4c: fused, generic and BCSR 4x4
         for shared in (True, False):
-            k_ms, p_ms = pair(
+            kt, p_ms = pair(
                 (lambda v: K.dtans_spmv(bdm, v, shared_cols=shared),
                  lambda v: K.dtans_spmv_plain(bdm, v, shared_cols=shared)),
                 (lambda v, b: K.dtans_spmm(bdm, v, bn=b, shared_cols=shared),
@@ -1123,21 +1261,21 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
                                                  shared_cols=shared)),
                 x1, x, bn)
             add(f"dtans_{kind}" + ("_shared" if shared else ""),
-                "bcsr-dtans 4x4", B, bn, k_ms, p_ms, libs["blocked"][0],
-                lib_ms["blocked"], dense_b_ms, bound(bsl, B),
-                lib_ms["blocked csr"])
+                "bcsr-dtans 4x4", B, bn, kt, p_ms, "blocked", dense_b_ms,
+                bound(bsl, B), "blocked csr")
         db = blk["db"]
-        k_ms, p_ms = pair(
+        kt, p_ms = pair(
             (lambda v: BC.bcsr_spmv(db, v), lambda v: BC.bcsr_spmv_plain(db, v)),
             (lambda v, b: BC.bcsr_spmm(db, v, bn=b),
              lambda v, b: BC.bcsr_spmm_plain(db, v, b)), x1, x, bn)
-        add(f"bcsr_{kind}", "bcsr 4x4", B, bn, k_ms, p_ms,
-            libs["blocked"][0], lib_ms["blocked"], dense_b_ms,
+        add(f"bcsr_{kind}", "bcsr 4x4", B, bn, kt, p_ms, "blocked",
+            dense_b_ms,
             comparator_bound(blk["q"], "bcsr", BLOCK, blk["pb"], B),
-            lib_ms["blocked csr"])
+            "blocked csr")
     for r in rows:
         csr_ms = r["library_calls"].get("cuSPARSE CSR")
-        if r["kernel"] in ("sell_spmm", "rgcsr_spmm") and csr_ms:
+        if r["kernel"] in ("sell_spmm", "rgcsr_spmm", "bcsr_spmm") and \
+                csr_ms:
             r["ratio_csr"] = r["ms"] / csr_ms
             log(f"[times] padded SpMM {r['pack']:10s} B={r['B']:3d} "
                 f"bn={r['bn']}: {r['ms']:.4f} ms = {r['ratio_csr']:.2f}x "
@@ -1145,9 +1283,9 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
     for label, s in (("dtans L=128", sl), ("bcsr-dtans 4x4", bsl)):
         d = to_device(s.packed, "cuda")
         add("dtans_decode", label, 0, None,
-            time_ms(lambda: DD.dtans_decode(d), 20),
+            {"ms": time_ms(lambda: DD.dtans_decode(d), 20)},
             time_ms(lambda: DD.dtans_decode_plain(d), 3, 1), None, None,
-            None, decode_bound(s))
+            decode_bound(s))
     RESULTS["times"] = rows
     return rows
 
@@ -1202,7 +1340,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
-            "B": B})
+            "B": B, **{k: t[k] for k in ("loop_ms", "library_loop_ms")
+                       if k in t}})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -8,7 +8,8 @@ values. `to_device` uploads it once per device: the values as the flat rows
 of `kernels.padded`, block row s and its W tiles read as r rows of
 ``W * c`` positions (position ``w * c + j`` of row ``s * r + i`` holds
 ``values[s, w, i, j]``), interleaved in chunks of 32 rows; the block
-columns stay the reference's ``(S, W)`` array.
+columns stay the reference's ``(S, W)`` array, and `block_stops` adds where
+each block row's real slots end (``stops``), which the kernels stop at.
 
 The kernels and the plain versions here walk each row in that position
 order, w-major then j, with the padded template's arithmetic
@@ -23,9 +24,10 @@ which sums over (W, c) in no stated order, within its tolerances.
 ``bcsr_spmv`` / ``bcsr_spmm`` take a `DeviceBCSR` and a dense right-hand
 side on the same device. On a CUDA tensor they launch the hand-written
 kernels of ``csrc/bcsr_spmv.cu`` (which replace the JAX package's
-``bcsr_spmv_pallas`` / ``bcsr_spmm_pallas``); on a CPU tensor they run the
-plain versions below. There is no fallback: a CUDA tensor never reaches
-the plain version.
+``bcsr_spmv_pallas`` / ``bcsr_spmm_pallas``: an SpMV of four lanes a row,
+and the padded SpMM kernel on `tiling.padded_geometry`'s flat grid); on a
+CPU tensor they run the plain versions below, which walk every slot.
+There is no fallback: a CUDA tensor never reaches the plain version.
 
 `launches` counts kernel launches per wrapper, and nothing else.
 """
@@ -76,13 +78,23 @@ def pack_bcsr(b: BCSR) -> PackedBCSR:
                       block_shape=b.block_shape)
 
 
+def block_stops(block_cols: np.ndarray) -> np.ndarray:
+    """(S,) int32: one past the last slot of each block row whose block
+    column is real (>= 0), 0 for a block row of padding only. Every later
+    slot is padding, wherever the -1s before it lie."""
+    real = np.asarray(block_cols) >= 0
+    ends = real * np.arange(1, real.shape[1] + 1)     # slot w real: w + 1
+    return ends.max(axis=1, initial=0).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceBCSR:
     """The tensors of one `PackedBCSR` on one device: the values as
     interleaved flat rows (`padded.interleave`), the block columns as
-    packed."""
+    packed, and where each block row's real slots end."""
     block_cols: torch.Tensor  # (S, W) int32, -1 = padding
     values: torch.Tensor      # (ceil(S * r / 32), W * c, 32)
+    stops: torch.Tensor       # (S,) int32, `block_stops`
     shape: tuple
     block_shape: tuple
 
@@ -106,7 +118,8 @@ class DeviceBCSR:
     @functools.cached_property
     def nbytes(self) -> int:
         """Bytes of the tensors the kernels read (padding included)."""
-        return int(self.block_cols.nbytes + self.values.nbytes)
+        return int(self.block_cols.nbytes + self.values.nbytes
+                   + self.stops.nbytes)
 
 
 def _flat_rows(values: np.ndarray) -> np.ndarray:
@@ -124,6 +137,7 @@ def to_device(pb: PackedBCSR, device="cuda") -> DeviceBCSR:
             block_cols=host_tensor(pb.block_cols.astype(np.int32), dev),
             values=host_tensor(padded.interleave(_flat_rows(pb.values), 0),
                                dev),
+            stops=host_tensor(block_stops(pb.block_cols), dev),
             shape=tuple(int(v) for v in pb.shape),
             block_shape=tuple(int(v) for v in pb.block_shape))
     return device_cached(pb, device, build)
@@ -167,25 +181,28 @@ def _ints(db: DeviceBCSR) -> tuple:
 
 def bcsr_spmv(db: DeviceBCSR, x: torch.Tensor) -> torch.Tensor:
     """Per-block-row rows (S, r) of A x, x (n,): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor (four lanes a row, x staged in shared memory up to 48 KB), the
+    plain version on a CPU tensor."""
     check_rhs(db, x, 1)
     if x.device.type == "cpu":
         return bcsr_spmv_plain(db, x)
-    y = padded.launch("bcsr_spmv", launches, [db.block_cols], db.values,
-                      db.rows, x, ints=_ints(db))
+    y = padded.launch("bcsr_spmv", launches, [db.block_cols, db.stops],
+                      db.values, db.rows, x, ints=_ints(db))
     return y.reshape(db.n_block_rows, db.block_shape[0])
 
 
 def bcsr_spmm(db: DeviceBCSR, x: torch.Tensor,
               bn: int | None = None) -> torch.Tensor:
     """Per-block-row rows (S, r, B) of A X, X (n, B): the CUDA kernel on a
-    CUDA tensor (grid.y = the ceil(B / bn) column tiles; ``bn=None`` is one
+    CUDA tensor (one warp per chunk of 32 rows and slab of columns of each
+    of the ceil(B / bn) column tiles, `tiling.padded_geometry`, the rows of
+    a block row reading x together where r divides 32; ``bn=None`` is one
     tile of all B columns), the plain version on a CPU tensor."""
     check_rhs(db, x, 2)
     B = x.shape[1]
     bt = padded.tile_width(B, bn)
     if x.device.type == "cpu":
         return bcsr_spmm_plain(db, x, None if bt == B else bt)
-    y = padded.launch("bcsr_spmm", launches, [db.block_cols], db.values,
-                      db.rows, x, bt, ints=_ints(db))
+    y = padded.launch("bcsr_spmm", launches, [db.block_cols, db.stops],
+                      db.values, db.rows, x, bt, ints=_ints(db))
     return y.reshape(db.n_block_rows, db.block_shape[0], B)

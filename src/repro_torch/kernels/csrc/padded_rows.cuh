@@ -11,12 +11,20 @@
 //
 // A fresh Row is made for every pass over a row, and `next` is called for
 // w = 0, 1, 2, ... in order, so a policy may carry state from one position
-// to the next. The warp SpMM below also needs the load split from its use,
-// so that loads run ahead of the arithmetic:
+// to the next. The warp SpMM below needs the load split from its use, so
+// that loads run ahead of the arithmetic:
 //
-//     __device__ int fetch(long long e) const;        // the stored word
+//     __device__ int fetch(long long e);             // the stored word
 //     __device__ bool take(int word, int w, long long* col);  // = next
 //     __device__ int stop(int wg) const;  // positions past it are masked
+//     static constexpr bool SHARED_COLS;  // rows share columns (below)
+//
+// `fetch` and `take` are each called for w = 0, 1, 2, ... in order (fetch
+// runs a few positions ahead), so either may carry state. A policy with
+// SHARED_COLS reads `Args::group`: each aligned run of `group` rows (a
+// power of two dividing 32) has the same column and mask at every
+// position, so the warp SpMM reads x once for the run. (`spmv_kernel`
+// uses `next` only; the BCSR SpMV has its own kernel, bcsr_spmv.cu.)
 //
 // Layout on the card (kernels/padded.py::interleave): the flat (R, wg) view
 // of the reference's (S, rows, wg) arrays, stored in chunks of 32 rows as
@@ -32,9 +40,11 @@
 // padded entry.
 //
 // The kernels:
-//   * spmv_kernel: one thread per row, the accumulator in a register.
-//   * spmm_warp_kernel (SELL and RGCSR SpMM): one warp per interleaved
-//     chunk of 32 rows and slab of columns, lanes mapped to columns. Lane i
+//   * spmv_kernel (SELL and RGCSR SpMV): one thread per row, the
+//     accumulator in a register.
+//   * spmm_warp_kernel (SELL, RGCSR and BCSR SpMM): one warp per
+//     interleaved chunk of 32 rows and slab of columns, lanes mapped to
+//     columns. Lane i
 //     loads row i's word and value for position w (one coalesced 128-byte
 //     load each) and runs the Row policy; __ballot_sync gathers which rows
 //     are live, the lanes write their (column, value) pairs to a per-warp
@@ -42,7 +52,10 @@
 //     reads the row's pair with one broadcast load, so that lane b reads
 //     x[col, c0 + b]: one conflict-free row of the slab's x columns, which
 //     the block stages in shared memory where they fit (StagedX; else one
-//     coalesced line through L1, GlobalX), per live (row, position). Each
+//     coalesced line through L1, GlobalX), per live (row, position); rows
+//     that share their column with the row before (SHARED_COLS) take that
+//     row's x instead of reading it again, and f32 rows in runs of two or
+//     more are read two at a time (one 16-byte load of both pairs). Each
 //     lane holds its columns' accumulators for all the chunk's rows in
 //     registers; y is written at the end, one line per row. A full-width
 //     f32 slab may give each lane NC = 2 columns (64 accumulators); a slab
@@ -51,8 +64,6 @@
 //     the plain version's "+ 0": the accumulator starts at +0 and, under
 //     round-to-nearest, a sum is -0 only when both addends are, so it is
 //     never -0, and acc + (+0) == acc for every other value.
-//   * spmm_kernel (BCSR SpMM): one thread per row, a (columns, 128)
-//     accumulator tile in shared memory, walked in 48 KB chunks.
 
 #pragma once
 
@@ -63,11 +74,8 @@
 namespace padded {
 
 constexpr int CHUNK = 32;     // rows per interleaved chunk: one warp
-constexpr int THREADS = 128;  // rows (threads) per block of the row kernels
+constexpr int THREADS = 128;  // rows (threads) per block of spmv_kernel
 constexpr unsigned FULL = 0xFFFFFFFFu;
-// Shared memory of one spmm_kernel accumulator chunk: the 48 KB a block
-// gets without opting in. Wider column tiles are walked in several chunks.
-constexpr int SMEM_BUDGET = 48 * 1024;
 // spmm_warp_kernel: most warps a block (kernels/tiling.py::
 // PADDED_MAX_WARPS), positions whose loads run ahead of the arithmetic,
 // rows a batch (x loads in flight per column), and the most shared memory
@@ -188,7 +196,32 @@ template <typename V> struct SmemRows {
     *ck = p.c;
     *vk = p.v;
   }
+  // Rows src and src + 1 (src even, f32 pairs): one 16-byte load. The
+  // rows share their column here (SHARED_COLS), so only src's is kept.
+  __device__ void get2(int src, int* ck, V* v0, V* v1) const {
+    static_assert(sizeof(Pair) == 8, "two f32 pairs a 16-byte load");
+    const int4 q = *reinterpret_cast<const int4*>(buf + src);
+    *ck = q.x;
+    *v0 = __int_as_float(q.y);
+    *v1 = __int_as_float(q.w);
+  }
 };
+
+// Bit j set where row j of a lane's BW rows reads x itself: every row, or
+// for a Row with SHARED_COLS the first of each aligned run of `group` rows
+// (the runs align with the lane's rows: both are powers of two, and a
+// chunk starts at a multiple of 32).
+template <typename Row, int BW>
+__device__ __forceinline__ unsigned lead_bits(const typename Row::Args& ra) {
+  if constexpr (!Row::SHARED_COLS) {
+    return FULL;
+  } else {
+    const int run = ra.group < BW ? ra.group : BW;
+    unsigned bits = 0;
+    for (int j = 0; j < BW; j += run) bits |= 1u << j;
+    return bits;
+  }
+}
 
 // The live bits of rows j .. j + RB - 1 of every row group.
 template <int BW, int RB>
@@ -203,7 +236,10 @@ __device__ __forceinline__ constexpr unsigned batch_bits(int j) {
 // run slab-major (block b: slab b / bps, chunks (b % bps) * warps + warp),
 // so the warps resident at once share the slab's x lines. Lane (g, bl),
 // g = lane / BW, owns rows g * BW + j (j < BW) of the chunk at columns
-// c0 + c * BW + bl (c < NC).
+// c0 + c * BW + bl (c < NC). A row that shares its column with the row
+// before (lead_bits) takes that row's x, which is the same value; with f32
+// values and runs of 2 or more such rows, the lanes read rows two at a
+// time (one 16-byte load of both pairs, one live bit, one x read).
 template <typename V, typename Row, int BW, int NC, typename X>
 __global__ void __launch_bounds__(WARP_MAX_THREADS)
 spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
@@ -212,6 +248,8 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
                  V* __restrict__ y) {
   constexpr int SW = BW * NC;               // columns of a slab
   constexpr int RB = ROWS_UNROLL < BW ? ROWS_UNROLL : BW;  // rows a batch
+  // rows two at a time: runs of >= 2 rows sharing columns, f32 pairs
+  constexpr bool PAIRS = Row::SHARED_COLS && sizeof(V) == 4 && RB >= 2;
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   const long long bps = (chunks + warps - 1) / warps;
@@ -240,6 +278,12 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
   for (int j = 0; j < BW; ++j)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[j][c] = V(0);
+  const unsigned lead = lead_bits<Row, BW>(ra);
+  bool paired = false;
+  if constexpr (PAIRS) paired = ra.group >= 2;  // warp-uniform
+  V xg[NC];  // the x of the last row read, for the rows that share it
+#pragma unroll
+  for (int c = 0; c < NC; ++c) xg[c] = V(0);
 
   const long long e0 = chunk * (long long)wg * CHUNK + lane;
   int word[AHEAD];
@@ -270,6 +314,42 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
 #pragma unroll
       for (int j = 0; j < BW; j += RB) {
         if ((live & batch_bits<BW, RB>(j)) == 0) continue;
+        if constexpr (PAIRS) {
+          if (paired) {  // rows j + 2h and j + 2h + 1 share column and mask
+            constexpr int RP = RB / 2;
+            int ck[RP];
+            V v0[RP], v1[RP], xv[RP][NC];
+            bool lk[RP];
+#pragma unroll
+            for (int h = 0; h < RP; ++h) {
+              const int src = g * BW + j + 2 * h;
+              rows.get2(src, &ck[h], &v0[h], &v1[h]);
+              lk[h] = (live >> src) & 1u;
+#pragma unroll
+              for (int c = 0; c < NC; ++c) {
+                if (!((lead >> (j + 2 * h)) & 1u))
+                  xv[h][c] = h ? xv[h > 0 ? h - 1 : 0][c] : xg[c];
+                else
+                  xv[h][c] = (lk[h] && (X::IN_BOUNDS || on[c]))
+                                 ? xs.at(ck[h], c * BW)
+                                 : V(0);
+              }
+            }
+#pragma unroll
+            for (int c = 0; c < NC; ++c) xg[c] = xv[RP - 1][c];
+#pragma unroll
+            for (int h = 0; h < RP; ++h)
+#pragma unroll
+              for (int c = 0; c < NC; ++c)
+                if (lk[h]) {
+                  acc[j + 2 * h][c] = Num<V>::add(
+                      acc[j + 2 * h][c], Num<V>::mul(v0[h], xv[h][c]));
+                  acc[j + 2 * h + 1][c] = Num<V>::add(
+                      acc[j + 2 * h + 1][c], Num<V>::mul(v1[h], xv[h][c]));
+                }
+            continue;
+          }
+        }
         int ck[RB];
         V vk[RB], xv[RB][NC];
         bool lk[RB];
@@ -279,10 +359,20 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
           rows.get(src, &ck[k], &vk[k]);
           lk[k] = (live >> src) & 1u;  // warp-uniform when BW == 32
 #pragma unroll
-          for (int c = 0; c < NC; ++c)
-            xv[k][c] = (lk[k] && (X::IN_BOUNDS || on[c]))
-                           ? xs.at(ck[k], c * BW)
-                           : V(0);
+          for (int c = 0; c < NC; ++c) {
+            if (Row::SHARED_COLS && !((lead >> (j + k)) & 1u))
+              xv[k][c] = k ? xv[k > 0 ? k - 1 : 0][c] : xg[c];
+            else
+              xv[k][c] = (lk[k] && (X::IN_BOUNDS || on[c]))
+                             ? xs.at(ck[k], c * BW)
+                             : V(0);
+          }
+        }
+        // (A batch skipped above is dead, and so is every row that shares
+        // the x of its rows: this carry may then be stale, never used.)
+        if constexpr (Row::SHARED_COLS) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) xg[c] = xv[RB - 1][c];
         }
         // A lane past the slab's width sums what is never stored.
 #pragma unroll
@@ -306,72 +396,14 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
   }
 }
 
-// y (R, B) = A X, X (n, B) row-major, for the column tile blockIdx.y of
-// width bt. The tile is walked in chunks of cb columns whose accumulators,
-// (cb, THREADS), sit in dynamic shared memory; each thread owns its own
-// column of that array, so no barrier is needed.
-template <typename V, typename Row>
-__global__ void __launch_bounds__(THREADS)
-spmm_kernel(typename Row::Args ra, const V* __restrict__ val, long long R,
-            int wg, const V* __restrict__ x, long long n, long long B, int bt,
-            int cb, V* __restrict__ y) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  V* acc = reinterpret_cast<V*>(smem_raw);
-  const int t = threadIdx.x;
-  const long long r = (long long)blockIdx.x * THREADS + t;
-  if (r >= R) return;
-  const long long b0 = (long long)blockIdx.y * bt;
-  const int bw = (int)((B - b0) < bt ? (B - b0) : bt);
-  const long long e0 = row_base(r, wg);
-  for (int c0 = 0; c0 < bw; c0 += cb) {
-    const int cw = (bw - c0) < cb ? (bw - c0) : cb;
-    for (int b = 0; b < cw; ++b) acc[b * THREADS + t] = V(0);
-    Row row(ra, r);
-    for (int w = 0; w < wg; ++w) {
-      const long long e = e0 + (long long)w * CHUNK;
-      long long col;
-      const bool ok = row.next(e, w, &col);
-      const V v = __ldg(val + e);
-      const V* xr = x + clampll(col, n - 1) * B + b0 + c0;
-      for (int b = 0; b < cw; ++b) {
-        const V c = ok ? Num<V>::mul(v, xr[b]) : V(0);
-        acc[b * THREADS + t] = Num<V>::add(acc[b * THREADS + t], c);
-      }
-    }
-    V* yr = y + r * B + b0 + c0;
-    for (int b = 0; b < cw; ++b) yr[b] = acc[b * THREADS + t];
-  }
-}
-
-inline dim3 row_grid(long long R, long long tiles) {
-  return dim3((unsigned)((R + THREADS - 1) / THREADS), (unsigned)tiles);
-}
-
 template <typename Row, typename V>
 int launch_spmv(const typename Row::Args& ra, const void* val, long long R,
                 int wg, const void* x, long long n, void* y, void* stream) {
-  spmv_kernel<V, Row><<<row_grid(R, 1), THREADS, 0,
+  spmv_kernel<V, Row><<<(unsigned)((R + THREADS - 1) / THREADS),
+                        THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       ra, static_cast<const V*>(val), R, wg, static_cast<const V*>(x), n,
       static_cast<V*>(y));
-  return (int)cudaGetLastError();
-}
-
-template <typename Row, typename V>
-int launch_spmm(const typename Row::Args& ra, const void* val, long long R,
-                int wg, const void* x, long long n, long long B, int bt,
-                void* y, void* stream) {
-  const int fit = SMEM_BUDGET / (THREADS * (int)sizeof(V));
-  const int cb = bt < fit ? bt : fit;
-  const size_t smem = (size_t)cb * THREADS * sizeof(V);
-  const cudaError_t err = cudaFuncSetAttribute(
-      spmm_kernel<V, Row>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  spmm_kernel<V, Row><<<row_grid(R, (B + bt - 1) / bt), THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      ra, static_cast<const V*>(val), R, wg, static_cast<const V*>(x), n, B,
-      bt, cb, static_cast<V*>(y));
   return (int)cudaGetLastError();
 }
 

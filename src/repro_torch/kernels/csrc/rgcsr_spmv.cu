@@ -35,6 +35,7 @@ namespace {
 // RGCSR: columns are the running sum of the row's deltas (0 = padding);
 // positions at or past the row's count are masked.
 struct RgcsrRow {
+  static constexpr bool SHARED_COLS = false;
   struct Args {
     const int* deltas;
     const int* nnz;  // (R,)

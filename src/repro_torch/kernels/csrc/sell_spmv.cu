@@ -47,6 +47,7 @@ namespace {
 
 // SELL: the stored index is the column; -1 marks padding.
 struct SellRow {
+  static constexpr bool SHARED_COLS = false;
   struct Args {
     const int* idx;
   };

@@ -72,20 +72,23 @@ def _record_pass(kind: str, dm, n: int, m: int, batch: int,
     r.histogram("kernels.col_tiles").observe(col_tiles)
 
 
-def _resolve_bn(rows: int, batch: int, itemsize: int, bn,
-                choose=None) -> int | None:
+def _resolve_bn(batch: int, bn, choose, widest: int | None = None
+                ) -> int | None:
     """Effective column-tile width of one SpMM pass: an explicit ``bn``
-    wins (untiled when it covers the whole batch); otherwise ``choose``'s
-    (batch -> tile) or the shared-memory budget's choice
-    (`tiling.choose_bn`)."""
+    wins (untiled when it covers the whole batch); otherwise the kernel's
+    ``choose`` (batch -> tile). A tile wider than ``widest`` (a whole
+    batch included) is cut to ``widest``: every tile width gives the
+    untiled bits."""
     if bn is not None:
         b = int(bn)
         if b < 1:
             raise ValueError(f"bn must be >= 1; got {bn}")
-        return None if b >= batch else b
-    if choose is not None:
-        return choose(batch)
-    return tiling.choose_bn(rows, batch, itemsize)
+        bt = None if b >= batch else b
+    else:
+        bt = choose(batch)
+    if widest is not None and (batch if bt is None else bt) > widest:
+        bt = int(widest)
+    return bt
 
 
 def _n_tiles(batch: int, bn: int | None) -> int:
@@ -166,13 +169,14 @@ def _one_rhs(kind: str, dm, x, y, run, *, decodes: bool = False
     return out
 
 
-def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
-              decodes: bool = False, choose=None) -> torch.Tensor:
+def _many_rhs(kind: str, dm, x, y, bn, one, run, choose, *,
+              decodes: bool = False, widest: int | None = None
+              ) -> torch.Tensor:
     """Body of every multi-RHS entry point: B == 0 returns `_empty_y`,
     B == 1 calls the single-vector entry ``one`` (bitwise equal to it),
     otherwise ``run(x, bn)`` gives the padded rows of A X in column tiles
-    of the resolved ``bn`` (``rows`` per slice or group sizes the tile,
-    unless the kernel's own ``choose`` picks it)."""
+    of the resolved ``bn`` (`_resolve_bn`: an explicit one, else the
+    kernel's ``choose``, at most ``widest``)."""
     m, n = dm.shape
     x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
     _check_rhs(x, n)
@@ -182,7 +186,7 @@ def _many_rhs(kind: str, dm, rows: int, x, y, bn, one, run, *,
     if B == 1:
         out = one(x[:, 0])[:, None]
     else:
-        bn_eff = _resolve_bn(rows, B, x.element_size(), bn, choose)
+        bn_eff = _resolve_bn(B, bn, choose, widest)
         _record_pass(kind, dm, n, m, B, x.element_size(), decodes=decodes,
                      col_tiles=_n_tiles(B, bn_eff))
         out = run(x, bn_eff).reshape(-1, B)[:m]
@@ -217,21 +221,35 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     kernel, so the results are bitwise equal to it.
 
     ``bn`` pins the column-tile width (None = `tiling.dtans_bn`, untiled
-    when the whole batch fits); every tile width
-    gives bitwise the same result as the untiled kernel. ``fused`` and
-    ``pipeline`` as in `spmv`."""
+    when the whole batch fits); a tile whose shared-memory plan does not
+    fit a block, an explicit one or a whole batch, is cut to
+    `tiling.dtans_widest_bn`. Every tile width gives bitwise the same
+    result as the untiled kernel. A lane width wider than the SpMM kernel
+    takes (993 to 1024, `tiling.spmm_by_columns`) runs the SpMV kernel
+    once a column, counted in its ``dtans_spmv`` launches: bitwise the
+    SpMM column by column (both sum each segment, then add it). ``fused``
+    and ``pipeline`` as in `spmv`."""
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
     _refuse(mesh, n_shards)
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
     L, T = pm.lane_width, int(pm.tab_symbol.shape[0])
-    return _many_rhs("dtans_spmm", dm, tiling.unit_rows(L), x, y, bn,
+    item = dm.dtype.itemsize
+    by_columns = tiling.spmm_by_columns(L)
+
+    def run(X, b):
+        if by_columns:                          # tiles of one column
+            return torch.stack([dtans_spmv(dm, X[:, j].contiguous(),
+                                           shared_cols=shared)
+                                for j in range(X.shape[1])], dim=-1)
+        return dtans_spmm(dm, X, bn=b, shared_cols=shared)
+    return _many_rhs("dtans_spmm", dm, x, y, bn,
                      lambda v: spmv(pm, v, device=dm.device, fused=fused,
                                     pipeline=pipeline),
-                     lambda X, b: dtans_spmm(dm, X, bn=b, shared_cols=shared),
+                     run, lambda B: tiling.dtans_bn(L, T, B, item),
                      decodes=True,
-                     choose=lambda B: tiling.dtans_bn(
-                         L, T, B, dm.dtype.itemsize))
+                     widest=1 if by_columns else tiling.dtans_widest_bn(
+                         L, T, item))
 
 
 def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"
@@ -260,10 +278,10 @@ def sell_spmm(ps: PackedSELL, x, y=None, *, device="cuda",
     takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
     untiled result."""
     ds = _sell.to_device(ps, device)
-    return _many_rhs("sell_spmm", ds, ps.lane_width, x, y, bn,
+    return _many_rhs("sell_spmm", ds, x, y, bn,
                      lambda v: sell_spmv(ps, v, device=ds.device),
                      lambda X, b: _sell.sell_spmm(ds, X, bn=b),
-                     choose=lambda B: tiling.padded_bn(B, ds.dtype.itemsize))
+                     lambda B: tiling.padded_bn(B, ds.dtype.itemsize))
 
 
 def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
@@ -282,10 +300,10 @@ def rgcsr_spmm(pr: PackedRGCSR, x, y=None, *, device="cuda",
     takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
     untiled result."""
     dr = _rgcsr.to_device(pr, device)
-    return _many_rhs("rgcsr_spmm", dr, pr.group_size, x, y, bn,
+    return _many_rhs("rgcsr_spmm", dr, x, y, bn,
                      lambda v: rgcsr_spmv(pr, v, device=dr.device),
                      lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b),
-                     choose=lambda B: tiling.padded_bn(B, dr.dtype.itemsize))
+                     lambda B: tiling.padded_bn(B, dr.dtype.itemsize))
 
 
 def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:
@@ -298,10 +316,11 @@ def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:
 def bcsr_spmm(pb: PackedBCSR, x, y=None, *, device="cuda",
               bn=None) -> torch.Tensor:
     """Multi-RHS BCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
-    signature; B == 1 delegates to `bcsr_spmv` (bitwise equal), every
-    ``bn`` gives bitwise the untiled result, and the tile is sized for the
-    block height r rows."""
+    signature; B == 1 delegates to `bcsr_spmv` (bitwise equal), ``bn=None``
+    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
+    untiled result."""
     db = _bcsr.to_device(pb, device)
-    return _many_rhs("bcsr_spmm", db, pb.block_shape[0], x, y, bn,
+    return _many_rhs("bcsr_spmm", db, x, y, bn,
                      lambda v: bcsr_spmv(pb, v, device=db.device),
-                     lambda X, b: _bcsr.bcsr_spmm(db, X, bn=b))
+                     lambda X, b: _bcsr.bcsr_spmm(db, X, bn=b),
+                     lambda B: tiling.padded_bn(B, db.dtype.itemsize))

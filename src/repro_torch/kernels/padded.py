@@ -21,9 +21,11 @@ The kernels (``csrc/padded_rows.cuh``) and the plain versions here
 with the multiply and the add rounded separately, so kernel and plain
 version agree bitwise, every SpMM column is bitwise the SpMV of that
 column, and column tiles change nothing. A masked term is a select: a
-NaN or inf in ``x`` never reaches a padded entry. (The SELL / RGCSR SpMM
-kernel skips masked terms instead of adding +0, which is bitwise the same:
-the accumulator is never -0, and acc + (+0) == acc for every other value.)
+NaN or inf in ``x`` never reaches a padded entry. (The SpMM kernel and
+the BCSR SpMV skip masked terms instead of adding +0, which is bitwise the
+same: the accumulator is never -0, and acc + (+0) == acc for every other
+value. The BCSR kernels skip in this way every position past a block
+row's last real slot.)
 """
 
 from __future__ import annotations
@@ -65,10 +67,11 @@ def check_values(values: np.ndarray) -> None:
                         f"{values.dtype}")
 
 
-def tile_width(B: int, bn, most_tiles: int | None = 65535) -> int:
+def tile_width(B: int, bn, most_tiles: int | None = None) -> int:
     """Columns per tile: ``bn``, or all ``B`` when ``bn`` is None or wider;
-    refuses more than ``most_tiles`` tiles (the BCSR SpMM's grid.y; the
-    SELL / RGCSR SpMM's flat grid takes ``None``, no limit here)."""
+    refuses more than ``most_tiles`` tiles where a caller gives a limit
+    (the SpMM kernel's flat grid has none: `tiling.padded_geometry`
+    bounds its blocks)."""
     if bn is not None and int(bn) < 1:
         raise ValueError(f"bn must be >= 1; got {bn}")
     bt = B if bn is None or int(bn) >= B else int(bn)
@@ -109,17 +112,13 @@ def contract(terms: Iterable, x: torch.Tensor, R: int,
 # kernel launches
 # ---------------------------------------------------------------------------
 
-#: Formats whose SpMM runs ``spmm_warp_kernel``: their C entries also
-#: take the launch geometry (`tiling.padded_geometry`).
-WARP_SPMM = ("sell", "rgcsr")
-
-
 def library(fmt: str, n_mat: int, n_int: int = 0) -> ctypes.CDLL:
     """``csrc/<fmt>_spmv.cu`` built and loaded, its C entries declared:
     ``<fmt>_spmv_launch`` / ``<fmt>_spmm_launch`` take the value-type flag,
     ``n_mat`` matrix pointers, ``n_int`` integer sizes of the format, the
-    values, R and Wg, then x and n (and B, the tile width and, for
-    `WARP_SPMM` formats, the geometry), y and the stream."""
+    values, R and Wg, then x and n (and B, the tile width and the launch
+    geometry of ``spmm_warp_kernel``, `tiling.padded_geometry`), y and the
+    stream."""
     lib = _build.load(f"{fmt}_spmv")
     if not getattr(lib, "_repro_declared", False):
         head = ([_I] + [_VP] * n_mat + [_I] * n_int
@@ -128,8 +127,7 @@ def library(fmt: str, n_mat: int, n_int: int = 0) -> ctypes.CDLL:
         spmv.argtypes = head + [_VP, _VP]
         spmv.restype = _I
         spmm = getattr(lib, f"{fmt}_spmm_launch")
-        geom = [_I] * 4 + [_LL] if fmt in WARP_SPMM else []
-        spmm.argtypes = head + [_LL, _I] + geom + [_VP, _VP]
+        spmm.argtypes = head + [_LL, _I] + [_I] * 4 + [_LL] + [_VP, _VP]
         spmm.restype = _I
         err = getattr(lib, f"{fmt}_error_string")
         err.argtypes = [_I]
@@ -160,10 +158,8 @@ def launch(name: str, launches: dict, mats: list, val: torch.Tensor,
             *(int(v) for v in ints), val.data_ptr(), R, int(val.shape[1]),
             x.data_ptr(), x.shape[0]]
     if kind == "spmm":
-        args += [x.shape[1], bt]
-        if fmt in WARP_SPMM:
-            args += tiling.padded_geometry(R, x.shape[0], x.shape[1], bt,
-                                           x.element_size()).args()
+        args += [x.shape[1], bt, *tiling.padded_geometry(
+            R, x.shape[0], x.shape[1], bt, x.element_size()).args()]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, f"{name}_launch")(*args, y.data_ptr(), stream)
     launches[name] += 1

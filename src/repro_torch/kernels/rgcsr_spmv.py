@@ -165,7 +165,7 @@ def rgcsr_spmm(dr: DeviceRGCSR, x: torch.Tensor,
     one tile of all B columns), the plain version on a CPU tensor."""
     check_rhs(dr, x, 2)
     B = x.shape[1]
-    bt = padded.tile_width(B, bn, most_tiles=None)
+    bt = padded.tile_width(B, bn)
     if x.device.type == "cpu":
         return rgcsr_spmm_plain(dr, x, None if bt == B else bt)
     y = padded.launch("rgcsr_spmm", launches, [dr.deltas, dr.nnz],

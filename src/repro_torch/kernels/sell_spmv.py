@@ -154,7 +154,7 @@ def sell_spmm(ds: DeviceSELL, x: torch.Tensor,
     one tile of all B columns), the plain version on a CPU tensor."""
     check_rhs(ds, x, 2)
     B = x.shape[1]
-    bt = padded.tile_width(B, bn, most_tiles=None)
+    bt = padded.tile_width(B, bn)
     if x.device.type == "cpu":
         return sell_spmm_plain(ds, x, None if bt == B else bt)
     y = padded.launch("sell_spmm", launches, [ds.indices], ds.values,

@@ -14,8 +14,9 @@ geometry is computed here and handed to the C entries:
   share of the units (SpMV, decode: ``units_per_block`` units at a time;
   SpMM: one unit and column tile at a time);
 * the SpMM block adds contraction warps beside the unit's decoder warps
-  (`consumer_warps`), at most 32 warps a block, so SpMM takes lane widths
-  up to `MAX_SPMM_LANE_WIDTH`.
+  (`consumer_warps`), at most 32 warps a block, so the SpMM kernel takes
+  lane widths up to `MAX_SPMM_LANE_WIDTH`; `ops.spmm` serves wider slices
+  (to 1024) by one SpMV launch a column (`spmm_by_columns`).
 
 The shared-memory plan (`smem_plan`) is the coding tables (12 bytes a
 slot), per unit in flight the refill windows and the claim exchange, and
@@ -25,13 +26,13 @@ given less.
 
 `dtans_bn` sizes the dtANS SpMM's column tile: `choose_bn`'s, at most
 `DTANS_BN_MAX` columns. `choose_bn`: the accumulator tile may take
-`DEFAULT_SMEM_BYTES`, and the whole plan must fit `MAX_SMEM_BYTES`. Tiling
-splits only the B axis, so every output column sees exactly the arithmetic
-of the untiled kernel: tiled results are bitwise equal to untiled ones at
-every ``bn``. (The BCSR SpMM calls `choose_bn` with its own rows and no
-fixed part: its kernel walks its accumulator in 48 KB chunks.)
+`DEFAULT_SMEM_BYTES`, and the whole plan must fit `MAX_SMEM_BYTES`;
+`dtans_widest_bn` is the widest tile whose plan fits at all, where
+`ops.spmm` caps an explicit ``bn``. Tiling splits only the B axis, so every
+output column sees exactly the arithmetic of the untiled kernel: tiled
+results are bitwise equal to untiled ones at every ``bn``.
 
-The SELL and RGCSR SpMM kernel (``csrc/padded_rows.cuh::
+The SELL, RGCSR and BCSR SpMM kernel (``csrc/padded_rows.cuh::
 spmm_warp_kernel``) keeps its accumulators in registers; its shared memory
 holds only the slab's x columns, where they fit. `padded_geometry` gives
 its launch (one warp per chunk of 32 rows and slab of columns, lanes
@@ -233,6 +234,24 @@ def choose_bn(rows: int, batch: int, itemsize: int, fixed: int = 0,
 
 
 
+def dtans_widest_bn(lane_width: int, n_tables: int, itemsize: int) -> int:
+    """Widest dtANS SpMM column tile whose `smem_plan` fits a block beside
+    the kernels' static shared memory: 335 columns at L = 128 f32 on one
+    table, 163 at f64, 23 at L = 992 f32. Every tile gives the untiled
+    bits, so `ops.spmm` caps any wider tile here."""
+    room = MAX_SMEM_BYTES - STATIC_SMEM_BYTES - spmm_fixed_bytes(
+        n_tables, lane_width, itemsize)
+    # the accumulator tile, (unit rows, bn), is a whole number of 16 bytes
+    return max(room // (unit_rows(lane_width) * int(itemsize)), 0)
+
+
+def spmm_by_columns(lane_width: int) -> bool:
+    """Whether `ops.spmm` serves a lane width by one SpMV launch a column:
+    wider than the SpMM block takes (`MAX_SPMM_LANE_WIDTH`), which is
+    bitwise the SpMM column by column."""
+    return int(lane_width) > MAX_SPMM_LANE_WIDTH
+
+
 def dtans_bn(lane_width: int, n_tables: int, batch: int,
              itemsize: int) -> int | None:
     """Column tile of the dtANS SpMM: `choose_bn`'s beside the plan's fixed
@@ -244,7 +263,7 @@ def dtans_bn(lane_width: int, n_tables: int, batch: int,
 
 
 # ---------------------------------------------------------------------------
-# the SELL / RGCSR SpMM (csrc/padded_rows.cuh::spmm_warp_kernel)
+# the SELL / RGCSR / BCSR SpMM (csrc/padded_rows.cuh::spmm_warp_kernel)
 # ---------------------------------------------------------------------------
 
 #: Accumulator registers (32-bit words) a lane of the padded SpMM may hold:
@@ -266,7 +285,7 @@ MAX_GRID_BLOCKS = 2**31 - 1
 
 @dataclasses.dataclass(frozen=True)
 class PaddedGeometry:
-    """One launch of the SELL / RGCSR SpMM kernel (its C entry's geometry
+    """One launch of the padded SpMM kernel (its C entry's geometry
     arguments). A work item is one chunk of 32 rows and one slab of
     ``slab`` columns of a column tile of ``bt``; blocks run slab-major,
     ``warps`` chunks a block. Lane ``(g, bl)``, ``g = lane // bw``, owns
@@ -321,7 +340,7 @@ def padded_geometry(rows: int, n: int, batch: int, bt: int, itemsize: int,
                     *, cols_per_lane: int | None = None,
                     warps: int | None = None, stage: bool | None = None,
                     n_sm: int = SM_COUNT) -> PaddedGeometry:
-    """The launch of the SELL / RGCSR SpMM over ``rows`` padded rows, x of
+    """The launch of the padded SpMM over ``rows`` padded rows, x of
     ``n`` rows and ``batch`` columns in tiles of ``bt``. The slab is ``bt``
     rounded up to a power of two up to a warp (``32 / bw`` row groups share
     a warp below that); a tile wider than a warp of f32 columns gives each
@@ -370,8 +389,9 @@ def padded_geometry(rows: int, n: int, batch: int, bt: int, itemsize: int,
 
 
 def padded_bn(batch: int, itemsize: int) -> int | None:
-    """Default column tile of the SELL / RGCSR SpMM: the widest slab, 64
-    columns at f32 (two a lane) and 32 at f64, or ``None`` when the batch
-    fits one."""
+    """Default column tile of the SELL / RGCSR / BCSR SpMM: the widest
+    slab, 64 columns at f32 (two a lane) and 32 at f64, or ``None`` when
+    the batch fits one."""
     slab = WARP * _most_cols_per_lane(itemsize)
     return None if int(batch) <= slab else slab
+

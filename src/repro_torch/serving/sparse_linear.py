@@ -113,8 +113,8 @@ class SparseLinear:
         (B == 1 runs the single-vector kernel and is bitwise equal to
         `ops.spmv`). Accumulation happens in the packed matrix's dtype
         (`ops.out_dtype`). Large batches are column-tiled automatically
-        when their accumulator tile overflows the shared-memory budget
-        (`tiling.choose_bn`); ``bn`` pins the tile width. ``pipeline``
+        (`tiling.dtans_bn`); ``bn`` pins the tile width, cut to what a
+        block's shared memory holds (`tiling.dtans_widest_bn`). ``pipeline``
         is the reference's decode-ahead schedule, which the kernels always
         run: either value gives the same bits.
 

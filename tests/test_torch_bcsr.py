@@ -360,7 +360,8 @@ def test_bcsr_counters_and_device_bytes():
     _, _, _, p = _formats("er-f64", (2, 4))
     db = BC.to_device(p, "cpu")
     assert BC.to_device(p, "cpu") is db
-    assert db.nbytes == int(db.block_cols.nbytes + db.values.nbytes)
+    assert db.nbytes == int(db.block_cols.nbytes + db.values.nbytes
+                            + db.stops.nbytes)
     reg = obs.default_registry()
     names = ["kernels.bcsr_spmv_calls", "kernels.bcsr_spmm_calls",
              "kernels.matrix_bytes", "kernels.decode_invocations"]

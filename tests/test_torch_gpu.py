@@ -412,6 +412,195 @@ def test_bcsr_edge_cells_multiply_last_x_on_card():
     assert bool(torch.isfinite(y.reshape(-1)[2:]).all())
 
 
+# The BCSR kernels: every registry block shape (4 x 2 among them), one
+# block row a chunk (32 x 2) and r = 3, which does not divide a chunk (the
+# SpMM's per-row x reads).
+BCSR_SHAPES = list(BCSR_BLOCK_SHAPES) + [(32, 2), (3, 2)]
+
+
+def _bcsr_case(bs, dtype):
+    """A 150 x 70 matrix (ragged edge blocks) with empty rows, block rows of
+    padding only (rows 64-95), a -1 slot before real ones in the longest
+    block row; x with -0.0."""
+    d = _dense(150, 70, 0.15, dtype, 40)
+    d[[5, 6, 40]] = 0
+    d[64:96] = 0
+    pb = BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), bs))
+    s = int(np.argmax((pb.block_cols >= 0).sum(axis=1)))
+    if pb.block_cols.shape[1] > 2 and pb.block_cols[s, 1] >= 0:
+        pb.block_cols[s, 1] = -1            # masked, though real slots follow
+        pb.values[s, 1] = 0
+        d = np.zeros_like(d)                # the dense product of the pack
+        r, c = bs
+        for bi in range(pb.block_cols.shape[0]):
+            for w, bcol in enumerate(pb.block_cols[bi]):
+                if bcol < 0:
+                    continue
+                rows, cols = slice(bi * r, bi * r + r), slice(bcol * c,
+                                                              bcol * c + c)
+                d[rows, cols] = pb.values[bi, w][:d[rows, cols].shape[0],
+                                                 :d[rows, cols].shape[1]]
+    db = BC.to_device(pb, "cuda")
+    rng = np.random.default_rng(41)
+    X = rng.standard_normal((70, max(WARP_SPMM_B)))
+    X[rng.random(X.shape) < 0.1] = -0.0
+    return d, pb, db, X
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", BCSR_SHAPES, ids=str)
+def test_bcsr_warp_spmm_and_spmv_bitwise_plain_on_card(bs, dtype):
+    """The BCSR SpMV and the warp SpMM with the BCSR row policy, bitwise
+    their plain versions at every B and tile of the sweep; every SpMM
+    column bitwise the SpMV of that column; the launches counted."""
+    _need_card()
+    d, pb, db, Xall = _bcsr_case(bs, dtype)
+    before = dict(BC.launches)
+    cols = {}
+    for b in range(Xall.shape[1]):
+        x = torch.as_tensor(Xall[:, b], dtype=db.dtype, device="cuda")
+        cols[b] = BC.bcsr_spmv(db, x)
+        assert torch.equal(_bits(cols[b]), _bits(BC.bcsr_spmv_plain(db, x)))
+    _close(cols[0].reshape(-1)[:150].cpu(),
+           torch.from_numpy(d @ Xall[:, 0].astype(dtype)), db.dtype)
+    for B in WARP_SPMM_B:
+        X = torch.as_tensor(Xall[:, :B], dtype=db.dtype,
+                            device="cuda").contiguous()
+        for bn in WARP_SPMM_BN:
+            got = BC.bcsr_spmm(db, X, bn=bn)
+            want = BC.bcsr_spmm_plain(db, X, None if bn is None or bn >= B
+                                      else bn)
+            assert torch.equal(_bits(got), _bits(want)), (B, bn)
+            if bn is None:
+                for b in range(B):
+                    assert torch.equal(_bits(got[..., b]), _bits(cols[b]))
+    torch.cuda.synchronize()
+    assert BC.launches["bcsr_spmv"] - before["bcsr_spmv"] == Xall.shape[1]
+    assert BC.launches["bcsr_spmm"] - before["bcsr_spmm"] == \
+        len(WARP_SPMM_B) * len(WARP_SPMM_BN)
+
+
+def _bcsr_spmm_launch(db, X, g):
+    """The BCSR SpMM's C entry with the geometry ``g`` given."""
+    lib = padded.library("bcsr", 2, 3)
+    y = torch.empty((db.rows, X.shape[1]), dtype=db.dtype, device="cuda")
+    rc = lib.bcsr_spmm_launch(
+        int(db.dtype == torch.float64), db.block_cols.data_ptr(),
+        db.stops.data_ptr(), db.block_cols.shape[1], *db.block_shape,
+        db.values.data_ptr(), db.rows, db.values.shape[1], X.data_ptr(),
+        X.shape[0], X.shape[1], g.bt, *g.args(), y.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    return rc, y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("bs", [(2, 2), (4, 4), (32, 2), (3, 2), (8, 1)],
+                         ids=str)
+def test_bcsr_x_staged_and_via_l1_bitwise_plain_on_card(bs, dtype):
+    """x of 70 rows, which the SpMV stages in shared memory, and of 13,000
+    rows (52 KB at f32, past its 48 KB of staging: read through L1), with
+    cells near the last column: the SpMV and every SpMM column bitwise the
+    plain SpMV; the SpMM's C entry refuses a geometry that does not cover
+    the work."""
+    _need_card()
+    for n in (70, 13000):
+        d = _dense(150, n, 12 / n, dtype, 46)
+        d[::3, n - 1] = 1.5
+        db = BC.to_device(BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), bs)),
+                          "cuda")
+        X = torch.as_tensor(np.random.default_rng(47).standard_normal(
+            (n, 40)), dtype=db.dtype, device="cuda")
+        got = BC.bcsr_spmm(db, X)
+        for b in range(X.shape[1]):
+            x = X[:, b].contiguous()
+            want = _bits(BC.bcsr_spmv_plain(db, x))
+            assert torch.equal(_bits(BC.bcsr_spmv(db, x)), want), (n, b)
+            assert torch.equal(_bits(got[..., b]), want), (n, b)
+        g = tiling.padded_geometry(db.rows, n, 40, 40, X.element_size())
+        assert _bcsr_spmm_launch(db, X, g)[0] == 0
+        bad = dataclasses.replace(g, blocks=g.blocks - 1)
+        assert _bcsr_spmm_launch(db, X, bad)[0] != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 40, 64])
+def test_bcsr_edge_cells_reach_inf_in_every_kernel_on_card(B):
+    """An inf in x[n - 1] reaches a real block's cells past column n - 1
+    in the SpMV and the warp SpMM alike (those rows NaN, as in the plain
+    version), and no padded slot."""
+    _need_card()
+    d = np.zeros((8, 7))
+    d[0, 6] = 1.0                       # block (0, 3) of 2x2 holds col 7
+    d[5, 1] = 2.0
+    db = BC.to_device(BC.pack_bcsr(BCSR.from_csr(CSR.from_dense(d), (2, 2))),
+                      "cuda")
+    X = torch.ones((7, B), dtype=torch.float64, device="cuda")
+    X[6] = float("inf")
+    got = BC.bcsr_spmm(db, X) if B > 1 else BC.bcsr_spmv(db, X[:, 0])
+    want = BC.bcsr_spmm_plain(db, X) if B > 1 else \
+        BC.bcsr_spmv_plain(db, X[:, 0])
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    got = got.reshape(8, -1)
+    assert bool(got[:2].isnan().all())
+    assert bool(torch.isfinite(got[2:]).all())
+
+
+def _c1_matrix(L, dtype):
+    d = _dense(L + 37, 90, 0.1, dtype, 42)
+    return d, pack_matrix(encode_matrix(CSR.from_dense(d), lane_width=L))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [3, 64])
+def test_spmm_serves_lane_width_1024_on_card(B):
+    """``ops.spmm`` at L = 1024, which the SpMM kernel does not take, runs
+    the SpMV kernel once a column: bitwise the plain SpMM, and through
+    `SparseLinear.apply`; ``dtans_spmv`` counts every column."""
+    _need_card()
+    d, pm = _c1_matrix(1024, np.float32)
+    dm = to_device(pm, "cuda")
+    X = torch.as_tensor(np.random.default_rng(43).standard_normal((90, B)),
+                        dtype=torch.float32, device="cuda")
+    before = dict(K.launches)
+    got = ops.spmm(pm, X)
+    torch.cuda.synchronize()
+    assert K.launches["dtans_spmv"] - before["dtans_spmv"] == B
+    assert K.launches["dtans_spmm"] == before["dtans_spmm"]
+    want = K.dtans_spmm_plain(dm, X).reshape(-1, B)[:d.shape[0]]
+    assert torch.equal(_bits(got), _bits(want))
+    _close(got.cpu(), torch.from_numpy(d @ X.cpu().numpy()), torch.float32)
+    w = (np.random.default_rng(44).standard_normal((64, 1100)) / 10).astype(
+        np.float32)
+    sl = SparseLinear.from_dense(w, sparsity=0.7, value_bits=6,
+                                 lane_width=1024)
+    x = torch.randn(B, 64, device="cuda")
+    torch.testing.assert_close(sl.apply(x), sl.apply_dense_reference(x),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,bn,B", [(np.float32, 400, 400),
+                                        (np.float64, 400, 400),
+                                        (np.float64, 512, 300)])
+def test_spmm_caps_a_tile_that_overflows_shared_memory_on_card(dtype, bn, B):
+    """An explicit ``bn`` (or ``bn >= B``) whose accumulator tile does not
+    fit a block is cut to `tiling.dtans_widest_bn`: no refusal, the plain
+    SpMM's bits."""
+    _need_card()
+    d, pm = _c1_matrix(128, dtype)
+    dm = to_device(pm, "cuda")
+    assert tiling.dtans_widest_bn(128, 1, np.dtype(dtype).itemsize) < B
+    X = torch.as_tensor(np.random.default_rng(45).standard_normal((90, B)),
+                        dtype=dm.dtype, device="cuda")
+    got = ops.spmm(pm, X, bn=bn)
+    want = K.dtans_spmm_plain(dm, X).reshape(-1, B)[:d.shape[0]]
+    assert torch.equal(_bits(got), _bits(want))
+    _close(got.cpu(), torch.from_numpy(d @ X.cpu().numpy()), dm.dtype)
+
+
 def _bcsr_dtans(bs, dtype, seed):
     a = block_sparse(30, 7, (2, 3), 0.3, np.random.default_rng(seed),
                      dtype=dtype)

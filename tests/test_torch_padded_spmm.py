@@ -155,11 +155,13 @@ def test_geometry_refuses_what_the_kernel_does_not_take():
 
 def test_flat_grid_takes_more_tiles_than_grid_y():
     """The flat grid has no 65,535-tile limit: bn = 1 over 70,000 columns
-    is one launch of 70,000 blocks (the BCSR SpMM's grid.y refuses it)."""
+    is one launch of 70,000 blocks, by default; a caller's own limit
+    (``most_tiles``) still refuses more tiles."""
+    assert padded.tile_width(70000, 1) == 1
     assert padded.tile_width(70000, 1, most_tiles=None) == 1
     assert tiling.padded_geometry(32, 8, 70000, 1, 4).blocks == 70000
     with pytest.raises(ValueError, match="exceed the grid"):
-        padded.tile_width(70000, 1)
+        padded.tile_width(70000, 1, most_tiles=65535)
 
 
 # ---------------------------------------------------------------------------
