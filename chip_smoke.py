@@ -18,7 +18,11 @@ Phases, each raising on failure (no phase falls back to the CPU):
    versions, each SpMM column bitwise its SpMV; two RGCSR-dtANS encodes go
    through the dtANS kernels, and BCSR-dtANS encodes at 2x2, 4x4 and 40x2
    through the fused shared-column kernels, bitwise their plain versions
-   and the generic kernels. A lane-width sweep (L in `SWEEP_L`, 1 to 1024)
+   and the generic kernels. Hand-made SELL and RGCSR packs that no matrix
+   packs to (-1 holes before real entries, deltas past each row's count,
+   int32 running sums past 2^31, rows of 0, 1, 3, 4, 5 and 9 entries; x
+   of 13 and 13,000 rows) hold the SpMV and SpMM bitwise their plain
+   versions. A lane-width sweep (L in `SWEEP_L`, 1 to 1024)
    holds the dtANS kernels and decode bitwise against their plain versions
    on an escape-heavy quantized f32 matrix, an f64 matrix with two tables
    and a matrix whose table base reaches 256 (a digit group's radix of
@@ -56,7 +60,7 @@ Phases, each raising on failure (no phase falls back to the CPU):
    around the entry point: the median of 5 replays of a CUDA graph of 20
    calls (where capture fails, of loops of the C entry alone), the loop's
    time of earlier runs beside. Phase 2 logs the registers and spills of
-   every SELL / RGCSR / BCSR SpMM and BCSR SpMV instantiation.
+   every SELL / RGCSR / BCSR SpMM and SpMV instantiation.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -78,6 +82,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.append(str(ROOT / "tests"))  # hand_made_packs
 
 import torch  # noqa: E402
 
@@ -98,6 +103,8 @@ from repro_torch.sparse.formats import CSR, best_baseline_nbytes  # noqa: E402
 from repro_torch.sparse.prune import codebook_quantize  # noqa: E402
 from repro_torch.sparse.random_graphs import block_sparse, stencil_2d  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
+
+from hand_made_packs import HAND_MADE  # noqa: E402
 
 SEED = 0
 D_MODEL, VOCAB = 576, 49152          # src/repro/configs/smollm_135m.py
@@ -221,15 +228,19 @@ def phase_build() -> None:
 _WARP_KERNEL = re.compile(r"spmm_warp_kernelI([fd]).*?ELi(\d+)ELi(\d+)"
                           r"ENS_\d+(StagedX|GlobalX)")
 _BCSR_SPMV = re.compile(r"bcsr_spmv_kernelI([fd])Lb([01])")
+_LANES_SPMV = re.compile(r"spmv_lanes_kernelI([fd]).*?(SellRow|RgcsrRow)")
 
 
 def _kernel_name(mangled: str) -> tuple | None:
-    """(kernel, value type, template arguments) of a padded SpMM or BCSR
-    SpMV instantiation's mangled name, else None."""
+    """(kernel, value type, template arguments) of a padded SpMM, SELL /
+    RGCSR SpMV or BCSR SpMV instantiation's mangled name, else None."""
     m = _WARP_KERNEL.search(mangled)
     if m:
         return ("spmm_warp_kernel", m.group(1),
                 f"bw={m.group(2)}, nc={m.group(3)}, {m.group(4)}")
+    m = _LANES_SPMV.search(mangled)
+    if m:
+        return ("spmv_lanes_kernel", m.group(1), m.group(2))
     m = _BCSR_SPMV.search(mangled)
     if m:
         return ("bcsr_spmv_kernel", m.group(1),
@@ -239,8 +250,9 @@ def _kernel_name(mangled: str) -> tuple | None:
 
 def padded_registers() -> list:
     """Registers and spills of every SELL / RGCSR / BCSR SpMM instantiation
-    (``spmm_warp_kernel``) and BCSR SpMV (``bcsr_spmv_kernel``), read from
-    the builds' ``-Xptxas -v`` logs."""
+    (``spmm_warp_kernel``), SELL / RGCSR SpMV (``spmv_lanes_kernel``) and
+    BCSR SpMV (``bcsr_spmv_kernel``), read from the builds' ``-Xptxas -v``
+    logs."""
     rows = []
     for stem in ("sell_spmv", "rgcsr_spmv", "bcsr_spmv"):
         path = _build.log_path(stem)
@@ -456,6 +468,39 @@ def _check_comparators(name: str, a: CSR, rng) -> float:
     return worst
 
 
+def _check_hand_made(rng) -> list:
+    """The SELL / RGCSR kernels on the hand-made packs
+    (`tests/hand_made_packs.py`), f32 and f64, x of 13 and 13,000 rows (the
+    SpMM's x slab staged in shared memory, and too large for it: read
+    through L1): SpMV and SpMM (B = 3, 40) bitwise their plain versions,
+    every SpMM column bitwise the SpMV. Returns the labels checked."""
+    labels = []
+    for dtype in (np.float32, np.float64):
+        for n in (13, 13000):
+            for kind, make in HAND_MADE.items():
+                fmt = kind.split("-")[0]
+                spmv, spmm, spmv_plain, spmm_plain, *_ = WRAPPERS[fmt]
+                dm = MODULES[fmt].to_device(make(dtype, n), "cuda")
+                what = f"hand-made {kind} {np.dtype(dtype).name} n={n}"
+                X = torch.as_tensor(rng.standard_normal((n, 40)),
+                                    dtype=dm.dtype, device="cuda")
+                cols = [spmv(dm, X[:, b].contiguous()) for b in range(40)]
+                assert torch.equal(_bits(cols[0]),
+                                   _bits(spmv_plain(dm, X[:, 0]))), \
+                    f"{what}: spmv kernel != plain"
+                for B in (3, 40):
+                    Y = spmm(dm, X[:, :B].contiguous())
+                    assert torch.equal(_bits(Y), _bits(spmm_plain(
+                        dm, X[:, :B]))), f"{what}: spmm B={B} != plain"
+                    for b in range(B):
+                        assert torch.equal(_bits(Y[..., b]),
+                                           _bits(cols[b])), \
+                            f"{what}: spmm column {b} != spmv"
+                labels.append(what)
+    torch.cuda.synchronize()
+    return labels
+
+
 def phase_kernels() -> None:
     rng = np.random.default_rng(SEED + 1)
     rows = []
@@ -473,6 +518,12 @@ def phase_kernels() -> None:
         log(f"[kernels] {name:24s} L={lw:3d} {dt:7s} T={len(mat.tables)} "
             f"esc={esc:6d} max|k-plain| dtans={worst:.3e} "
             f"sell/rgcsr={worst_cmp:.3e} ok")
+    hand = _check_hand_made(rng)
+    rows.append({"case": "hand-made sell / rgcsr packs", "packs": hand,
+                 "bitwise": True})
+    log(f"[kernels] {len(hand)} hand-made SELL / RGCSR packs (-1 holes, "
+        f"deltas past the count, int32 sums past 2^31; n = 13 and "
+        f"13,000): spmv, spmm and every spmm column bitwise plain")
     for name, a, G in (
             ("rgcsr-dtans stencil6 G=8", stencil_2d(6), 8),
             ("rgcsr-dtans random-f32 G=16",
@@ -709,19 +760,18 @@ HEAD_PACKS = (("sell L=32", "sell", 32), ("rgcsr G=4", "rgcsr", 4),
 
 def _work(csr: CSR, fmt: str, rows, pk) -> tuple[int, int]:
     """(bytes, stored cells) one pass needs, padding not counted: the real
-    entries' index and value bytes, plus RGCSR's per-row counts (S * G of
-    them); for BCSR each stored block's 4-byte column and r * c values,
-    fill-in included, plus its per-block-row stops (S of them)."""
+    entries' index and value bytes, plus SELL's per-row stops and RGCSR's
+    per-row counts (S * L or S * G of them); for BCSR each stored block's
+    4-byte column and r * c values, fill-in included, plus its
+    per-block-row stops (S of them)."""
     item = csr.values.dtype.itemsize
     if fmt == "bcsr":
         r, c = rows
         n_blocks = int((pk.block_cols >= 0).sum())
         return (n_blocks * (4 + r * c * item) + pk.block_cols.shape[0] * 4,
                 n_blocks * r * c)
-    nbytes = csr.nnz * (4 + item)
-    if fmt == "rgcsr":
-        nbytes += -(-csr.shape[0] // rows) * rows * 4
-    return nbytes, csr.nnz
+    return (csr.nnz * (4 + item) + -(-csr.shape[0] // rows) * rows * 4,
+            csr.nnz)
 
 
 def phase_comparators(sl: SparseLinear) -> tuple[CSR, dict]:
@@ -1109,9 +1159,9 @@ def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
 def comparator_bound(csr: CSR, fmt: str, rows, pk,
                      B: int) -> tuple[float, str, int, int]:
     """Least time for one SELL / RGCSR / BCSR pass at batch B: the bytes of
-    `_work` (no padding; BCSR's stored blocks with their fill-in and its
-    stops), x and y once each, against 2 multiply-adds per stored cell and
-    column."""
+    `_work` (no padding; SELL's stops, RGCSR's counts, BCSR's stored blocks
+    with their fill-in and its stops), x and y once each, against 2
+    multiply-adds per stored cell and column."""
     item = csr.values.dtype.itemsize
     nbytes, cells = _work(csr, fmt, rows, pk)
     nbytes += D_MODEL * B * item + VOCAB * B * item

@@ -209,11 +209,12 @@ int launch_variant(int rb, int shfl, const typename Row::Args& ra,
 extern "C" {
 
 int sell_spmm_variant_launch(int rb, int shfl, const void* idx,
-                             const void* val, long long R, int wg,
-                             const void* x, long long n, long long B, int bt,
-                             int bw, int nc, int warps, int stage,
+                             const void* stops, const void* val, long long R,
+                             int wg, const void* x, long long n, long long B,
+                             int bt, int bw, int nc, int warps, int stage,
                              long long blocks, void* y, void* stream) {
-  const SellRow::Args a{static_cast<const int*>(idx)};
+  const SellRow::Args a{static_cast<const int*>(idx),
+                        static_cast<const int*>(stops)};
   const padded::WarpGeom g{bw, nc, warps, stage, blocks};
   return variants::launch_variant<SellRow>(rb, shfl, a, val, R, wg, x, n, B,
                                            bt, g, y, stream);

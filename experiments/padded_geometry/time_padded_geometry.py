@@ -144,12 +144,12 @@ def variants() -> None:
 
     from repro_torch.kernels import padded, tiling
     smi = card()
-    port = {f: padded.library(f, k) for f, k in (("sell", 1), ("rgcsr", 2))}
+    port = {f: padded.library(f, 2) for f in ("sell", "rgcsr")}
     lib = ctypes.CDLL(str(build_variants()))
     VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fmt, n_mat in (("sell", 1), ("rgcsr", 2)):
+    for fmt in ("sell", "rgcsr"):
         f = getattr(lib, f"{fmt}_spmm_variant_launch")
-        f.argtypes = ([I, I] + [VP] * n_mat + [VP, LL, I, VP, LL, LL, I]
+        f.argtypes = ([I, I] + [VP] * 2 + [VP, LL, I, VP, LL, LL, I]
                       + [I] * 4 + [LL, VP, VP])
         f.restype = I
     stream = torch.cuda.current_stream().cuda_stream
@@ -160,7 +160,8 @@ def variants() -> None:
                         dtype=torch.float32, device="cuda")
 
     for label, fmt, mod, dm in packs(np, csr):
-        mats = [dm.indices] if fmt == "sell" else [dm.deltas, dm.nnz]
+        mats = [dm.indices, dm.stops] if fmt == "sell" \
+            else [dm.deltas, dm.nnz]
         head = ([t.data_ptr() for t in mats]
                 + [dm.values.data_ptr(), dm.rows, dm.values.shape[1]])
         plain = getattr(mod, f"{fmt}_spmm_plain")

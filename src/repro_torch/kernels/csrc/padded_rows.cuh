@@ -6,25 +6,31 @@
 //   struct Row {
 //     struct Args { ... };                       // the format's index arrays
 //     __device__ Row(const Args&, long long r);  // row r's state
-//     __device__ bool next(long long e, int w, long long* col);
+//     __device__ int stop(int wg) const;  // positions from here on are masked
+//     __device__ int fetch(long long e);  // the stored word at element e
+//     static constexpr bool SHARED_COLS;  // rows share columns (below)
 //   };
 //
-// A fresh Row is made for every pass over a row, and `next` is called for
-// w = 0, 1, 2, ... in order, so a policy may carry state from one position
-// to the next. The warp SpMM below needs the load split from its use, so
-// that loads run ahead of the arithmetic:
+// The warp SpMM reads each row with one lane, a few positions ahead of the
+// arithmetic:
 //
-//     __device__ int fetch(long long e);             // the stored word
-//     __device__ bool take(int word, int w, long long* col);  // = next
-//     __device__ int stop(int wg) const;  // positions past it are masked
-//     static constexpr bool SHARED_COLS;  // rows share columns (below)
+//     __device__ bool take(int word, int w, long long* col);
 //
 // `fetch` and `take` are each called for w = 0, 1, 2, ... in order (fetch
 // runs a few positions ahead), so either may carry state. A policy with
 // SHARED_COLS reads `Args::group`: each aligned run of `group` rows (a
 // power of two dividing 32) has the same column and mask at every
-// position, so the warp SpMM reads x once for the run. (`spmv_kernel`
-// uses `next` only; the BCSR SpMV has its own kernel, bcsr_spmv.cu.)
+// position, so the warp SpMM reads x once for the run. The SpMV
+// (spmv_lanes_kernel) reads each row with T lanes, lane t of the row
+// taking positions w = t (mod T):
+//
+//     template <int T>
+//     __device__ bool step(int word, bool in, long long* col);
+//
+// `step` is called by all 32 lanes of the warp together (it may shuffle),
+// once for each step of T positions w0 + t, w0 = 0, T, 2T, ... in order;
+// `in` is false for a position at or past the row's stop, whose word was
+// not loaded. The BCSR SpMV has its own kernel, bcsr_spmv.cu.
 //
 // Layout on the card (kernels/padded.py::interleave): the flat (R, wg) view
 // of the reference's (S, rows, wg) arrays, stored in chunks of 32 rows as
@@ -37,11 +43,27 @@
 // with __fmul_rn/__fadd_rn (or the double forms), so no FMA contraction
 // differs between kernels, column tiles or the plain torch versions. A
 // masked term is never multiplied: a NaN or inf in x never reaches a
-// padded entry.
+// padded entry. Both kernels stop each row at its `stop`: every later
+// position is masked, and skipping a masked term is bitwise adding its +0
+// (the accumulator starts at +0 and, under round-to-nearest, a sum is -0
+// only when both addends are, so it is never -0, and acc + (+0) == acc
+// for every other value).
 //
 // The kernels:
-//   * spmv_kernel (SELL and RGCSR SpMV): one thread per row, the
-//     accumulator in a register.
+//   * spmv_lanes_kernel (SELL and RGCSR SpMV): LANES = 4 lanes a row, 256
+//     threads a block, so that four times the rows' loads are in flight
+//     (one thread a row left the head of SmolLM-135M at 1,536 warps, too
+//     few to cover HBM latency). Lane t loads the word and value of its
+//     row's positions t, t + 4, ... (the lanes of one t read 8 neighbouring
+//     words a position), LANES_UNROLL steps of loads issued before their x
+//     reads; the warp walks to the longest stop of its 8 rows and each lane
+//     predicates off its loads past its own row's. The products of a step
+//     reach the row's sum in position order through __shfl_sync: every
+//     lane of the row adds p_0, p_1, p_2, p_3, so every lane holds the same
+//     sum and lane t = 0 writes y. x is read through L1 (__ldg): on the
+//     head of SmolLM-135M it is 2.3 KB, and staging it in shared memory
+//     was no faster on the H100 (experiments/padded_spmv_geometry/). Bound
+//     by bytes: the real entries' words and values, once.
 //   * spmm_warp_kernel (SELL, RGCSR and BCSR SpMM): one warp per
 //     interleaved chunk of 32 rows and slab of columns, lanes mapped to
 //     columns. Lane i
@@ -60,10 +82,8 @@
 //     registers; y is written at the end, one line per row. A full-width
 //     f32 slab may give each lane NC = 2 columns (64 accumulators); a slab
 //     narrower than a warp rounds up to a power of two BW and puts 32 / BW
-//     row groups in the warp. Masked terms are skipped, which is bitwise
-//     the plain version's "+ 0": the accumulator starts at +0 and, under
-//     round-to-nearest, a sum is -0 only when both addends are, so it is
-//     never -0, and acc + (+0) == acc for every other value.
+//     row groups in the warp. The chunk stops at its longest row's stop,
+//     and masked terms are skipped.
 
 #pragma once
 
@@ -73,9 +93,15 @@
 
 namespace padded {
 
-constexpr int CHUNK = 32;     // rows per interleaved chunk: one warp
-constexpr int THREADS = 128;  // rows (threads) per block of spmv_kernel
+constexpr int CHUNK = 32;  // rows per interleaved chunk: one warp
 constexpr unsigned FULL = 0xFFFFFFFFu;
+// spmv_lanes_kernel: lanes a row, threads a block, and steps of LANES
+// positions whose loads are issued together. 1, 2, 4 and 8 lanes, 2 and 4
+// steps, x staged or via L1 were timed on the H100
+// (experiments/padded_spmv_geometry/).
+constexpr int LANES = 4;
+constexpr int LANES_THREADS = 256;
+constexpr int LANES_UNROLL = 4;
 // spmm_warp_kernel: most warps a block (kernels/tiling.py::
 // PADDED_MAX_WARPS), positions whose loads run ahead of the arithmetic,
 // rows a batch (x loads in flight per column), and the most shared memory
@@ -104,27 +130,52 @@ __device__ __forceinline__ long long row_base(long long r, int wg) {
   return (r / CHUNK) * (long long)wg * CHUNK + (r % CHUNK);
 }
 
-// y (R,) = A x: one thread per row, the accumulator in a register.
+// y (R,) = A x with LANES lanes a row.
 template <typename V, typename Row>
-__global__ void __launch_bounds__(THREADS)
-spmv_kernel(typename Row::Args ra, const V* __restrict__ val, long long R,
-            int wg, const V* __restrict__ x, long long n,
-            V* __restrict__ y) {
-  const long long r = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (r >= R) return;
-  Row row(ra, r);
-  const long long e0 = row_base(r, wg);
+__global__ void __launch_bounds__(LANES_THREADS)
+spmv_lanes_kernel(typename Row::Args ra, const V* __restrict__ val,
+                  long long R, int wg, const V* __restrict__ x, long long n,
+                  V* __restrict__ y) {
+  constexpr int T = LANES;
+  constexpr int RW = CHUNK / T;  // rows a warp
+  const int lane = threadIdx.x & 31;
+  const int t = lane / RW;  // this lane's positions: w = t (mod T)
+  const long long first =
+      (((long long)blockIdx.x * LANES_THREADS + threadIdx.x) >> 5) * RW;
+  if (first >= R) return;  // the whole warp
+  const long long row = first + lane % RW;
+  const bool real = row < R;
+  const long long rr = real ? row : R - 1;
+  Row rp(ra, rr);
+  const int stop = real ? rp.stop(wg) : 0;
+  const int wstop = (int)__reduce_max_sync(FULL, (unsigned)stop);
+  const long long e0 = row_base(rr, wg) + (long long)t * CHUNK;
   V acc = V(0);
-#pragma unroll 8
-  for (int w = 0; w < wg; ++w) {
-    const long long e = e0 + (long long)w * CHUNK;
-    long long col;
-    const bool ok = row.next(e, w, &col);
-    const V c = ok ? Num<V>::mul(__ldg(val + e), x[clampll(col, n - 1)])
-                   : V(0);
-    acc = Num<V>::add(acc, c);
+  for (int w0 = 0; w0 < wstop; w0 += T * LANES_UNROLL) {
+    int word[LANES_UNROLL];
+    V v[LANES_UNROLL];
+    bool in[LANES_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LANES_UNROLL; ++u) {
+      const long long e = e0 + (long long)(w0 + u * T) * CHUNK;
+      in[u] = w0 + u * T + t < stop;
+      word[u] = in[u] ? rp.fetch(e) : 0;
+      v[u] = in[u] ? __ldg(val + e) : V(0);
+    }
+    V p[LANES_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LANES_UNROLL; ++u) {
+      long long col;
+      const bool ok = rp.template step<T>(word[u], in[u], &col);
+      p[u] = ok ? Num<V>::mul(v[u], __ldg(x + clampll(col, n - 1))) : V(0);
+    }
+#pragma unroll
+    for (int u = 0; u < LANES_UNROLL; ++u)
+#pragma unroll
+      for (int k = 0; k < T; ++k)
+        acc = Num<V>::add(acc, __shfl_sync(FULL, p[u], k * RW + lane % RW));
   }
-  y[r] = acc;
+  if (real && t == 0) y[row] = acc;
 }
 
 // Where a warp reads x of its slab: `at(col, off)` is x[col, c0 + bl + off]
@@ -396,12 +447,15 @@ spmm_warp_kernel(typename Row::Args ra, const V* __restrict__ val,
   }
 }
 
+// y (R,) = A x through spmv_lanes_kernel.
 template <typename Row, typename V>
-int launch_spmv(const typename Row::Args& ra, const void* val, long long R,
-                int wg, const void* x, long long n, void* y, void* stream) {
-  spmv_kernel<V, Row><<<(unsigned)((R + THREADS - 1) / THREADS),
-                        THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+int launch_spmv_lanes(const typename Row::Args& ra, const void* val,
+                      long long R, int wg, const void* x, long long n,
+                      void* y, void* stream) {
+  const long long blocks = (R * LANES + LANES_THREADS - 1) / LANES_THREADS;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  spmv_lanes_kernel<V, Row><<<(unsigned)blocks, LANES_THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       ra, static_cast<const V*>(val), R, wg, static_cast<const V*>(x), n,
       static_cast<V*>(y));
   return (int)cudaGetLastError();

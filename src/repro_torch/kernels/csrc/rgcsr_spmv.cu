@@ -10,15 +10,24 @@
 //
 // What bounds it: bytes, as for SELL (sell_spmv.cu): a 4-byte delta and a
 // 4- or 8-byte value per stored entry, one multiply-add per column, plus
-// one 4-byte count per row. The running sum adds one integer add per
-// stored entry, which the loads hide. At B >= 64 the x reads dominate, as
-// for SELL.
+// one 4-byte count per row. Each row stops at its count, so the padding
+// past it is not read. The running sum adds one integer add per stored
+// entry, which the loads hide. At B >= 64 the x reads dominate, as for
+// SELL.
 //
-// Design (padded_rows.cuh), the SELL kernels' with the RgcsrRow policy:
-//   * SpMV, first and simple: one thread per row of the flat (S * G) view,
-//     128 per block, so a group of G rows is only where a row's data lies
-//     and small groups (G = 4) do not make small blocks; the running sum
-//     lives in the thread's register.
+// Design (padded_rows.cuh), the SELL kernels' with the RgcsrRow policy; the
+// deltas stay deltas on the card and the running sum is formed here:
+//   * SpMV: spmv_lanes_kernel, 4 lanes a row of the flat (S * G) view, so
+//     a group of G rows is only where a row's data lies and small groups
+//     (G = 4) do not make small blocks. At each step the 4 lanes of a row
+//     hold the deltas of 4 consecutive positions; each lane's column is the
+//     row's carry plus the inclusive scan of the step's deltas up to its
+//     own lane (log2 4 = 2 __shfl_up_sync, the row's lanes 8 apart), in
+//     uint32_t, wrapping exactly as the reference's int32 cumsum; the carry
+//     then takes the row's last lane's sum (one __shfl_sync). A lane at or
+//     past its row's count loads nothing and scans a delta of 0: its
+//     positions all lie after the row's last real one, so no real column
+//     changes. The products are summed in position order as for SELL.
 //   * SpMM: spmm_warp_kernel, one warp per chunk of 32 interleaved rows and
 //     slab of columns, lanes mapped to columns, accumulators in registers
 //     (sell_spmv.cu). Lane i keeps row i's int32 running sum and ballots
@@ -51,8 +60,22 @@ struct RgcsrRow {
     *c = (long long)(int32_t)col;
     return w < nnz;
   }
-  __device__ bool next(long long e, int w, long long* c) {
-    return take(fetch(e), w, c);
+  // Lane t of the row's T lanes (lane = t * RW + row % RW) holds the delta
+  // of position w0 + t: its column is the sum up to w0 (`col`) plus the
+  // inclusive scan of the step's deltas up to t.
+  template <int T>
+  __device__ bool step(int delta, bool in, long long* c) {
+    constexpr int RW = padded::CHUNK / T;
+    const int lane = threadIdx.x & 31;
+    uint32_t s = in ? (uint32_t)delta : 0u;
+#pragma unroll
+    for (int k = 1; k < T; k *= 2) {
+      const uint32_t o = __shfl_up_sync(padded::FULL, s, k * RW);
+      if (lane >= k * RW) s += o;
+    }
+    *c = (long long)(int32_t)(col + s);
+    col += __shfl_sync(padded::FULL, s, (T - 1) * RW + lane % RW);
+    return in;  // in: w < the stop <= nnz
   }
   __device__ int stop(int wg) const { return nnz < wg ? nnz : wg; }
 };
@@ -68,10 +91,10 @@ int rgcsr_spmv_launch(int f64, const void* deltas, const void* nnz,
                       long long n, void* y, void* stream) {
   const RgcsrRow::Args a{static_cast<const int*>(deltas),
                          static_cast<const int*>(nnz)};
-  return f64 ? padded::launch_spmv<RgcsrRow, double>(a, val, R, wg, x, n, y,
-                                                     stream)
-             : padded::launch_spmv<RgcsrRow, float>(a, val, R, wg, x, n, y,
-                                                    stream);
+  return f64 ? padded::launch_spmv_lanes<RgcsrRow, double>(a, val, R, wg,
+                                                           x, n, y, stream)
+             : padded::launch_spmv_lanes<RgcsrRow, float>(a, val, R, wg, x,
+                                                          n, y, stream);
 }
 
 // y (R, B) = A X, X (n, B) row-major, in column tiles of bt, through

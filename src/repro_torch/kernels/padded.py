@@ -4,13 +4,14 @@ SELL, RGCSR and BCSR kernels (`sell_spmv.py`, `rgcsr_spmv.py`,
 
 The formats pack a matrix into ``(S, rows, Wg)`` arrays: S slices (SELL),
 groups (RGCSR) or block rows (BCSR, ``Wg`` = blocks x block width) of
-``rows`` rows, every row padded to ``Wg``, the matrix-wide longest row. Row-major, neighbouring rows lie ``Wg`` elements
-apart, so a warp running one row per thread would touch 32 cache lines per
-load. On the device the flat ``(R, Wg)`` view (``R = S * rows``) is stored
-in chunks of 32 rows, ``(ceil(R / 32), Wg, 32)`` (`interleave`): element w
-of row r lies at ``((r // 32) * Wg + w) * 32 + r % 32``, and a warp reads
-32 neighbouring words per position whatever the slice height or group
-size. Results are those of the reference's layout.
+``rows`` rows, every row padded to ``Wg``, the matrix-wide longest row.
+Row-major, neighbouring rows lie ``Wg`` elements apart, so a warp running
+one row per thread would touch 32 cache lines per load. On the device the
+flat ``(R, Wg)`` view (``R = S * rows``) is stored in chunks of 32 rows,
+``(ceil(R / 32), Wg, 32)`` (`interleave`): element w of row r lies at
+``((r // 32) * Wg + w) * 32 + r % 32``, and 32 neighbouring rows read 32
+neighbouring words per position whatever the slice height or group size.
+Results are those of the reference's layout.
 
 The kernels (``csrc/padded_rows.cuh``) and the plain versions here
 (`contract`) sum each row and column in one fixed order,
@@ -21,11 +22,15 @@ The kernels (``csrc/padded_rows.cuh``) and the plain versions here
 with the multiply and the add rounded separately, so kernel and plain
 version agree bitwise, every SpMM column is bitwise the SpMV of that
 column, and column tiles change nothing. A masked term is a select: a
-NaN or inf in ``x`` never reaches a padded entry. (The SpMM kernel and
-the BCSR SpMV skip masked terms instead of adding +0, which is bitwise the
-same: the accumulator is never -0, and acc + (+0) == acc for every other
-value. The BCSR kernels skip in this way every position past a block
-row's last real slot.)
+NaN or inf in ``x`` never reaches a padded entry. Every kernel stops each
+row at its last real entry (SELL's `sell_spmv.row_stops`, RGCSR's
+counts, BCSR's `bcsr_spmv.block_stops`): positions past it are masked,
+and skipping a masked term is bitwise adding its +0 (the accumulator is
+never -0, and acc + (+0) == acc for every other value). The SELL and
+RGCSR SpMV (``spmv_lanes_kernel``) and the BCSR SpMV run four lanes a row
+whose products reach the sum in position order through warp shuffles, so
+the loads of the real entries are what bounds them; the SpMM kernel
+(``spmm_warp_kernel``) runs a warp per chunk of 32 rows and column slab.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import torch
 
 from repro_torch.kernels import _build, tiling
 
-#: Rows per interleaved chunk: one warp of one-row threads.
+#: Rows per interleaved chunk: one warp of the SpMM, one lane a row.
 CHUNK = 32
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -5,17 +5,23 @@ CUDA kernels' wrappers and their plain torch versions.
 one group of G rows per slice, each row's delta-coded columns (0 =
 padding) and values padded to the matrix-wide longest row, and the real
 entry count per row. The padding is address padding only, not counted in
-`RGCSR.nbytes`. The kernel rebuilds each row's columns with an int32
-running sum of its deltas and masks positions at or past its count.
-`to_device` uploads the pack once per device in the interleaved layout of
+`RGCSR.nbytes`. The kernels rebuild each row's columns with an int32
+running sum of its deltas (the deltas stay deltas on the device), mask
+positions at or past its count, and stop each row there. `to_device`
+uploads the pack once per device in the interleaved layout of
 `kernels.padded`.
 
 ``rgcsr_spmv`` / ``rgcsr_spmm`` take a `DeviceRGCSR` and a dense
 right-hand side on the same device. On a CUDA tensor they launch the
 hand-written kernels of ``csrc/rgcsr_spmv.cu`` (which replace the JAX
-package's ``rgcsr_spmv_pallas`` / ``rgcsr_spmm_pallas``); on a CPU tensor
-they run the plain versions below, which sum in the kernels' order. There
-is no fallback: a CUDA tensor never reaches the plain version.
+package's ``rgcsr_spmv_pallas`` / ``rgcsr_spmm_pallas``): the SpMV runs
+four lanes a row, each step's four columns a prefix sum of its deltas
+across the lanes (warp shuffles) plus the row's carry, the products
+summed in position order; the SpMM runs a warp per chunk of 32 rows and
+column slab, one lane a row's running sum. Both read the real entries and
+the counts, so bytes bound them. On a CPU tensor they run the plain
+versions below, which walk every position and sum in the kernels' order.
+There is no fallback: a CUDA tensor never reaches the plain version.
 
 `launches` counts kernel launches per wrapper, and nothing else.
 """
@@ -148,7 +154,8 @@ def rgcsr_spmm_plain(dr: DeviceRGCSR, x: torch.Tensor,
 
 def rgcsr_spmv(dr: DeviceRGCSR, x: torch.Tensor) -> torch.Tensor:
     """Per-group rows (S, G) of A x, x (n,): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor (four lanes a row, each row stopped at its count), the plain
+    version on a CPU tensor."""
     check_rhs(dr, x, 1)
     if x.device.type == "cpu":
         return rgcsr_spmv_plain(dr, x)

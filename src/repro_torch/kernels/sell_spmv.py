@@ -6,14 +6,21 @@ slices of ``lane_width`` rows, every row padded with index -1 and value 0
 to the matrix-wide longest row. It is the "fastest cuSPARSE format"
 stand-in against which the paper's claim for the fused dtANS kernel is
 measured. `to_device` uploads it once per device in the interleaved
-layout of `kernels.padded`.
+layout of `kernels.padded`, with `row_stops`: one past each row's last
+index >= 0, where the kernels stop the row (every later position is -1;
+a -1 may also stand before it, and is walked and masked).
 
 ``sell_spmv`` / ``sell_spmm`` take a `DeviceSELL` and a dense right-hand
 side on the same device. On a CUDA tensor they launch the hand-written
 kernels of ``csrc/sell_spmv.cu`` (which replace the JAX package's
-``sell_spmv_pallas`` / ``sell_spmm_pallas``); on a CPU tensor they run the
-plain versions below, which sum in the kernels' order. There is no
-fallback: a CUDA tensor never reaches the plain version.
+``sell_spmv_pallas`` / ``sell_spmm_pallas``): the SpMV runs four lanes a
+row up to its stop, the products summed in position order through warp
+shuffles, x read through L1; the SpMM runs a warp per chunk of 32 rows
+and column slab, up to the chunk's longest stop. Both read the real
+entries and little else, so bytes bound them. On a CPU
+tensor they run the plain versions below, which walk every position and
+sum in the kernels' order. There is no fallback: a CUDA tensor never
+reaches the plain version.
 
 `launches` counts kernel launches per wrapper, and nothing else.
 """
@@ -64,12 +71,24 @@ def pack_sell(a: CSR, lane_width: int = 128) -> PackedSELL:
                       lane_width=L)
 
 
+def row_stops(indices: np.ndarray) -> np.ndarray:
+    """``(S * L,)`` int32: one past the last position of each row of the
+    ``(S, L, Wg)`` pack whose index is real (>= 0), 0 for a row of padding
+    only. Every later position is padding, wherever the -1s before it
+    lie."""
+    idx = np.asarray(indices)
+    real = idx.reshape(-1, idx.shape[-1]) >= 0
+    last = real.shape[1] - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(axis=1), last, 0).astype(np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class DeviceSELL:
     """The tensors of one `PackedSELL` on one device, interleaved
-    (`padded.interleave`)."""
+    (`padded.interleave`), and where each row's real entries end."""
     indices: torch.Tensor  # (ceil(R / 32), Wg, 32) int32, -1 = padding
     values: torch.Tensor   # (ceil(R / 32), Wg, 32)
+    stops: torch.Tensor    # (R,) int32, `row_stops`
     shape: tuple
     lane_width: int
     n_slices: int
@@ -90,7 +109,8 @@ class DeviceSELL:
     @functools.cached_property
     def nbytes(self) -> int:
         """Bytes of the tensors the kernels read (padding included)."""
-        return int(self.indices.nbytes + self.values.nbytes)
+        return int(self.indices.nbytes + self.values.nbytes
+                   + self.stops.nbytes)
 
 
 def to_device(ps: PackedSELL, device="cuda") -> DeviceSELL:
@@ -101,6 +121,7 @@ def to_device(ps: PackedSELL, device="cuda") -> DeviceSELL:
             indices=host_tensor(padded.interleave(
                 ps.indices.astype(np.int32), -1), dev),
             values=host_tensor(padded.interleave(ps.values, 0), dev),
+            stops=host_tensor(row_stops(ps.indices), dev),
             shape=tuple(int(v) for v in ps.shape),
             lane_width=int(ps.lane_width),
             n_slices=int(ps.indices.shape[0]))
@@ -137,12 +158,13 @@ def sell_spmm_plain(ds: DeviceSELL, x: torch.Tensor,
 
 def sell_spmv(ds: DeviceSELL, x: torch.Tensor) -> torch.Tensor:
     """Per-slice rows (S, L) of A x, x (n,): the CUDA kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    tensor (four lanes a row, each row stopped at its `row_stops` entry),
+    the plain version on a CPU tensor."""
     check_rhs(ds, x, 1)
     if x.device.type == "cpu":
         return sell_spmv_plain(ds, x)
-    y = padded.launch("sell_spmv", launches, [ds.indices], ds.values,
-                      ds.rows, x)
+    y = padded.launch("sell_spmv", launches, [ds.indices, ds.stops],
+                      ds.values, ds.rows, x)
     return y.reshape(ds.n_slices, ds.lane_width)
 
 
@@ -157,6 +179,6 @@ def sell_spmm(ds: DeviceSELL, x: torch.Tensor,
     bt = padded.tile_width(B, bn)
     if x.device.type == "cpu":
         return sell_spmm_plain(ds, x, None if bt == B else bt)
-    y = padded.launch("sell_spmm", launches, [ds.indices], ds.values,
-                      ds.rows, x, bt)
+    y = padded.launch("sell_spmm", launches, [ds.indices, ds.stops],
+                      ds.values, ds.rows, x, bt)
     return y.reshape(ds.n_slices, ds.lane_width, B)

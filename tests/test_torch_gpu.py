@@ -37,6 +37,8 @@ from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.random_graphs import block_sparse
 from repro_torch.sparse.rgcsr import RGCSR
 
+from hand_made_packs import HAND_LENGTHS, HAND_MADE
+
 RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
 
@@ -287,7 +289,7 @@ def test_warp_spmm_bitwise_plain_on_card(fmt, rows, dtype):
 
 def _warp_launch(fmt, dm, X, g):
     """The SELL / RGCSR SpMM C entry with the geometry ``g``."""
-    mats = [dm.indices] if fmt == "sell" else [dm.deltas, dm.nnz]
+    mats = [dm.indices, dm.stops] if fmt == "sell" else [dm.deltas, dm.nnz]
     y = torch.empty((dm.rows, X.shape[1]), dtype=dm.dtype, device="cuda")
     rc = getattr(padded.library(fmt, len(mats)), f"{fmt}_spmm_launch")(
         int(dm.dtype == torch.float64), *(t.data_ptr() for t in mats),
@@ -349,6 +351,87 @@ def test_warp_spmm_refuses_a_geometry_short_of_the_work(fmt):
             bad.append(dataclasses.replace(g, cols_per_lane=2))
         for b in bad:
             assert _warp_launch(fmt, dm, X, b)[0] != 0, (dtype, b)
+
+
+# The SELL / RGCSR SpMV (`padded_rows.cuh::spmv_lanes_kernel`, four lanes
+# a row, each row stopped at its last real entry), on rows of
+# `HAND_LENGTHS` entries and the hand-made packs of `hand_made_packs.py`.
+LANES_SPMV_LAYOUTS = [("sell", 16), ("sell", 32), ("sell", 128),
+                      ("rgcsr", 4), ("rgcsr", 8), ("rgcsr", 16),
+                      ("rgcsr", 32)]
+
+
+def _lengths_dense(m, n, dtype, seed):
+    """(m, n) with row r holding HAND_LENGTHS[r % 8] nonzeros."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((m, n), dtype)
+    for r in range(m):
+        k = HAND_LENGTHS[r % len(HAND_LENGTHS)]
+        d[r, rng.choice(n, k, replace=False)] = rng.standard_normal(k)
+    return d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fmt,rows", LANES_SPMV_LAYOUTS,
+                         ids=[f"{f}{r}" for f, r in LANES_SPMV_LAYOUTS])
+def test_lanes_spmv_bitwise_plain_on_card(fmt, rows, dtype):
+    """The SpMV bitwise its plain version on 141 rows (R not a multiple of
+    32 at L = 16 and G = 4 or 8) of 0, 1, 3, 4, 5, 9, 2 and 12 entries,
+    with -0.0 in x; the SELL stops are each row's length; every launch
+    counted."""
+    _need_card()
+    pack, upload, spmv, _, spmv_plain, _, launches = COMPARATORS[fmt]
+    d = _lengths_dense(141, 30, dtype, 62)
+    dm = upload(pack(CSR.from_dense(d), rows), "cuda")
+    if fmt == "sell":
+        assert torch.equal(dm.stops[:141].cpu(), torch.as_tensor(
+            (d != 0).sum(axis=1), dtype=torch.int32))
+    rng = np.random.default_rng(63)
+    before = launches[f"{fmt}_spmv"]
+    for _ in range(5):
+        x = rng.standard_normal(30)
+        x[rng.random(30) < 0.2] = -0.0
+        x = torch.as_tensor(x, dtype=dm.dtype, device="cuda")
+        assert torch.equal(_bits(spmv(dm, x)), _bits(spmv_plain(dm, x)))
+    torch.cuda.synchronize()
+    assert launches[f"{fmt}_spmv"] - before == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", list(HAND_MADE))
+def test_lanes_spmv_and_spmm_on_hand_made_packs_on_card(kind, dtype):
+    """The hand-made packs: -1 holes before real entries (SELL), nonzero
+    deltas past the count, and int32 running sums past 2^31 (RGCSR), with
+    x of 13 and of 13,000 rows (the SpMM's x slab staged in shared memory,
+    and read through L1). The SpMV and the SpMM (B = 3 and 40) bitwise
+    their plain versions, every SpMM column bitwise the SpMV; at 13,000
+    rows also the SpMV of a random matrix with rows of every length of
+    HAND_LENGTHS."""
+    _need_card()
+    fmt = kind.split("-")[0]
+    pack, upload, spmv, spmm, spmv_plain, spmm_plain, _ = COMPARATORS[fmt]
+    rng = np.random.default_rng(64)
+    for n in (13, 13000):
+        dm = upload(HAND_MADE[kind](dtype, n), "cuda")
+        X = torch.as_tensor(rng.standard_normal((n, 40)), dtype=dm.dtype,
+                            device="cuda")
+        cols = [spmv(dm, X[:, b].contiguous()) for b in range(40)]
+        for b in range(40):
+            assert torch.equal(_bits(cols[b]),
+                               _bits(spmv_plain(dm, X[:, b]))), n
+        for B in (3, 40):
+            Y = spmm(dm, X[:, :B].contiguous())
+            assert torch.equal(_bits(Y), _bits(spmm_plain(dm, X[:, :B]))), n
+            for b in range(B):
+                assert torch.equal(_bits(Y[..., b]), _bits(cols[b])), n
+    dm = upload(pack(CSR.from_dense(_lengths_dense(100, 13000, dtype, 66)),
+                     8), "cuda")
+    for b in range(3):
+        x = X[:, b].contiguous()
+        assert torch.equal(_bits(spmv(dm, x)), _bits(spmv_plain(dm, x)))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
