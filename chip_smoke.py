@@ -59,8 +59,10 @@ Phases, each raising on failure (no phase falls back to the CPU):
    rows (kernel and library calls) are timed without the Python loop
    around the entry point: the median of 5 replays of a CUDA graph of 20
    calls (where capture fails, of loops of the C entry alone), the loop's
-   time of earlier runs beside. Phase 2 logs the registers and spills of
-   every SELL / RGCSR / BCSR SpMM and SpMV instantiation.
+   time of earlier runs beside; decode is timed the same way. Phase 2 logs
+   the registers and spills of every SELL / RGCSR / BCSR SpMM and SpMV
+   instantiation and of the decode kernel's (f32 / f64, each block
+   size).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
@@ -212,7 +214,7 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"[build] {stem}: {line.strip()}")
-    RESULTS["warp_spmm_build"] = rows = padded_registers()
+    RESULTS["kernel_registers"] = rows = kernel_registers()
     for r in rows:
         log(f"[build] {r['stem']} {r['kernel']}<{r['type']}, {r['args']}>: "
             f"{r['registers']} registers, spill {r['spill_stores']} B "
@@ -229,11 +231,17 @@ _WARP_KERNEL = re.compile(r"spmm_warp_kernelI([fd]).*?ELi(\d+)ELi(\d+)"
                           r"ENS_\d+(StagedX|GlobalX)")
 _BCSR_SPMV = re.compile(r"bcsr_spmv_kernelI([fd])Lb([01])")
 _LANES_SPMV = re.compile(r"spmv_lanes_kernelI([fd]).*?(SellRow|RgcsrRow)")
+_DECODE = re.compile(r"dtans_decode_kernelI([fd])Li(\d+)E")
 
 
 def _kernel_name(mangled: str) -> tuple | None:
     """(kernel, value type, template arguments) of a padded SpMM, SELL /
-    RGCSR SpMV or BCSR SpMV instantiation's mangled name, else None."""
+    RGCSR SpMV, BCSR SpMV or decode instantiation's mangled name, else
+    None."""
+    m = _DECODE.search(mangled)
+    if m:
+        return ("dtans_decode_kernel", m.group(1),
+                f"threads<={m.group(2)}")
     m = _WARP_KERNEL.search(mangled)
     if m:
         return ("spmm_warp_kernel", m.group(1),
@@ -248,13 +256,13 @@ def _kernel_name(mangled: str) -> tuple | None:
     return None
 
 
-def padded_registers() -> list:
+def kernel_registers() -> list:
     """Registers and spills of every SELL / RGCSR / BCSR SpMM instantiation
-    (``spmm_warp_kernel``), SELL / RGCSR SpMV (``spmv_lanes_kernel``) and
-    BCSR SpMV (``bcsr_spmv_kernel``), read from the builds' ``-Xptxas -v``
-    logs."""
+    (``spmm_warp_kernel``), SELL / RGCSR SpMV (``spmv_lanes_kernel``), BCSR
+    SpMV (``bcsr_spmv_kernel``) and decode (``dtans_decode_kernel``), read
+    from the builds' ``-Xptxas -v`` logs."""
     rows = []
-    for stem in ("sell_spmv", "rgcsr_spmv", "bcsr_spmv"):
+    for stem in ("sell_spmv", "rgcsr_spmv", "bcsr_spmv", "dtans_decode"):
         path = _build.log_path(stem)
         cur, spill = None, (0, 0)
         for line in (path.read_text() if path.exists() else "").splitlines():
@@ -1332,8 +1340,10 @@ def phase_times(sl: SparseLinear, csr: CSR, packs: dict, blk: dict) -> list:
                 f"cuSPARSE CSR ({csr_ms:.4f} ms) | {card()}")
     for label, s in (("dtans L=128", sl), ("bcsr-dtans 4x4", bsl)):
         d = to_device(s.packed, "cuda")
+        t = device_ms(lambda: DD.dtans_decode(d))
         add("dtans_decode", label, 0, None,
-            {"ms": time_ms(lambda: DD.dtans_decode(d), 20)},
+            {"ms": t["ms"], "runs": t["runs"], "timed_by": t["by"],
+             "loop_ms": time_ms(lambda: DD.dtans_decode(d), 20)},
             time_ms(lambda: DD.dtans_decode_plain(d), 3, 1), None, None,
             decode_bound(s))
     RESULTS["times"] = rows

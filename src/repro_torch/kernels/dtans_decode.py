@@ -5,12 +5,13 @@ in the reference's padded layout: ``(cols, vals)``, each ``(S, L,
 max_nseg * l/2)``, lane by lane and segment-major, ``cols == -1`` and
 ``vals == +0`` at padding. On a CUDA matrix it launches the hand-written
 kernel of ``csrc/dtans_decode.cu`` (which replaces the JAX package's
-``dtans_decode_pallas``, on the warp-synchronous decoder and in the SpMV
-kernel's geometry); on a CPU matrix it runs `dtans_decode_plain`, the
-torch lock-step decoder (`kernels.common`). There is no fallback: a CUDA
-matrix never reaches the plain version, and a build or launch failure
-raises. Kernel and plain version agree exactly: columns as integers,
-values bit for bit.
+``dtans_decode_pallas``: the warp-synchronous decoder, each warp's
+segments staged in shared memory and written out as whole sectors) in
+the geometry of `tiling.decode_geometry`; on a CPU matrix it runs
+`dtans_decode_plain`, the torch lock-step decoder (`kernels.common`).
+There is no fallback: a CUDA matrix never reaches the plain version, and
+a build or launch failure raises. Kernel and plain version agree exactly:
+columns as integers, values bit for bit.
 
 `launches` counts kernel launches, and nothing else.
 """
@@ -21,16 +22,16 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
 from repro_torch.kernels.dtans_spmv import (GEOM_ARGS, MATRIX_ARGS,
-                                           kernel_args, n_sm, raise_on,
-                                           spmv_geometry)
+                                           check_plan, kernel_args, n_sm,
+                                           raise_on)
 from repro_torch.kernels.pack import DeviceMatrix
 
 launches = {"dtans_decode": 0}
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_launches() -> None:
@@ -44,6 +45,8 @@ def _lib() -> ctypes.CDLL:
         lib.dtans_decode_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
             _VP, _VP, _VP]
         lib.dtans_decode_launch.restype = _I
+        lib.dtans_decode_smem_need.argtypes = [_I, _I, _I, _I]
+        lib.dtans_decode_smem_need.restype = _LL
         lib.dtans_error_string.argtypes = [_I]
         lib.dtans_error_string.restype = ctypes.c_char_p
         lib._repro_declared = True
@@ -72,13 +75,24 @@ def dtans_decode_plain(dm: DeviceMatrix
             vals.reshape(S, L, -1).contiguous())
 
 
+def smem_need(n_tables: int, lane_width: int, itemsize: int) -> int:
+    """The built kernel's own count of the shared memory a decode block
+    needs; `tiling.decode_geometry`'s plan must give the same."""
+    upb = tiling.geometry(1, lane_width, n_tables, itemsize).units_per_block
+    return int(_lib().dtans_decode_smem_need(
+        n_tables, tiling.unit_warps(lane_width), upb, itemsize))
+
+
 def dtans_decode(dm: DeviceMatrix) -> tuple[torch.Tensor, torch.Tensor]:
     """``(cols, vals)`` of the matrix: the CUDA kernel on a CUDA matrix,
     the plain version on a CPU matrix."""
     if dm.device.type == "cpu":
         return dtans_decode_plain(dm)
     args = kernel_args(dm)
-    geom = spmv_geometry(dm, n_sm(dm.device))
+    geom = tiling.decode_geometry(dm.n_slices, dm.lane_width,
+                                  dm.tables.shape[0], dm.dtype.itemsize,
+                                  n_sm=n_sm(dm.device))
+    check_plan(geom.smem)
     shape = (dm.n_slices, dm.lane_width, out_width(dm))
     cols = torch.empty(shape, dtype=torch.int32, device=dm.device)
     vals = torch.empty(shape, dtype=dm.dtype, device=dm.device)

@@ -108,7 +108,7 @@ def n_sm(device: torch.device) -> int:
 
 def spmv_geometry(dm: DeviceMatrix, n_sms: int = tiling.SM_COUNT
                   ) -> tiling.Geometry:
-    """The SpMV (and decode) launch of a device matrix."""
+    """The SpMV launch of a device matrix."""
     geom = tiling.geometry(dm.n_slices, dm.lane_width, dm.tables.shape[0],
                            dm.dtype.itemsize, n_sm=n_sms)
     check_plan(geom.smem)

@@ -19,10 +19,12 @@ geometry is computed here and handed to the C entries:
   (to 1024) by one SpMV launch a column (`spmm_by_columns`).
 
 The shared-memory plan (`smem_plan`) is the coding tables (12 bytes a
-slot), per unit in flight the refill windows and the claim exchange, and
-for SpMM the decoded ring and the ``(rows, bn)`` accumulator tile. The C
-side computes the same sizes (``dtans_smem_need``) and refuses a launch
-given less.
+slot), per unit in flight the refill windows and the claim exchange, for
+SpMM the decoded ring and the ``(rows, bn)`` accumulator tile, and for
+decode a staging tile of `DECODE_STAGE` segments per warp
+(`decode_geometry`).
+The C side computes the same sizes (``dtans_smem_need``,
+``dtans_decode_smem_need``) and refuses a launch given less.
 
 `dtans_bn` sizes the dtANS SpMM's column tile: `choose_bn`'s, at most
 `DTANS_BN_MAX` columns. `choose_bn`: the accumulator tile may take
@@ -92,6 +94,15 @@ TABLE_SLOTS, SLOT_BYTES, WORDS, ENTRIES = 4096, 12, 3, 4
 SPMV_WARPS = 4
 RING_DEPTH = 2
 
+#: Segments a decode warp stages in shared memory before it writes them
+#: out (``STAGE`` of ``csrc/dtans_decode.cu``): 2, the least that writes
+#: whole 32-byte sectors of a row's columns. On an H100 4 tied with it on
+#: the SmolLM-135M head and lost 3% on its 4x4-blocked shape, 8 lost 35-50%
+#: (2 blocks an SM instead of 3; PERF.md, ``experiments/decode_geometry/``).
+#: It fits a block at every lane width up to 1024, f64 on two tables
+#: included (222,464 bytes at L = 1024), where 4 would not.
+DECODE_STAGE = 2
+
 #: Widest slice the SpMM block takes: its decoder warps and at least one
 #: contraction warp must fit a 1024-thread block.
 MAX_SPMM_LANE_WIDTH = 31 * WARP
@@ -120,11 +131,19 @@ def unit_rows(lane_width: int) -> int:
     return unit_warps(lane_width) * WARP
 
 
+def stage_bytes(stage: int, itemsize: int) -> int:
+    """A decode warp's staging tile: 32 rows x ``stage`` segments of
+    columns (16 bytes a segment) and values (16 or 32 bytes)."""
+    return WARP * int(stage) * ENTRIES * (4 + int(itemsize))
+
+
 def smem_plan(n_tables: int, lane_width: int, itemsize: int, *,
-              bn: int | None = None, units_per_block: int = 1) -> dict:
+              bn: int | None = None, units_per_block: int = 1,
+              stage: int = 0) -> dict:
     """Bytes of shared memory each part of a block takes, and their
     ``total``. ``bn=None`` is the SpMV / decode block (``units_per_block``
-    units in flight), an integer the SpMM block at column tile ``bn``."""
+    units in flight; the decode block adds a tile of ``stage`` segments
+    per warp), an integer the SpMM block at column tile ``bn``."""
     uw = unit_warps(lane_width)
     R = uw * WARP
     per_unit = (_align16(2 * WORDS * R * 4) + _align16(2 * uw * 2 * 8)
@@ -132,6 +151,9 @@ def smem_plan(n_tables: int, lane_width: int, itemsize: int, *,
     plan = {"tables": _align16(n_tables * TABLE_SLOTS * SLOT_BYTES)}
     if bn is None:
         plan["units"] = units_per_block * per_unit
+        if stage:
+            plan["stage"] = units_per_block * uw * stage_bytes(stage,
+                                                               itemsize)
     else:
         plan["units"] = per_unit
         plan["ring"] = (_align16(RING_DEPTH * ENTRIES * R * 4)
@@ -206,6 +228,19 @@ def geometry(n_slices: int, lane_width: int, n_tables: int, itemsize: int,
     tiles = -(-int(batch) // int(bn))
     return Geometry(G, uw, spu, units, 1, cw, threads,
                     _blocks(units * tiles, threads, smem, n_sm), smem, tiles)
+
+
+def decode_geometry(n_slices: int, lane_width: int, n_tables: int,
+                    itemsize: int, *, n_sm: int = SM_COUNT) -> Geometry:
+    """The launch of the decode kernel: the SpMV kernel's units and blocks,
+    each warp with a staging tile of `DECODE_STAGE` segments."""
+    base = geometry(n_slices, lane_width, n_tables, itemsize, n_sm=n_sm)
+    upb = base.units_per_block
+    smem = smem_plan(n_tables, lane_width, itemsize, units_per_block=upb,
+                     stage=DECODE_STAGE)["total"]
+    return dataclasses.replace(
+        base, smem=smem,
+        blocks=_blocks(-(-base.units // upb), base.threads, smem, n_sm))
 
 
 def choose_bn(rows: int, batch: int, itemsize: int, fixed: int = 0,

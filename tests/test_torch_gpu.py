@@ -758,6 +758,90 @@ def test_decode_kernel_exact_on_card(packed):
     assert not bool(vals[cols < 0].view(bits).any())
 
 
+# The staged decode kernel at lane widths of packed narrow slices (idle
+# threads at 3 and 5), one warp plus one, and 4 and 32 warps.
+DECODE_L = (1, 3, 4, 5, 31, 33, 100, 1024)
+
+
+def _decode_csr(L, dtype, seed):
+    """1.5 slices of L rows (at least 600) over 60 columns: one row of 35
+    entries in the first slice (max_nseg 9, odd), the rest 0 to 31 (the
+    other slices end before max_nseg), a third of them empty; random
+    values (escapes)."""
+    rng = np.random.default_rng(seed)
+    m = max(L + L // 2 + 1, 600)
+    lens = rng.integers(0, 32, size=m)
+    lens[rng.random(m) < 1 / 3] = 0
+    lens[min(L, m) // 2] = 35
+    indptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    indices = np.concatenate([np.sort(rng.choice(60, k, replace=False))
+                              for k in lens]).astype(np.int32)
+    values = rng.standard_normal(int(indptr[-1])).astype(dtype)
+    return CSR(indptr, indices, values, (m, 60))
+
+
+def _check_staged_decode(pm):
+    """The decode kernel bitwise its plain version and `decode_ref`, its
+    launch counted once."""
+    dm = to_device(pm, "cuda")
+    want_c, want_v = DD.dtans_decode_plain(dm)
+    ref_c, ref_v = decode_ref(pm, device="cuda")
+    bits = torch.int64 if dm.dtype == torch.float64 else torch.int32
+    assert torch.equal(want_c, ref_c)
+    assert torch.equal(want_v.view(bits), ref_v.view(bits))
+    before = DD.launches["dtans_decode"]
+    cols, vals = DD.dtans_decode(dm)
+    torch.cuda.synchronize()
+    assert DD.launches["dtans_decode"] - before == 1
+    assert torch.equal(cols, want_c)
+    assert torch.equal(vals.view(bits), want_v.view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shared", [
+    (np.float32, True), (np.float32, False), (np.float64, True),
+    (np.float64, False)], ids=["f32-1tab", "f32-2tab", "f64-1tab",
+                               "f64-2tab"])
+@pytest.mark.parametrize("L", DECODE_L)
+def test_staged_decode_bitwise_plain(L, dtype, shared):
+    """Odd max_nseg (9: the last flush holds one segment), slices whose
+    segment count stays below it (the padding written from registers),
+    lanes of no segment, escapes; one and two tables."""
+    _need_card()
+    mat = encode_matrix(_decode_csr(L, dtype, L), lane_width=L,
+                        shared_table=shared)
+    pm = pack_matrix(mat)
+    assert pm.max_nseg == 9 and len(mat.tables) == (1 if shared else 2)
+    assert int(mat.esc_count_by_domain.sum()) > 0
+    assert ((pm.ns + 7) // 8).max(axis=1).min() < pm.max_nseg
+    _check_staged_decode(pm)
+
+
+@pytest.mark.gpu
+def test_staged_decode_base_256_table():
+    """A table of base 256 (the limb shift)."""
+    _need_card()
+    d = np.zeros((300, 300))
+    for i in range(300):
+        d[i, max(0, i - 4):i + 5] = np.where(np.arange(
+            max(0, i - 4), min(300, i + 5)) % 3 == 0, -1.0, 4.0)
+    pm = pack_matrix(encode_matrix(CSR.from_dense(d), lane_width=32))
+    assert int(pm.tab_base.max()) == 256
+    _check_staged_decode(pm)
+
+
+@pytest.mark.gpu
+def test_decode_smem_plan_matches_the_kernel():
+    """`tiling.decode_geometry`'s plan and the built decode kernel's own
+    count agree."""
+    _need_card()
+    for L in DECODE_L:
+        for T in (1, 2):
+            for item in (4, 8):
+                assert DD.smem_need(T, L, item) == tiling.decode_geometry(
+                    1, L, T, item).smem
+
+
 @pytest.mark.gpu
 def test_bcsr_ops_on_card_vs_dense():
     _need_card()
