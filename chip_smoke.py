@@ -50,6 +50,24 @@ Phases, each raising on failure (no phase falls back to the CPU):
 4d. decode: ``ops.decode`` of the phase-4 head and the phase-4c matrix,
    columns and value bits equal to `decode_ref` and the real entries
    exactly the host's `decode_matrix`; the kernel's counter must rise.
+4e. the autotuned head: the phase-4 weight built by
+   ``SparseLinear.from_dense(auto=True, autotune_measure=True)`` (budget
+   2, B=64, the `H100` cost model, a memory-only decision cache): the two
+   best-modeled entropy-coded candidates are encoded and their CUDA
+   kernels timed (CUDA graphs between CUDA events); the winner, the
+   runner-up and phase 4's configuration are timed again as phase 5 times
+   and the script says whether the ranking holds; the winner serves the phase-4
+   request shapes, each held against the dense product of the head's
+   pruned weight and, bitwise, the winner's plain path on the card (and
+   phase 4's outputs, where it picks phase 4's configuration); the
+   winner's launch counters must have risen.
+4f. the registry and calibration on the card: every registered format's
+   ``FormatSpec`` runners (B = 1, 8) on two of `measure._calibration_suite`'s
+   matrices, the kernel-backed ones bitwise their plain versions, csr /
+   coo / dense within tolerance of the dense product (every comparator and
+   dtANS kernel's counter must rise); then ``measure.calibrate(base=H100,
+   small=True)`` fits the cost model to the kernels' CUDA-event times and
+   prints the fitted constants beside the data-sheet seed.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -88,6 +106,7 @@ sys.path.append(str(ROOT / "tests"))  # hand_made_packs
 
 import torch  # noqa: E402
 
+from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
 from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix  # noqa: E402
@@ -102,8 +121,9 @@ from repro_torch.kernels.ref import decode_ref  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
 from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES  # noqa: E402
 from repro_torch.sparse.formats import CSR, best_baseline_nbytes  # noqa: E402
-from repro_torch.sparse.prune import codebook_quantize  # noqa: E402
+from repro_torch.sparse.prune import codebook_quantize, magnitude_prune  # noqa: E402
 from repro_torch.sparse.random_graphs import block_sparse, stencil_2d  # noqa: E402
+from repro_torch.sparse import registry  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
 
 from hand_made_packs import HAND_MADE  # noqa: E402
@@ -1044,6 +1064,255 @@ def phase_decode(sl: SparseLinear, csr: CSR, blk: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4e. the autotuned head
+# ---------------------------------------------------------------------------
+
+AUTO_BATCH = 64     # a batched serving step: SpMM passes of 0.15-0.5 ms
+AUTO_BUDGET = 2     # candidates encoded at full width and timed
+
+
+def _all_launches() -> dict:
+    return {k: v for mod in (K, SE, RG, BC, DD) for k, v in
+            mod.launches.items()}
+
+
+def _reset_all() -> None:
+    for mod in (K, SE, RG, BC, DD):
+        mod.reset_launches()
+
+
+def phase_autotuned(sl: SparseLinear) -> SparseLinear:
+    """The head's weight (phase 4's draw) built by ``from_dense(auto=True,
+    autotune_measure=True)`` on the `H100` model: the selection times the
+    top candidates' CUDA kernels (a CUDA graph of each, between CUDA
+    events) at B=`AUTO_BATCH`, and the ranking is checked again on phase
+    5's timer; the winner serves the request shapes. Each output is held against the
+    dense product of the head's pruned weight (phase 4's layer: every
+    family codes that same matrix losslessly; a host decode of a
+    narrow-slice winner would take minutes) and, bitwise, the winner's
+    plain path on the card."""
+    rng = np.random.default_rng(SEED)
+    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    auto = SparseLinear.from_dense(
+        w, sparsity=0.8, value_bits=8, auto=True,
+        autotune_budget=AUTO_BUDGET, autotune_measure=True,
+        autotune_batch=AUTO_BATCH, autotune_cache=DecisionCache(path=None),
+        autotune_machine=H100, device="cuda")
+    torch.cuda.synchronize()
+    select_s = time.perf_counter() - t0
+    sel_counts = {k: v for k, v in _all_launches().items() if v}
+    d = auto.decision
+    log(f"[auto] from_dense(auto=True, budget={AUTO_BUDGET}, measure, "
+        f"B={AUTO_BATCH}, H100 model) in {select_s:.1f} s (encodes "
+        f"included): {d.config_name}, {d.nbytes} B, modeled "
+        f"{d.modeled_time * 1e3:.4f} ms, measured "
+        f"{d.measured_time * 1e3:.4f} ms | {card()}")
+    for cfg, nbytes, modeled, measured in d.leaderboard:
+        meas = "-" if measured is None else f"{measured * 1e3:.4f} ms"
+        log(f"[auto]   {cfg:26s} {nbytes:9d} B modeled "
+            f"{modeled * 1e3:.4f} ms measured {meas}")
+    log(f"[auto] selection launches {sel_counts}")
+    assert d.machine == "h100" and d.batch == AUTO_BATCH and d.refined
+    assert d.measured_time is not None and d.measured_time > 0
+    assert sum(row[3] is not None for row in d.leaderboard) == AUTO_BUDGET
+    assert sel_counts, "the measured selection launched no kernel"
+    # Phase 4's configuration in the same harness and currency (a CUDA
+    # graph of the call, as `select` timed the candidates).
+    X = torch.as_tensor(np.random.default_rng(SEED + 7).standard_normal(
+        (D_MODEL, AUTO_BATCH)), dtype=torch.float32, device="cuda")
+    t_phase4 = measure.time_kernel(
+        registry.get_format("dtans").spmm_runner(sl.packed, X,
+                                                 device="cuda"),
+        device="cuda")
+    log(f"[auto] phase 4's dtans[w=128,shared] in the same harness: "
+        f"{t_phase4 * 1e3:.4f} ms (IQR {t_phase4.iqr * 1e3:.4f} ms) | "
+        f"{card()}")
+    # The ranking on kernel time alone, timed as phase 5 times (`device_ms`:
+    # 5 replays of a 20-call graph): winner, runner-up (encoded again; the
+    # selection's artifacts stay inside `from_dense`) and phase 4's pack.
+    pruned = codebook_quantize(magnitude_prune(w.T, 0.8), bits=8)
+    up_spec, up_knobs = registry.parse_config(d.leaderboard[1][0])
+    t0 = time.perf_counter()
+    up_packed = up_spec.pack(pruned, **up_knobs)
+    up_encode_s = time.perf_counter() - t0
+    packs = {d.config_name: (registry.get_format(d.fmt), auto.packed),
+             d.leaderboard[1][0]: (up_spec, up_packed),
+             "phase 4 dtans[w=128,shared]": (registry.get_format("dtans"),
+                                             sl.packed)}
+    graph = {}
+    for name, (spec, packed) in packs.items():
+        t = device_ms(spec.spmm_runner(packed, X, device="cuda"))
+        assert t["by"] == "graph", (name, t["by"])
+        graph[name] = t["ms"]
+        log(f"[auto]   graph-timed {name:28s} {t['ms']:.4f} ms "
+            f"(runs {', '.join(f'{r:.4f}' for r in t['runs'])}) | {card()}")
+    names = list(graph)
+    holds = graph[names[0]] <= graph[names[1]]
+    gap = graph[names[1]] / graph[names[0]] - 1.0
+    log(f"[auto] the measured ranking {'holds' if holds else 'flips'} on "
+        f"kernel time: {names[0]} {graph[names[0]]:.4f} ms vs "
+        f"{names[1]} {graph[names[1]]:.4f} ms (runner-up {gap:+.2%}; "
+        f"encoded again in {up_encode_s:.1f} s)")
+    shared = bool(auto.packed.shared_cols)
+    # (a BCSR-dtANS winner codes the block-filled matrix: more entries)
+    assert shared or (auto.mat.nnz == sl.mat.nnz and np.array_equal(
+        auto.mat.row_nnz, sl.mat.row_nnz)), "not the head's pruned matrix"
+
+    kinds = ("dtans_spmv_shared", "dtans_spmm_shared") if shared else \
+        ("dtans_spmv", "dtans_spmm")
+    rng = np.random.default_rng(SEED + 5)
+    xs = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                          device="cuda") for _, shape, _ in REQUESTS]
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    ys = [auto.apply(x, bn=bn) for x, (_, _, bn) in zip(xs, REQUESTS)]
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _all_launches().items() if v}
+    log(f"[auto] served {len(REQUESTS)} requests in {serve_s * 1e3:.1f} ms "
+        f"(first calls included); launches {counts}")
+    assert all(counts.get(k, 0) > 0 for k in kinds), counts
+
+    dm = to_device(auto.packed, "cuda")
+    same_as_4 = d.config_name == "dtans[w=128,shared]"
+    for (name, shape, bn), x, y in zip(REQUESTS, xs, ys):
+        assert y.shape == (*shape[:-1], VOCAB) and torch.isfinite(y).all()
+        xb = x.reshape(-1, D_MODEL)
+        B = xb.shape[0]
+        if B == 1:
+            plain = K.dtans_spmv_plain(dm, xb[0], shared_cols=shared)
+        else:
+            plain = K.dtans_spmm_plain(dm, xb.T.contiguous(), bn,
+                                       shared_cols=shared)
+        plain = plain.reshape(-1, B)[:VOCAB].T.reshape(y.shape)
+        ref = sl.apply_dense_reference(x)
+        torch.cuda.synchronize()
+        ok_ref = torch.allclose(y, ref, rtol=1e-4, atol=1e-5)
+        e_ref = (y - ref).abs().max().item()
+        log(f"[auto] {name:12s} out {tuple(y.shape)} |y-dense|={e_ref:.3e}, "
+            f"== plain bitwise")
+        assert ok_ref, f"{name}: dense {e_ref}"
+        assert torch.equal(y, plain), f"{name}: kernel != plain"
+        if same_as_4:
+            assert torch.equal(y, sl.apply(x, bn=bn)), \
+                f"{name}: not bitwise phase 4's output"
+    if same_as_4:
+        log("[auto] the winner is phase 4's configuration: outputs "
+            "bitwise phase 4's")
+    RESULTS["autotune"] = {
+        "decision": d.to_dict(), "config": d.config_name,
+        "select_s": select_s, "serve_s": serve_s,
+        "phase4_config_measured_s": float(t_phase4),
+        "graph_ms": graph, "ranking_holds_on_graph": holds,
+        "runner_up_gap_on_graph": gap,
+        "launches_selection": sel_counts, "launches_serving": counts}
+    return auto
+
+
+# ---------------------------------------------------------------------------
+# 4f. the registry and calibration on the card
+# ---------------------------------------------------------------------------
+
+REGISTRY_MATRICES = ("nn", "skew")   # of `measure._calibration_suite`
+REGISTRY_BATCHES = (1, 8)
+
+
+def _plain_rows(spec, packed, X: torch.Tensor) -> torch.Tensor:
+    """The plain torch version, on the card, of the kernel a registry
+    runner of ``spec`` launches on ``packed``: (m, B) rows of A X."""
+    d = spec.upload(packed, "cuda")
+    B = X.shape[1]
+    if spec.decodes:
+        shared = bool(packed.shared_cols)
+        rows = (K.dtans_spmv_plain(d, X[:, 0], shared_cols=shared)
+                if B == 1 else
+                K.dtans_spmm_plain(d, X, None, shared_cols=shared))
+    else:
+        mod = MODULES[spec.name]
+        rows = (getattr(mod, f"{spec.name}_spmv_plain")(d, X[:, 0])
+                if B == 1 else
+                getattr(mod, f"{spec.name}_spmm_plain")(d, X, None))
+    return rows.reshape(-1, B)[:d.shape[0]]
+
+
+def phase_registry() -> None:
+    """Every registered format's ``FormatSpec.spmv`` / ``spmm`` runners
+    (B = 1, 8) on two calibration matrices on the card: the kernel-backed
+    ones bitwise their plain versions, csr / coo / dense within `RTOL` of
+    the dense product; then ``measure.calibrate(base=H100, small=True)``
+    fits the cost model to CUDA-event times of the real kernels."""
+    mats = measure._calibration_suite(small=True)
+    rng = np.random.default_rng(SEED + 6)
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    checked = 0
+    for mname in REGISTRY_MATRICES:
+        a = mats[mname]
+        dense = torch.as_tensor(a.to_dense(), device="cuda")
+        arts: dict = {}
+        for fmt in registry.format_names():
+            spec = registry.get_format(fmt)
+            packed = spec.pack(a, artifacts=arts)
+            for B in REGISTRY_BATCHES:
+                X = torch.as_tensor(rng.standard_normal((a.shape[1], B)),
+                                    dtype=torch.float32, device="cuda")
+                y = (spec.runner(packed, X[:, 0], device="cuda")()[:, None]
+                     if B == 1 else
+                     spec.spmm_runner(packed, X, device="cuda")())
+                assert y.shape == (a.shape[0], B) and y.device == X.device, \
+                    (fmt, B)
+                if spec.spmv_fn is not None:
+                    assert torch.equal(y, _plain_rows(spec, packed, X)), \
+                        f"{mname} {fmt} B={B}: kernel != plain"
+                else:
+                    e, ok = _err(y, dense @ X, torch.float32)
+                    assert ok, f"{mname} {fmt} B={B}: |y-dense| {e}"
+                checked += 1
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _all_launches().items() if v}
+    log(f"[reg] {checked} registry passes ({len(registry.format_names())} "
+        f"formats x {REGISTRY_MATRICES} x B {REGISTRY_BATCHES}) in "
+        f"{reg_s:.1f} s: kernels bitwise plain, csr / coo / dense within "
+        f"rtol of the dense product; launches {counts}")
+    want = {k for k in _all_launches() if k != "dtans_decode"}
+    assert want <= set(counts), sorted(want - set(counts))
+
+    _reset_all()
+    t0 = time.perf_counter()
+    res = measure.calibrate(base=H100, small=True, device="cuda")
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    cal_counts = {k: v for k, v in _all_launches().items() if v}
+    fit = res.model
+    log(f"[cal] calibrate(base=H100, small=True): {len(res.points)} "
+        f"points in {cal_s:.1f} s; mean |model - measured| / measured "
+        f"{res.err_before:.3f} (data-sheet seed) -> {res.err_after:.3f} "
+        f"(fitted); launches {cal_counts} | {card()}")
+    for field in ("hbm_bw", "cache_bw", "spmv_ops_per_elem",
+                  "row_seq_penalty", "decode_ops_per_nnz"):
+        log(f"[cal]   {field:19s} seed {getattr(H100, field):.6g} "
+            f"fitted {getattr(fit, field):.6g}")
+    consts = [getattr(fit, f) for f in ("hbm_bw", "cache_bw",
+                                        "spmv_ops_per_elem",
+                                        "row_seq_penalty",
+                                        "decode_ops_per_nnz")]
+    assert all(np.isfinite(c) and c > 0 for c in consts), consts
+    assert all(p.measured > 0 for p in res.points)
+    assert cal_counts, "calibration launched no kernel"
+    RESULTS["registry"] = {"passes": checked, "seconds": reg_s,
+                           "launches": counts}
+    RESULTS["calibration"] = {**res.to_dict(), "seconds": cal_s,
+                              "launches": cal_counts,
+                              "seed": H100.to_dict()}
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -1375,6 +1644,10 @@ def main() -> int:
     done("4c")
     phase_decode(sl, csr, blk)
     done("4d")
+    phase_autotuned(sl)
+    done("4e")
+    phase_registry()
+    done("4f")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -1401,7 +1674,11 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "B": B, **{k: t[k] for k in ("loop_ms", "library_loop_ms")
-                       if k in t}})
+                       if k in t},
+            "launches_selection":
+                RESULTS["autotune"]["launches_selection"].get(name, 0),
+            "launches_calibrate":
+                RESULTS["calibration"]["launches"].get(name, 0)})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -27,8 +27,7 @@ j + 1 before contracting j) is accepted by `spmv` / `spmm`: the CUDA
 kernels always run that schedule, in the same contraction order, so both
 values launch the same kernels and give the same bits (on the CPU the
 plain versions run either way). Not ported yet, and refused with
-`NotImplementedError` naming the ROADMAP.md item: ``mesh=`` /
-``n_shards > 1``.
+`NotImplementedError` naming ROADMAP.md A6: ``mesh=`` / ``n_shards > 1``.
 """
 
 from __future__ import annotations
@@ -113,7 +112,7 @@ def _refuse(mesh, n_shards) -> None:
     if mesh is not None or (n_shards is not None and int(n_shards) != 1):
         raise NotImplementedError(
             "sharded spmv/spmm (mesh= / n_shards > 1) is not ported yet "
-            "(ROADMAP.md queue A item 10)")
+            "(ROADMAP.md A6)")
 
 
 def _resolve_fused(pm: PackedMatrix, fused) -> bool:

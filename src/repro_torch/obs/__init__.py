@@ -18,7 +18,9 @@ execution path. This package is that instrumentation layer:
 
 Instrumented layers so far: `serving.SparseLinear` + `kernels.ops`
 (decode invocations, bytes moved per SpMV/SpMM, batch-size and
-column-tile histograms).
+column-tile histograms) and `autotune` (timings and their dispersion,
+decisions by source with an ``autotune.decision`` event, decision-cache
+hits and misses).
 """
 
 from repro_torch.obs.metrics import (NULL, Counter, Gauge, Histogram,

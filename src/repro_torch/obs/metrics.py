@@ -32,6 +32,10 @@ import random
 #: this repo benches (thousands of steps), bounded memory for servers.
 DEFAULT_RESERVOIR = 4096
 
+#: rel-IQR above which a timing histogram's sample is counted as noisy
+#: (shared with `autotune.measure.TimingSample.noisy`).
+NOISY_REL_IQR = 0.5
+
 
 class Counter:
     """Monotonic counter. ``add`` accepts any non-negative increment so

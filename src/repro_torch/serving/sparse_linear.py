@@ -13,12 +13,12 @@ once.
 fused multi-RHS decode kernel (`ops.spmm`): one entropy decode per call
 (per column tile), amortized over every request in the batch.
 
-A layer whose ``mat`` is a `BCSRdtANS` (structured-pruned weights encoded
-by `core.bcsr_dtans.encode_bcsr_matrix`, built with the dataclass
-constructor, as the JAX package's ``from_dense(auto=True)`` builds one
-for a ``bcsr_dtans`` decision) serves the same way: its pack has
-``shared_cols`` set, so `ops.spmm` runs the fused shared-column
-contraction.
+``from_dense(auto=True)`` lets the autotuner pick the entropy-coded
+family and its knobs per matrix. A layer whose ``mat`` is a `BCSRdtANS`
+(a ``bcsr_dtans`` decision, or structured-pruned weights encoded by
+`core.bcsr_dtans.encode_bcsr_matrix` and built with the dataclass
+constructor) serves the same way: its pack has ``shared_cols`` set, so
+`ops.spmm` runs the fused shared-column contraction.
 """
 
 from __future__ import annotations
@@ -32,8 +32,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.csr_dtans import CSRdtANS, decode_matrix, encode_matrix
 from repro_torch.kernels import ops
-from repro_torch.kernels.pack import (PackedMatrix, check_device,
-                                      pack_matrix, to_device)
+from repro_torch.kernels.pack import PackedMatrix, check_device, to_device
 from repro_torch.sparse.formats import best_baseline_nbytes
 from repro_torch.sparse.prune import codebook_quantize, magnitude_prune
 
@@ -46,13 +45,17 @@ class SparseLinear:
     d_out: int
     dense_bytes: int
     baseline_bytes: int      # best of CSR/COO/SELL on the pruned matrix
+    decision: object = None  # autotune Decision when built with auto=True
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cuda"))
 
     @classmethod
     def from_dense(cls, w, sparsity: float = 0.8, value_bits: int = 8,
                    lane_width: int = 128, shared_table: bool = True,
-                   auto: bool = False, mesh=None, n_shards: int | None = None,
+                   auto: bool = False, autotune_budget: int = 0,
+                   autotune_batch: int = 1, autotune_cache=None,
+                   autotune_measure: bool = False, autotune_machine=None,
+                   mesh=None, n_shards: int | None = None,
                    device="cuda") -> "SparseLinear":
         """Compress a dense projection ``w`` (d_in, d_out) for
         decode-on-the-fly serving on ``device``.
@@ -61,17 +64,31 @@ class SparseLinear:
         prunes, quantizes, encodes and decodes in float64 (non-float inputs
         become float32 — the format codes float bit patterns).
 
-        Not ported yet: ``auto=True`` (the autotuner, ROADMAP.md queue A
-        item 8) and ``mesh=`` / ``n_shards > 1`` (sharding, queue A item
-        10) raise `NotImplementedError`."""
-        if auto:
-            raise NotImplementedError(
-                "from_dense(auto=True) needs the autotuner, which is not "
-                "ported yet (ROADMAP.md queue A item 8)")
+        With ``auto=True`` the ``lane_width`` / ``shared_table`` knobs are
+        ignored and chosen per matrix by `repro_torch.autotune`:
+        `choose_dtans_config` fingerprints the pruned weight and picks the
+        modeled-fastest configuration among every ``decodes=True`` family
+        of `repro_torch.sparse.registry` (CSR-dtANS, RGCSR-dtANS,
+        BCSR-dtANS, ...), and the winner's `FormatSpec.encode` builds the
+        artifact. Every such family is a `CSRdtANS`, so `apply` serves any
+        winner (a BCSR-dtANS one through the fused shared-column
+        kernels). ``autotune_budget`` > 0 encodes the top candidates for
+        exact sizes; ``autotune_measure=True`` further times those
+        candidates' kernels on ``device`` and picks the measured-fastest
+        (`repro_torch.autotune.measure`; the selection's artifact of the
+        winner is served, not encoded again); ``autotune_batch`` prices
+        (and times) the selection for a ``B``-RHS serving batch;
+        ``autotune_machine`` substitutes a calibrated `MachineModel` for
+        the default `repro_torch.autotune.H100` constants;
+        ``autotune_cache`` overrides the default persistent cache (pass
+        ``DecisionCache(path=None)`` for memory-only).
+
+        Not ported yet, and refused with `NotImplementedError`: ``mesh=``
+        and ``n_shards > 1`` (sharding, ROADMAP.md A6)."""
         if mesh is not None or (n_shards is not None and int(n_shards) != 1):
             raise NotImplementedError(
                 "sharded SparseLinear (mesh= / n_shards > 1) is not ported "
-                "yet (ROADMAP.md queue A item 10)")
+                "yet (ROADMAP.md A6)")
         dev = check_device(device)           # before a long host encode
         if torch.is_tensor(w):
             w = w.detach().cpu().numpy()
@@ -81,12 +98,32 @@ class SparseLinear:
         d_in, d_out = w_arr.shape
         pruned = magnitude_prune(w_arr.T, sparsity)
         pruned = codebook_quantize(pruned, bits=value_bits)
-        mat = encode_matrix(pruned, lane_width=lane_width,
-                            shared_table=shared_table)
+        decision = None
+        if auto:
+            from repro_torch.autotune import H100, choose_dtans_config
+            from repro_torch.sparse.registry import get_format
+            arts: dict = {}
+            decision = choose_dtans_config(
+                pruned, warm=True, budget=autotune_budget,
+                batch=autotune_batch, measure=autotune_measure,
+                machine=autotune_machine
+                if autotune_machine is not None else H100,
+                cache=autotune_cache, device=dev, artifacts=arts)
+            spec = get_format(decision.fmt)
+            knobs = decision.knobs_dict()
+            # The selection's own encode of the winner, where it made
+            # one: the encoder is deterministic, so it is byte-equal to
+            # a fresh `spec.encode`.
+            mat = arts.get(spec.artifact_key(knobs))
+            if not isinstance(mat, CSRdtANS):
+                mat = spec.encode(pruned, **knobs)
+        else:
+            mat = encode_matrix(pruned, lane_width=lane_width,
+                                shared_table=shared_table)
         _, bb = best_baseline_nbytes(pruned)
-        sl = cls(mat=mat, packed=pack_matrix(mat), d_in=d_in, d_out=d_out,
-                 dense_bytes=w_arr.size * w_arr.dtype.itemsize,
-                 baseline_bytes=bb, device=dev)
+        sl = cls(mat=mat, packed=ops.get_packed(mat), d_in=d_in,
+                 d_out=d_out, dense_bytes=w_arr.size * w_arr.dtype.itemsize,
+                 baseline_bytes=bb, decision=decision, device=dev)
         to_device(sl.packed, dev)
         return sl
 

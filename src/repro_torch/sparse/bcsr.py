@@ -15,7 +15,7 @@ al.) and AlphaSparse's operator zoo both draw on; the trade it makes is
 *fill-in*: a block with one nonzero still stores (and processes) all
 ``r * c`` cells, so the format only wins when the block-fill histogram
 says the matrix is block-structured — exactly the per-matrix question
-the JAX package's autotuner (`repro.autotune`) answers from
+the autotuner (`repro_torch.autotune`) answers from
 `Fingerprint.block_nonempty`.
 
 Byte-exact accounting (`nbytes`, mirrored fingerprint-side by
@@ -31,8 +31,8 @@ import numpy as np
 
 from repro_torch.sparse.formats import CSR
 
-#: Block shapes swept by the JAX package's autotuner (`repro.autotune`);
-#: the fingerprint carries an exact nonempty-block count for each.  The
+#: Block shapes swept by the autotuner (`repro_torch.autotune`); the
+#: fingerprint carries an exact nonempty-block count for each.  The
 #: rectangular entries cover banded/row-run structure (wide blocks pay
 #: less row metadata per stored cell; tall blocks align more rows per
 #: block row) — the format and fingerprint support any r x c, this
@@ -45,8 +45,8 @@ def count_nonempty_blocks(indptr: np.ndarray, indices: np.ndarray,
                           row_of: np.ndarray | None = None) -> int:
     """Number of nonempty ``r x c`` blocks of a CSR pattern (O(nnz)).
 
-    Shared by `BCSR.from_csr`, the format accounting below and the JAX
-    package's `repro.autotune.fingerprint`, so the selector's 'exact'
+    Shared by `BCSR.from_csr`, the format accounting below and
+    `repro_torch.autotune.fingerprint`, so the selector's 'exact'
     sizes can never drift from the format's own. ``row_of`` optionally passes a
     precomputed per-nonzero row-id expansion (callers evaluating
     several block shapes avoid re-deriving it per shape).

@@ -42,9 +42,9 @@ import numpy as np
 from repro_torch.core.delta import delta_decode_rows, delta_encode_rows
 from repro_torch.sparse.formats import CSR
 
-#: Group sizes swept by the JAX package's autotuner, paper-Fig. 9 style:
-#: small groups localize row-length skew, large groups amortize
-#: the per-group pointer overhead.
+#: Group sizes swept by the autotuner (`repro_torch.autotune`), paper-
+#: Fig. 9 style: small groups localize row-length skew, large groups
+#: amortize the per-group pointer overhead.
 RGCSR_GROUP_SIZES = (4, 8, 16, 32)
 
 

@@ -6,8 +6,9 @@ a GPU machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The ``gpu`` tests hold each kernel against its plain torch version on the
-card (rtol 1e-4 f32 / 1e-12 f64, the reference's tolerances), and the
-port's schedules against each other bitwise; they skip in their body where
+card (rtol 1e-4 f32 / 1e-12 f64, the reference's tolerances) and the
+port's schedules against each other bitwise, and time a registry runner
+and a measured selection with CUDA events; they skip in their body where
 torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
 failing compile must raise.
 """
@@ -15,11 +16,14 @@ failing compile must raise.
 import dataclasses
 import os
 import stat
+import time
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import autotune
+from repro_torch.autotune import measure
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
 from repro_torch.core.params import TOY
@@ -978,6 +982,70 @@ def test_smem_plan_matches_the_kernels():
                 assert K.smem_need(True, T, L, item, 8) == tiling.smem_plan(
                     T, L, item, bn=8)["total"]
 
+
+
+def _autotune_csr():
+    return CSR.from_dense(np.round(_dense(700, 300, 0.1, np.float32, 9) * 4)
+                          / 4)
+
+
+@pytest.mark.gpu
+def test_time_kernel_of_a_dtans_runner_on_card():
+    _need_card()
+    a = _autotune_csr()
+    for batch, kind in ((1, "dtans_spmv"), (8, "dtans_spmm")):
+        run = measure.spmv_runner(a, "dtans", batch=batch, lane_width=32,
+                                  device="cuda")
+        K.reset_launches()
+        ts = measure.time_kernel(run, warmup=1, repeats=5, device="cuda")
+        assert ts > 0 and ts.n == 5 and np.isfinite(ts.iqr)
+        # the warmup, one call before capture, the captured calls; the
+        # replays launch from the graph, not through the wrapper
+        assert K.launches[kind] == 2 + measure.GRAPH_CALLS
+
+
+@pytest.mark.gpu
+def test_time_kernel_leaves_host_work_out_on_card():
+    _need_card()
+    run = measure.spmv_runner(_autotune_csr(), "dtans", batch=8,
+                              lane_width=32, device="cuda")
+    kernel = measure.time_kernel(run, repeats=5, device="cuda")
+
+    def slow_host():
+        time.sleep(0.005)                 # host work a call from Python pays
+        return run()
+    ts = measure.time_kernel(slow_host, repeats=5, device="cuda")
+    assert ts < 0.001 and ts < 3 * kernel, (float(ts), float(kernel))
+
+
+@pytest.mark.gpu
+def test_measured_select_on_card():
+    _need_card()
+    dec = autotune.select(_autotune_csr(), formats=("dtans", "sell",
+                                                    "rgcsr_dtans"),
+                          budget=3, batch=8, measure=True, device="cuda",
+                          cache=autotune.DecisionCache(path=None))
+    assert dec.measured_time is not None and dec.measured_time > 0
+    assert all(row[3] is not None for row in dec.leaderboard[:3])
+
+
+@pytest.mark.gpu
+def test_cpu_measured_decision_is_not_served_on_card(tmp_path):
+    _need_card()
+    a = _autotune_csr()
+    cache = autotune.DecisionCache(path=str(tmp_path / "cache.json"))
+    kw = dict(formats=("dtans", "sell"), budget=2, measure=True,
+              measure_repeats=2, cache=cache)
+    on_cpu = autotune.select(a, device="cpu", **kw)
+    autotune.clear_memo()
+    K.reset_launches()
+    SE.reset_launches()
+    on_card = autotune.select(a, device="cuda", **kw)
+    assert len(cache) == 2                   # a second, card-keyed entry
+    assert sum(K.launches.values()) + sum(SE.launches.values()) > 0
+    assert on_cpu.measured_time > 0 and on_card.measured_time > 0
+    name = torch.cuda.get_device_name(0)
+    assert any(k.endswith(f":cuda:{name}") for k in cache._load())
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:

@@ -142,12 +142,18 @@ def test_convert_round_trip_from_jax(layers, tmp_path):
 
 def test_from_dense_refusals():
     w = np.ones((8, 16), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseLinear.from_dense(w, auto=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseLinear.from_dense(w, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SparseLinear.from_dense(w, mesh=object(), device="cpu")
+    for auto in (False, True):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SparseLinear.from_dense(w, auto=auto, n_shards=2, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SparseLinear.from_dense(w, auto=auto, mesh=object(),
+                                    device="cpu")
+    # auto=True is ported (the autotuner): it no longer refuses
+    w = np.random.default_rng(4).standard_normal((8, 16)).astype(np.float32)
+    from repro_torch.autotune import DecisionCache
+    sl = SparseLinear.from_dense(w, auto=True, device="cpu",
+                                 autotune_cache=DecisionCache(path=None))
+    assert sl.decision is not None and sl.decision.machine == "h100"
 
 
 def test_from_dense_defaults_to_cuda():
