@@ -68,6 +68,22 @@ Phases, each raising on failure (no phase falls back to the CPU):
    dtANS kernel's counter must rise); then ``measure.calibrate(base=H100,
    small=True)`` fits the cost model to the kernels' CUDA-event times and
    prints the fitted constants beside the data-sheet seed.
+4g. the serving engine at full width: SmolLM-135M (30 layers, d_model 576,
+   9 / 3 heads, d_ff 1536, vocab 49152, tied; float32 where the config
+   says bfloat16, TF32 off), layer weights from a generator seeded
+   `SEED`, the tied embedding set to phase 4's ``w.T``, so phase 4's layer
+   is its compressed head with no new encode. `ENGINE_PROMPTS` (8 prompts,
+   8 new tokens each) go through ``Engine(slots=4, max_seq=64,
+   sparse_head=...)`` (every step one ``dtans_spmm`` launch, nothing
+   else) and a ``slots=1`` engine (one ``dtans_spmv`` a step), token for
+   token the same; the first pooled step's logits are held against the
+   decoded head (rtol 1e-4, atol 1e-5) and, bitwise, the plain path. A
+   dense-head engine serves the same requests (no kernel launched). Both
+   engines' decode step, TTFT, prefill and tokens/s are logged, and a
+   pooled step is split by CUDA events around ``decode_hidden`` and
+   around the head (50 steps a head, the heads taking turns; percentiles
+   10 / 50 / 90), beside each part's device time alone and its launches
+   (the nodes of a CUDA graph of it).
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -90,6 +106,7 @@ writes every number it measured to PATH. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import re
 import statistics
@@ -106,6 +123,7 @@ sys.path.append(str(ROOT / "tests"))  # hand_made_packs
 
 import torch  # noqa: E402
 
+from repro_torch import configs, obs  # noqa: E402
 from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
@@ -118,6 +136,8 @@ from repro_torch.kernels import rgcsr_spmv as RG  # noqa: E402
 from repro_torch.kernels import sell_spmv as SE  # noqa: E402
 from repro_torch.kernels.pack import pack_matrix, to_device  # noqa: E402
 from repro_torch.kernels.ref import decode_ref  # noqa: E402
+from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
 from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES  # noqa: E402
 from repro_torch.sparse.formats import CSR, best_baseline_nbytes  # noqa: E402
@@ -1313,6 +1333,262 @@ def phase_registry() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4g. the serving engine at full width
+# ---------------------------------------------------------------------------
+
+ENGINE_PROMPTS = (1, 3, 7, 12, 5, 2, 9, 16)   # prompt lengths
+ENGINE_MAX_NEW, ENGINE_SLOTS, ENGINE_MAX_SEQ = 8, 4, 64
+STEP_REPS = 50     # pooled steps timed by CUDA events, per head
+
+
+def _smollm(w: np.ndarray):
+    """SmolLM-135M at full width in float32, layer weights from a
+    generator seeded `SEED`, the tied embedding set to phase 4's ``w.T``
+    (std 0.02, `embedding_init`'s scale), so that phase 4's layer is this
+    model's compressed head with no new encode."""
+    cfg = configs.get("smollm-135m").with_(dtype="float32")
+    assert (cfg.d_model, cfg.vocab, cfg.tie_embeddings) == \
+        (D_MODEL, VOCAB, True)
+    model = api.build_model(
+        cfg, generator=torch.Generator().manual_seed(SEED), device="cuda")
+    with torch.no_grad():
+        model.embed.tok.copy_(torch.as_tensor(w.T, device="cuda"))
+    return model
+
+
+def _serve_engine(model, head, slots: int, prompts: list,
+                  record=None) -> tuple:
+    """(engine, requests, seconds) of serving ``prompts`` to the end;
+    ``record`` sees each step's (hidden, logits) of a compressed head."""
+    eng = Engine(model, slots=slots, max_seq=ENGINE_MAX_SEQ,
+                 sparse_head=head, metrics=obs.MetricsRegistry(),
+                 device="cuda")
+    if record is not None:
+        def head_fn(hidden, run=eng._head):
+            y = run(hidden)
+            record.append((hidden.clone(), y.clone()))
+            return y
+        eng._head = head_fn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, ENGINE_MAX_NEW) for p in prompts]
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, reqs, time.perf_counter() - t0
+
+
+def _engine_stats(eng, reqs, secs: float) -> dict:
+    h = eng.metrics.histogram
+    toks = sum(len(r.out) for r in reqs)
+    return {"seconds": secs, "tokens": toks, "tokens_per_s": toks / secs,
+            "steps": eng.metrics.counter("engine.steps_total").value,
+            "decode_ms_p50": h("engine.decode_s").quantile(0.5) * 1e3,
+            "step_ms_p50": h("engine.step_s").quantile(0.5) * 1e3,
+            "ttft_ms_p50": h("engine.ttft_s").quantile(0.5) * 1e3,
+            "prefill_ms_p50": h("engine.prefill_s").quantile(0.5) * 1e3}
+
+
+def _spread(ms: list) -> dict:
+    q = np.percentile(ms, [10, 50, 90])
+    return {"p10": float(q[0]), "p50": float(q[1]), "p90": float(q[2])}
+
+
+def _graph_nodes(fn) -> dict | None:
+    """The nodes of a CUDA graph of one call of ``fn``, by type: the
+    launches that call makes (counted by the driver's `cuGraphGetNodes`
+    and `cuGraphNodeGetType`); None where capture or the count fails."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    try:
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            fn()
+        cu = ctypes.CDLL("libcuda.so.1")
+        graph = ctypes.c_void_p(g.raw_cuda_graph())
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        kinds: dict = {}
+        for node in nodes:
+            t = ctypes.c_int(-1)
+            cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
+            kind = {0: "kernel", 1: "memcpy", 2: "memset"}.get(t.value,
+                                                                "other")
+            kinds[kind] = kinds.get(kind, 0) + 1
+    except (RuntimeError, OSError, TypeError, AttributeError) as exc:
+        log(f"[engine] graph nodes not counted "
+            f"({str(exc).splitlines()[0][:100]})")
+        return None
+    return {"total": n.value, **kinds}
+
+
+def _step_split(model, heads: dict, prompts: list) -> dict:
+    """Pooled steps of ``ENGINE_SLOTS`` live requests, the heads of
+    ``heads`` taking turns step by step, each step split by CUDA events
+    around `decode_hidden` and around the head and ending in the engine's
+    one host copy of the logits (`STEP_REPS` steps a head after 2 rounds
+    of warm-up; the 10th, 50th and 90th percentiles of each part). Beside
+    them each part's device time alone (a CUDA graph of it, `_graph_runs`;
+    None where capture fails) and its launches (`_graph_nodes`)."""
+    eng = Engine(model, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                 metrics=obs.MetricsRegistry(), device="cuda")
+    for p in prompts[:ENGINE_SLOTS]:
+        eng.submit(p, ENGINE_MAX_NEW)
+    runs = {name: {"model_ms": [], "head_ms": [], "wall_ms": []}
+            for name in heads}
+    with torch.inference_mode():
+        eng._fill_slots()
+        toks = torch.as_tensor([[int(r.prompt[-1])] for r in eng.active],
+                               device="cuda")
+        pos = torch.as_tensor(eng.pos, device="cuda")
+        for rep in range(STEP_REPS + 2):
+            for name, head_fn in heads.items():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                t0 = time.perf_counter()
+                ev[0].record()
+                hidden, _ = model.decode_hidden(eng.cache, toks, pos)
+                ev[1].record()
+                logits = head_fn(hidden)
+                ev[2].record()
+                logits.cpu()
+                if rep >= 2:
+                    r = runs[name]
+                    r["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                    r["model_ms"].append(ev[0].elapsed_time(ev[1]))
+                    r["head_ms"].append(ev[1].elapsed_time(ev[2]))
+
+        def step():
+            return model.decode_hidden(eng.cache, toks, pos)
+        graph_model = _graph_runs(step)
+        out = {"model_graph_ms": (statistics.median(graph_model)
+                                  if graph_model else None),
+               "model_nodes": _graph_nodes(step), "heads": {}}
+        for name, head_fn in heads.items():
+            graph_head = _graph_runs(lambda: head_fn(hidden))
+            out["heads"][name] = {
+                **{k: _spread(v) for k, v in runs[name].items()},
+                "head_graph_ms": (statistics.median(graph_head)
+                                  if graph_head else None),
+                "head_nodes": _graph_nodes(lambda: head_fn(hidden))}
+    return out
+
+
+def phase_engine(sl: SparseLinear) -> None:
+    """SmolLM-135M at full width serves `ENGINE_PROMPTS` through the
+    port's `Engine` with phase 4's layer as its compressed head: pooled
+    (``slots=4``, the head's SpMM kernel) and sequential (``slots=1``, its
+    SpMV kernel), token for token the same; one pooled step's logits
+    against the decoded head and, bitwise, the plain path; then a
+    dense-head engine on the same requests, and both engines' step times
+    split between the model and the head."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED)
+    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+    t0 = time.perf_counter()
+    model = _smollm(w)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[engine] SmolLM-135M full width ({model.cfg.n_layers} layers, "
+        f"d_model {D_MODEL}, {model.cfg.n_heads}/{model.cfg.n_kv_heads} "
+        f"heads, d_ff {model.cfg.d_ff}, vocab {VOCAB}, tied), "
+        f"{api.param_count(model):,} parameters, built in {build_s:.1f} s; "
+        f"dtype float32 in place of the config's bfloat16 (the head is "
+        f"f32, and the token-identity check needs f32 without TF32)")
+    prng = np.random.default_rng(SEED + 7)
+    prompts = [prng.integers(0, VOCAB, size=n) for n in ENGINE_PROMPTS]
+    _serve_engine(model, sl, ENGINE_SLOTS, prompts[:2])     # warm-up
+
+    seen: list = []
+    _reset_all()
+    pooled, preqs, psecs = _serve_engine(model, sl, ENGINE_SLOTS, prompts,
+                                         record=seen)
+    pooled_counts = {k: v for k, v in _all_launches().items() if v}
+    _reset_all()
+    seq, sreqs, ssecs = _serve_engine(model, sl, 1, prompts)
+    seq_counts = {k: v for k, v in _all_launches().items() if v}
+    _reset_all()
+    dense, dreqs, dsecs = _serve_engine(model, None, ENGINE_SLOTS, prompts)
+    dense_counts = {k: v for k, v in _all_launches().items() if v}
+    stats = {"compressed": _engine_stats(pooled, preqs, psecs),
+             "sequential": _engine_stats(seq, sreqs, ssecs),
+             "dense": _engine_stats(dense, dreqs, dsecs)}
+    log(f"[engine] launches: pooled {pooled_counts}, sequential "
+        f"{seq_counts}, dense head {dense_counts}")
+    assert all(r.done and len(r.out) == ENGINE_MAX_NEW
+               for r in preqs + sreqs + dreqs)
+    assert pooled_counts == {"dtans_spmm": stats["compressed"]["steps"]}, \
+        pooled_counts
+    assert seq_counts == {"dtans_spmv": stats["sequential"]["steps"]}, \
+        seq_counts
+    assert dense_counts == {}, dense_counts
+    for p, s in zip(preqs, sreqs):
+        assert p.out == s.out, (f"prompt of {len(p.prompt)}: pooled "
+                                f"{p.out} != sequential {s.out}")
+    agree = sum(p.out == d.out for p, d in zip(preqs, dreqs))
+    log(f"[engine] {len(preqs)} requests x {ENGINE_MAX_NEW} tokens: pooled "
+        f"== sequential token for token; the dense head's streams agree on "
+        f"{agree} of {len(preqs)} requests (the compressed head is pruned)")
+
+    hidden, logits = seen[0]
+    assert hidden.shape == (ENGINE_SLOTS, 1, D_MODEL)
+    assert logits.shape == (ENGINE_SLOTS, 1, VOCAB)
+    assert torch.isfinite(logits).all()
+    ref = sl.apply_dense_reference(hidden)
+    dm = to_device(sl.packed, "cuda")
+    plain = K.dtans_spmm_plain(dm, hidden.reshape(-1, D_MODEL).T.contiguous(),
+                               None).reshape(-1, ENGINE_SLOTS)[:VOCAB]
+    plain = plain.T.reshape(logits.shape)
+    torch.cuda.synchronize()
+    e_ref = (logits - ref).abs().max().item()
+    assert torch.allclose(logits, ref, rtol=1e-4, atol=1e-5), e_ref
+    assert torch.equal(logits, plain), "pooled logits != plain path"
+    log(f"[engine] first pooled step: |logits - decoded head| = {e_ref:.3e} "
+        f"(rtol 1e-4, atol 1e-5), bitwise the plain path")
+
+    split = _step_split(model, {
+        "compressed": sl.apply,
+        "dense": lambda h: layers.lm_head(model.embed, h)}, prompts)
+    for name in ("compressed", "dense", "sequential"):
+        s = stats[name]
+        log(f"[engine] {name:10s} one run of {len(prompts)} requests "
+            f"(smoke reading): {s['tokens']} tokens in "
+            f"{s['seconds']:.3f} s = {s['tokens_per_s']:.1f} tok/s, "
+            f"{s['steps']} steps; median decode {s['decode_ms_p50']:.3f} ms, "
+            f"step {s['step_ms_p50']:.3f} ms, TTFT {s['ttft_ms_p50']:.3f} ms, "
+            f"prefill {s['prefill_ms_p50']:.3f} ms | {card()}")
+
+    def pct(d):
+        return f"{d['p50']:.4f} [{d['p10']:.4f}, {d['p90']:.4f}]"
+    g = split["model_graph_ms"]
+    log(f"[engine] model's pooled step alone (CUDA graph): "
+        f"{'not measured' if g is None else f'{g:.4f} ms'}, graph nodes "
+        f"{split['model_nodes'] or 'not counted'} | {card()}")
+    for name, s in split["heads"].items():
+        gh = s["head_graph_ms"]
+        log(f"[engine] {name:10s} {STEP_REPS} pooled steps, heads taking "
+            f"turns, ms p50 [p10, p90] (events): model {pct(s['model_ms'])}"
+            f" + head {pct(s['head_ms'])}, head "
+            f"{s['head_ms']['p50'] / (s['model_ms']['p50'] + s['head_ms']['p50']):.1%}"
+            f"; wall {pct(s['wall_ms'])}; head alone (graph): "
+            f"{'not measured' if gh is None else f'{gh:.4f} ms'}, nodes "
+            f"{s['head_nodes'] or 'not counted'} | {card()}")
+    RESULTS["engine"] = {"build_s": build_s, "stats": stats,
+                         "split": split, "dense_agree": agree,
+                         "logits_max_abs_err": e_ref,
+                         "launches": {"pooled": pooled_counts,
+                                      "sequential": seq_counts}}
+    RESULTS["launches_engine"] = {
+        k: pooled_counts.get(k, 0) + seq_counts.get(k, 0)
+        for k in _all_launches()}
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -1648,6 +1924,8 @@ def main() -> int:
     done("4e")
     phase_registry()
     done("4f")
+    phase_engine(sl)
+    done("4g")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -1678,7 +1956,8 @@ def main() -> int:
             "launches_selection":
                 RESULTS["autotune"]["launches_selection"].get(name, 0),
             "launches_calibrate":
-                RESULTS["calibration"]["launches"].get(name, 0)})
+                RESULTS["calibration"]["launches"].get(name, 0),
+            "launches_engine": RESULTS["launches_engine"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

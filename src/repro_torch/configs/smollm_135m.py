@@ -1,0 +1,10 @@
+"""SmolLM-135M [hf:HuggingFaceTB/SmolLM-135M]: llama-arch small.
+30L d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152."""
+from repro_torch.models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense", n_layers=30, d_model=576,
+    n_heads=9, n_kv_heads=3, d_ff=1536, vocab=49152, tie_embeddings=True)
+
+SMOKE = CONFIG.with_(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                     d_ff=128, vocab=128, dtype="float32", remat=False)

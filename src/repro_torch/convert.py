@@ -17,11 +17,16 @@ fused contraction.
 `packed_bcsr_to_arrays` do the same for a packed uncompressed comparator
 (`PackedSELL`, `PackedRGCSR`, `PackedBCSR`) of either package, and the
 ``*_from_arrays`` pair rebuilds this package's pack and uploads it.
+
+`model_from_jax_params` carries a transformer's weights across: the JAX
+package's parameter tree, as numpy arrays, becomes this package's
+`Transformer` with the same weights.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.bcsr_dtans import BCSRdtANS
 from repro_torch.core.csr_dtans import CSRdtANS
@@ -33,6 +38,8 @@ from repro_torch.kernels.bcsr_spmv import PackedBCSR
 from repro_torch.kernels.pack import check_device, pack_matrix, to_device
 from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
 from repro_torch.kernels.sell_spmv import PackedSELL
+from repro_torch.models import api
+from repro_torch.models.config import ArchConfig
 from repro_torch.serving.sparse_linear import SparseLinear
 
 _PARAM_FIELDS = ("w_bits", "k_bits", "l", "o", "f", "m_bits")
@@ -190,3 +197,45 @@ def packed_bcsr_from_arrays(arrays: dict, *, device="cuda") -> PackedBCSR:
                     block_shape=tuple(int(v) for v in arrays["block_shape"]))
     bcsr_spmv.to_device(pb, device)
     return pb
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda"):
+    """This package's model of ``cfg`` holding the weights of the JAX
+    package's ``params`` (``init_params``'s tree with its leaves as numpy
+    arrays: ``jax.tree.map(np.asarray, params)``, done by the caller).
+
+    The reference stacks each layer leaf over the layers (``vmap``); leaf
+    ``layers.attn.wq`` of shape (n_layers, d, H*hd) becomes
+    ``layers.<i>.attn.wq`` for each i. A tied config takes no ``head``,
+    an untied one needs it, and a moe config's ``router``, ``wi``, ``wg``,
+    ``wo`` carry across the same way: every weight of the model must be
+    given exactly once, at its shape, or this raises. bfloat16 leaves go
+    through float32 (exactly)."""
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            device=device)
+    state = {}
+    for name, a in _flatten(params).items():
+        if a.dtype.name == "bfloat16":     # ml_dtypes: no torch view
+            a = a.astype(np.float32)
+        if name.startswith("layers."):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
+                                 f"config has {cfg.n_layers}")
+            rest = name[len("layers."):]
+            for i in range(cfg.n_layers):
+                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                    np.array(a[i]))
+        else:
+            state[name] = torch.from_numpy(np.array(a))
+    model.load_state_dict(state, strict=True)
+    return model

@@ -7,9 +7,10 @@ a GPU machine that has only PyTorch:
 
 The ``gpu`` tests hold each kernel against its plain torch version on the
 card (rtol 1e-4 f32 / 1e-12 f64, the reference's tolerances) and the
-port's schedules against each other bitwise, and time a registry runner
-and a measured selection with CUDA events; they skip in their body where
-torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
+port's schedules against each other bitwise, time a registry runner
+and a measured selection with CUDA events, and serve the smoke model
+through the engine's compressed head and the launcher; they skip in their
+body where torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
 failing compile must raise.
 """
 
@@ -22,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import autotune
+from repro_torch import autotune, configs, obs
 from repro_torch.autotune import measure
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
@@ -35,6 +36,9 @@ from repro_torch.kernels import rgcsr_spmv as RG
 from repro_torch.kernels import sell_spmv as SE
 from repro_torch.kernels.pack import pack_matrix, to_device
 from repro_torch.kernels.ref import decode_ref
+from repro_torch.launch import serve
+from repro_torch.models import api
+from repro_torch.serving.engine import Engine
 from repro_torch.serving.sparse_linear import SparseLinear
 from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES
 from repro_torch.sparse.formats import CSR
@@ -1046,6 +1050,116 @@ def test_cpu_measured_decision_is_not_served_on_card(tmp_path):
     assert on_cpu.measured_time > 0 and on_card.measured_time > 0
     name = torch.cuda.get_device_name(0)
     assert any(k.endswith(f":cuda:{name}") for k in cache._load())
+
+
+@pytest.mark.gpu
+def test_engine_pooled_equals_sequential_with_compressed_head_on_card():
+    """SmolLM-135M's smoke config on the card: a pooled engine (``slots=4``,
+    one ``dtans_spmm`` launch a step and nothing else) gives each request
+    the tokens a ``slots=1`` engine gives it (one ``dtans_spmv`` a
+    step)."""
+    _need_card()
+    cfg = configs.get_smoke("smollm-135m").with_(vocab=64)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+    head = Engine.compress_lm_head(model, sparsity=0.6, value_bits=5,
+                                   lane_width=32)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 64, size=n) for n in (1, 3, 7, 12, 5, 2)]
+    outs, counts = [], []
+    for slots in (4, 1):
+        eng = Engine(model, slots=slots, max_seq=32, sparse_head=head,
+                     metrics=obs.MetricsRegistry())
+        K.reset_launches()
+        reqs = [eng.submit(p, 5) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        steps = eng.metrics.counter("engine.steps_total").value
+        counts.append({k: v for k, v in K.launches.items() if v})
+        assert counts[-1] == {"dtans_spmm" if slots > 1 else "dtans_spmv":
+                              steps}, counts
+        outs.append([list(r.out) for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+def test_moe_engine_pooled_equals_sequential_on_card():
+    """qwen3-moe's smoke config through `Engine` on the card with a
+    compressed head: the pooled engine (``slots=4``) gives each request
+    the tokens a ``slots=1`` engine gives it. The capacity factor is
+    raised to E / top_k, so that no assignment is dropped at 4 tokens a
+    step: where assignments drop, a token's output depends on the other
+    tokens of its step, in the reference too."""
+    _need_card()
+    cfg = configs.get_smoke("qwen3-moe-30b-a3b")
+    cfg = cfg.with_(vocab=64, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(1),
+                            device="cuda")
+    head = Engine.compress_lm_head(model, sparsity=0.6, value_bits=5,
+                                   lane_width=32)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 64, size=n) for n in (1, 3, 7, 12, 5, 2)]
+    outs = []
+    for slots in (4, 1):
+        eng = Engine(model, slots=slots, max_seq=32, sparse_head=head,
+                     metrics=obs.MetricsRegistry())
+        K.reset_launches()
+        reqs = [eng.submit(p, 5) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        steps = eng.metrics.counter("engine.steps_total").value
+        counts = {k: v for k, v in K.launches.items() if v}
+        assert counts == {"dtans_spmm" if slots > 1 else "dtans_spmv":
+                          steps}, counts
+        assert all(r.done for r in reqs)
+        outs.append([list(r.out) for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b"])
+def test_pooled_decode_step_reads_nothing_back_on_card(arch):
+    """A pooled decode step with an inactive slot captures into a CUDA
+    graph: capture fails if anything in the step waits on the card (a
+    `.item()`, a `bincount`, a boolean mask). Its replay gives the eager
+    step's hidden states."""
+    _need_card()
+    model = api.build_model(configs.get_smoke(arch),
+                            generator=torch.Generator().manual_seed(2),
+                            device="cuda")
+    toks = torch.tensor([[3], [0], [5], [9]], device="cuda")
+    pos = torch.tensor([4, -1, 0, 7], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        cache = model.make_decode_cache(4, 16, dtype=torch.float32)
+        cache["k"].normal_()
+        cache["v"].normal_()
+        start = {n: c.clone() for n, c in cache.items()}
+        eager, _ = model.decode_hidden(cache, toks, pos)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            model.decode_hidden(cache, toks, pos)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            hidden, _ = model.decode_hidden(cache, toks, pos)
+        for n in cache:
+            cache[n].copy_(start[n])
+        g.replay()
+        torch.cuda.synchronize()
+    torch.testing.assert_close(hidden, eager, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_serve_launcher_runs_on_card(capsys):
+    _need_card()
+    reqs = serve.main(["--arch", "smollm-135m", "--smoke", "--requests",
+                       "5", "--max-new-tokens", "4", "--sparse-head",
+                       "--device", "cuda"])
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    out = capsys.readouterr().out
+    assert "served 5/5 requests" in out
+    assert torch.cuda.get_device_name(0) in out
 
 
 def _fake_nvcc(tmp_path, body: str) -> str:
