@@ -84,6 +84,22 @@ Phases, each raising on failure (no phase falls back to the CPU):
    around the head (50 steps a head, the heads taking turns; percentiles
    10 / 50 / 90), beside each part's device time alone and its launches
    (the nodes of a CUDA graph of it).
+4h. the ssm family at full width: mamba2-130m (24 SSM layers, d_model
+   768, d_inner 1536, 24 heads of 64, state 128, conv 4, chunk 256, vocab
+   50280, tied; attention-free; float32 where the config says bfloat16,
+   TF32 off), weights from a generator seeded `SEED`, nothing cut. Its
+   head compressed by ``Engine.compress_lm_head`` at ``from_dense``'s
+   defaults (a host encode of ~7.7 M nonzeros) serves `SSM_PROMPTS`
+   (4g's, the last 301 tokens long, so its prefill runs two chunks of 256,
+   the second padded; ``max_seq=320``)
+   through the same three engines and checks as 4g (`_serve_and_check`:
+   ``dtans_spmm`` launches equal to the pooled steps, ``dtans_spmv`` to
+   the sequential ones, pooled == sequential, logits against the decoded
+   head and the plain path), and the same split of a pooled step; the
+   dense f32 head (154.4 MB) exceeds the 50 MB L2, the compressed one
+   fits. The long prompt's 300-token chunked prefill is held against 299
+   single-token steps over the same tokens (last logits within 1e-3 of
+   their largest |logit|, argmax equal) and timed.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -1356,11 +1372,11 @@ def _smollm(w: np.ndarray):
     return model
 
 
-def _serve_engine(model, head, slots: int, prompts: list,
+def _serve_engine(model, head, slots: int, prompts: list, max_seq: int,
                   record=None) -> tuple:
     """(engine, requests, seconds) of serving ``prompts`` to the end;
     ``record`` sees each step's (hidden, logits) of a compressed head."""
-    eng = Engine(model, slots=slots, max_seq=ENGINE_MAX_SEQ,
+    eng = Engine(model, slots=slots, max_seq=max_seq,
                  sparse_head=head, metrics=obs.MetricsRegistry(),
                  device="cuda")
     if record is not None:
@@ -1428,7 +1444,7 @@ def _graph_nodes(fn) -> dict | None:
     return {"total": n.value, **kinds}
 
 
-def _step_split(model, heads: dict, prompts: list) -> dict:
+def _step_split(model, heads: dict, prompts: list, max_seq: int) -> dict:
     """Pooled steps of ``ENGINE_SLOTS`` live requests, the heads of
     ``heads`` taking turns step by step, each step split by CUDA events
     around `decode_hidden` and around the head and ending in the engine's
@@ -1436,7 +1452,7 @@ def _step_split(model, heads: dict, prompts: list) -> dict:
     of warm-up; the 10th, 50th and 90th percentiles of each part). Beside
     them each part's device time alone (a CUDA graph of it, `_graph_runs`;
     None where capture fails) and its launches (`_graph_nodes`)."""
-    eng = Engine(model, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+    eng = Engine(model, slots=ENGINE_SLOTS, max_seq=max_seq,
                  metrics=obs.MetricsRegistry(), device="cuda")
     for p in prompts[:ENGINE_SLOTS]:
         eng.submit(p, ENGINE_MAX_NEW)
@@ -1479,14 +1495,112 @@ def _step_split(model, heads: dict, prompts: list) -> dict:
     return out
 
 
+def _serve_and_check(tag: str, model, head: SparseLinear, prompts: list,
+                     max_seq: int = ENGINE_MAX_SEQ) -> dict:
+    """Serve ``prompts`` through ``model`` with the compressed ``head``:
+    pooled (``slots=4``, the head's SpMM kernel) and sequential
+    (``slots=1``, its SpMV kernel), token for token the same, each
+    engine's launches counted from 0 and each a decode step's one head
+    launch; one pooled step's logits against the decoded head and,
+    bitwise, the plain path; then a dense-head engine on the same
+    requests (no kernel launched), and both engines' step times split
+    between the model and the head. Every engine has ``max_seq``. Logs
+    under ``tag``; returns the numbers."""
+    d, vocab = model.cfg.d_model, model.cfg.vocab
+    _serve_engine(model, head, ENGINE_SLOTS, prompts[:2], max_seq)  # warm-up
+
+    seen: list = []
+    _reset_all()
+    pooled, preqs, psecs = _serve_engine(model, head, ENGINE_SLOTS, prompts,
+                                         max_seq, record=seen)
+    pooled_counts = {k: v for k, v in _all_launches().items() if v}
+    _reset_all()
+    seq, sreqs, ssecs = _serve_engine(model, head, 1, prompts, max_seq)
+    seq_counts = {k: v for k, v in _all_launches().items() if v}
+    _reset_all()
+    dense, dreqs, dsecs = _serve_engine(model, None, ENGINE_SLOTS, prompts,
+                                        max_seq)
+    dense_counts = {k: v for k, v in _all_launches().items() if v}
+    stats = {"compressed": _engine_stats(pooled, preqs, psecs),
+             "sequential": _engine_stats(seq, sreqs, ssecs),
+             "dense": _engine_stats(dense, dreqs, dsecs)}
+    log(f"[{tag}] launches: pooled {pooled_counts}, sequential "
+        f"{seq_counts}, dense head {dense_counts}")
+    assert all(r.done and len(r.out) == ENGINE_MAX_NEW
+               for r in preqs + sreqs + dreqs)
+    assert pooled_counts == {"dtans_spmm": stats["compressed"]["steps"]}, \
+        pooled_counts
+    assert seq_counts == {"dtans_spmv": stats["sequential"]["steps"]}, \
+        seq_counts
+    assert dense_counts == {}, dense_counts
+    for p, s in zip(preqs, sreqs):
+        assert p.out == s.out, (f"prompt of {len(p.prompt)}: pooled "
+                                f"{p.out} != sequential {s.out}")
+    agree = sum(p.out == d.out for p, d in zip(preqs, dreqs))
+    log(f"[{tag}] {len(preqs)} requests x {ENGINE_MAX_NEW} tokens: pooled "
+        f"== sequential token for token; the dense head's streams agree on "
+        f"{agree} of {len(preqs)} requests (the compressed head is pruned)")
+
+    hidden, logits = seen[0]
+    assert hidden.shape == (ENGINE_SLOTS, 1, d)
+    assert logits.shape == (ENGINE_SLOTS, 1, vocab)
+    assert torch.isfinite(logits).all()
+    ref = head.apply_dense_reference(hidden)
+    dm = to_device(head.packed, "cuda")
+    plain = K.dtans_spmm_plain(dm, hidden.reshape(-1, d).T.contiguous(),
+                               None).reshape(-1, ENGINE_SLOTS)[:vocab]
+    plain = plain.T.reshape(logits.shape)
+    torch.cuda.synchronize()
+    e_ref = (logits - ref).abs().max().item()
+    assert torch.allclose(logits, ref, rtol=1e-4, atol=1e-5), e_ref
+    assert torch.equal(logits, plain), "pooled logits != plain path"
+    log(f"[{tag}] first pooled step: |logits - decoded head| = {e_ref:.3e} "
+        f"(rtol 1e-4, atol 1e-5), bitwise the plain path")
+
+    split = _step_split(model, {
+        "compressed": head.apply,
+        "dense": lambda h: layers.lm_head(model.embed, h)}, prompts,
+        max_seq)
+    for name in ("compressed", "dense", "sequential"):
+        s = stats[name]
+        log(f"[{tag}] {name:10s} one run of {len(prompts)} requests "
+            f"(smoke reading): {s['tokens']} tokens in "
+            f"{s['seconds']:.3f} s = {s['tokens_per_s']:.1f} tok/s, "
+            f"{s['steps']} steps; median decode {s['decode_ms_p50']:.3f} ms, "
+            f"step {s['step_ms_p50']:.3f} ms, TTFT {s['ttft_ms_p50']:.3f} ms, "
+            f"prefill {s['prefill_ms_p50']:.3f} ms | {card()}")
+
+    def pct(d):
+        return f"{d['p50']:.4f} [{d['p10']:.4f}, {d['p90']:.4f}]"
+    g = split["model_graph_ms"]
+    log(f"[{tag}] model's pooled step alone (CUDA graph): "
+        f"{'not measured' if g is None else f'{g:.4f} ms'}, graph nodes "
+        f"{split['model_nodes'] or 'not counted'} | {card()}")
+    for name, s in split["heads"].items():
+        gh = s["head_graph_ms"]
+        log(f"[{tag}] {name:10s} {STEP_REPS} pooled steps, heads taking "
+            f"turns, ms p50 [p10, p90] (events): model {pct(s['model_ms'])}"
+            f" + head {pct(s['head_ms'])}, head "
+            f"{s['head_ms']['p50'] / (s['model_ms']['p50'] + s['head_ms']['p50']):.1%}"
+            f"; wall {pct(s['wall_ms'])}; head alone (graph): "
+            f"{'not measured' if gh is None else f'{gh:.4f} ms'}, nodes "
+            f"{s['head_nodes'] or 'not counted'} | {card()}")
+    return {"stats": stats, "split": split, "dense_agree": agree,
+            "logits_max_abs_err": e_ref,
+            "launches": {"pooled": pooled_counts, "sequential": seq_counts}}
+
+
+def _engine_launches(run: dict) -> dict:
+    """Every kernel's launches in a phase's pooled and sequential runs."""
+    c = run["launches"]
+    return {k: c["pooled"].get(k, 0) + c["sequential"].get(k, 0)
+            for k in _all_launches()}
+
+
 def phase_engine(sl: SparseLinear) -> None:
     """SmolLM-135M at full width serves `ENGINE_PROMPTS` through the
-    port's `Engine` with phase 4's layer as its compressed head: pooled
-    (``slots=4``, the head's SpMM kernel) and sequential (``slots=1``, its
-    SpMV kernel), token for token the same; one pooled step's logits
-    against the decoded head and, bitwise, the plain path; then a
-    dense-head engine on the same requests, and both engines' step times
-    split between the model and the head."""
+    port's `Engine` with phase 4's layer as its compressed head
+    (`_serve_and_check`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
@@ -1502,90 +1616,109 @@ def phase_engine(sl: SparseLinear) -> None:
         f"f32, and the token-identity check needs f32 without TF32)")
     prng = np.random.default_rng(SEED + 7)
     prompts = [prng.integers(0, VOCAB, size=n) for n in ENGINE_PROMPTS]
-    _serve_engine(model, sl, ENGINE_SLOTS, prompts[:2])     # warm-up
+    run = _serve_and_check("engine", model, sl, prompts)
+    RESULTS["engine"] = {"build_s": build_s, **run}
+    RESULTS["launches_engine"] = _engine_launches(run)
 
-    seen: list = []
-    _reset_all()
-    pooled, preqs, psecs = _serve_engine(model, sl, ENGINE_SLOTS, prompts,
-                                         record=seen)
-    pooled_counts = {k: v for k, v in _all_launches().items() if v}
-    _reset_all()
-    seq, sreqs, ssecs = _serve_engine(model, sl, 1, prompts)
-    seq_counts = {k: v for k, v in _all_launches().items() if v}
-    _reset_all()
-    dense, dreqs, dsecs = _serve_engine(model, None, ENGINE_SLOTS, prompts)
-    dense_counts = {k: v for k, v in _all_launches().items() if v}
-    stats = {"compressed": _engine_stats(pooled, preqs, psecs),
-             "sequential": _engine_stats(seq, sreqs, ssecs),
-             "dense": _engine_stats(dense, dreqs, dsecs)}
-    log(f"[engine] launches: pooled {pooled_counts}, sequential "
-        f"{seq_counts}, dense head {dense_counts}")
-    assert all(r.done and len(r.out) == ENGINE_MAX_NEW
-               for r in preqs + sreqs + dreqs)
-    assert pooled_counts == {"dtans_spmm": stats["compressed"]["steps"]}, \
-        pooled_counts
-    assert seq_counts == {"dtans_spmv": stats["sequential"]["steps"]}, \
-        seq_counts
-    assert dense_counts == {}, dense_counts
-    for p, s in zip(preqs, sreqs):
-        assert p.out == s.out, (f"prompt of {len(p.prompt)}: pooled "
-                                f"{p.out} != sequential {s.out}")
-    agree = sum(p.out == d.out for p, d in zip(preqs, dreqs))
-    log(f"[engine] {len(preqs)} requests x {ENGINE_MAX_NEW} tokens: pooled "
-        f"== sequential token for token; the dense head's streams agree on "
-        f"{agree} of {len(preqs)} requests (the compressed head is pruned)")
 
-    hidden, logits = seen[0]
-    assert hidden.shape == (ENGINE_SLOTS, 1, D_MODEL)
-    assert logits.shape == (ENGINE_SLOTS, 1, VOCAB)
-    assert torch.isfinite(logits).all()
-    ref = sl.apply_dense_reference(hidden)
-    dm = to_device(sl.packed, "cuda")
-    plain = K.dtans_spmm_plain(dm, hidden.reshape(-1, D_MODEL).T.contiguous(),
-                               None).reshape(-1, ENGINE_SLOTS)[:VOCAB]
-    plain = plain.T.reshape(logits.shape)
+# ---------------------------------------------------------------------------
+# 4h. the ssm family at full width
+# ---------------------------------------------------------------------------
+
+# 4g's prompts with the last one 301 tokens long: its 300-token prefill is
+# two chunks of 256, the second padded, so the scan carries a state across
+# chunks at the real widths
+SSM_PROMPTS = ENGINE_PROMPTS[:-1] + (301,)
+SSM_MAX_SEQ = 320
+SSM_LONG_REL = 1e-3   # chunked vs token-by-token, of the largest |logit|
+
+
+def _mamba2():
+    """mamba2-130m at full width in float32 (nothing cut), weights from a
+    generator seeded `SEED`."""
+    cfg = configs.get("mamba2-130m").with_(dtype="float32")
+    assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+            cfg.ssm_headdim, cfg.ssm_state, cfg.conv_width, cfg.ssm_chunk,
+            cfg.vocab, cfg.tie_embeddings, cfg.attn_every) == \
+        (24, 768, 1536, 24, 64, 128, 4, 256, 50280, True, 0), cfg
+    return api.build_model(
+        cfg, generator=torch.Generator().manual_seed(SEED), device="cuda")
+
+
+def _long_prefill(model, prompt: np.ndarray) -> dict:
+    """The chunked prefill of ``prompt`` (several chunks, the last padded)
+    against the single-token recurrence over the same tokens: the last
+    position's logits must agree to within `SSM_LONG_REL` of their largest
+    |logit|, with the same argmax. Also times the prefill (CUDA events,
+    median of 5 after a warm-up)."""
+    S = len(prompt)
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    with torch.inference_mode():
+        want, _, _ = model.prefill({"inputs": toks})
+        _, cache, _ = model.prefill({"inputs": toks[:, :1]})
+        for t in range(1, S):
+            got, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+        top = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        same = bool((got.argmax(-1) == want.argmax(-1)).all())
+        ms = []
+        for rep in range(6):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            model.prefill({"inputs": toks})
+            ev[1].record()
+            torch.cuda.synchronize()
+            if rep:
+                ms.append(ev[0].elapsed_time(ev[1]))
+    chunk = min(model.cfg.ssm_chunk, S)
+    assert err <= SSM_LONG_REL * top and same, (err, top, same)
+    log(f"[ssm] prefill of {S} tokens ({-(-S // chunk)} chunks of {chunk}, "
+        f"{(-S) % chunk} padded) against {S - 1} single-token steps: "
+        f"|logits diff| {err:.3e} = {err / top:.2e} of max |logit| "
+        f"{top:.3f} (limit {SSM_LONG_REL:g}), argmax equal; prefill "
+        f"{statistics.median(ms):.3f} ms (median of 5, events) | {card()}")
+    return {"tokens": S, "max_abs_err": err, "max_abs_logit": top,
+            "prefill_ms": statistics.median(ms), "prefill_runs_ms": ms}
+
+
+def phase_engine_ssm() -> None:
+    """mamba2-130m at full width (attention-free) serves `SSM_PROMPTS`
+    through the port's `Engine` with its tied head compressed by
+    `Engine.compress_lm_head` at `from_dense`'s defaults
+    (`_serve_and_check`); its longest prompt's chunked prefill is held
+    against the recurrence (`_long_prefill`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model = _mamba2()
     torch.cuda.synchronize()
-    e_ref = (logits - ref).abs().max().item()
-    assert torch.allclose(logits, ref, rtol=1e-4, atol=1e-5), e_ref
-    assert torch.equal(logits, plain), "pooled logits != plain path"
-    log(f"[engine] first pooled step: |logits - decoded head| = {e_ref:.3e} "
-        f"(rtol 1e-4, atol 1e-5), bitwise the plain path")
-
-    split = _step_split(model, {
-        "compressed": sl.apply,
-        "dense": lambda h: layers.lm_head(model.embed, h)}, prompts)
-    for name in ("compressed", "dense", "sequential"):
-        s = stats[name]
-        log(f"[engine] {name:10s} one run of {len(prompts)} requests "
-            f"(smoke reading): {s['tokens']} tokens in "
-            f"{s['seconds']:.3f} s = {s['tokens_per_s']:.1f} tok/s, "
-            f"{s['steps']} steps; median decode {s['decode_ms_p50']:.3f} ms, "
-            f"step {s['step_ms_p50']:.3f} ms, TTFT {s['ttft_ms_p50']:.3f} ms, "
-            f"prefill {s['prefill_ms_p50']:.3f} ms | {card()}")
-
-    def pct(d):
-        return f"{d['p50']:.4f} [{d['p10']:.4f}, {d['p90']:.4f}]"
-    g = split["model_graph_ms"]
-    log(f"[engine] model's pooled step alone (CUDA graph): "
-        f"{'not measured' if g is None else f'{g:.4f} ms'}, graph nodes "
-        f"{split['model_nodes'] or 'not counted'} | {card()}")
-    for name, s in split["heads"].items():
-        gh = s["head_graph_ms"]
-        log(f"[engine] {name:10s} {STEP_REPS} pooled steps, heads taking "
-            f"turns, ms p50 [p10, p90] (events): model {pct(s['model_ms'])}"
-            f" + head {pct(s['head_ms'])}, head "
-            f"{s['head_ms']['p50'] / (s['model_ms']['p50'] + s['head_ms']['p50']):.1%}"
-            f"; wall {pct(s['wall_ms'])}; head alone (graph): "
-            f"{'not measured' if gh is None else f'{gh:.4f} ms'}, nodes "
-            f"{s['head_nodes'] or 'not counted'} | {card()}")
-    RESULTS["engine"] = {"build_s": build_s, "stats": stats,
-                         "split": split, "dense_agree": agree,
-                         "logits_max_abs_err": e_ref,
-                         "launches": {"pooled": pooled_counts,
-                                      "sequential": seq_counts}}
-    RESULTS["launches_engine"] = {
-        k: pooled_counts.get(k, 0) + seq_counts.get(k, 0)
-        for k in _all_launches()}
+    build_s = time.perf_counter() - t0
+    cfg = model.cfg
+    log(f"[ssm] mamba2-130m full width ({cfg.n_layers} SSM layers, d_model "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of "
+        f"{cfg.ssm_headdim}, state {cfg.ssm_state}, conv {cfg.conv_width}, "
+        f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, tied), "
+        f"{api.param_count(model):,} parameters, built in {build_s:.1f} s; "
+        f"dtype float32 in place of the config's bfloat16")
+    t0 = time.perf_counter()
+    head = Engine.compress_lm_head(model)
+    encode_s = time.perf_counter() - t0
+    dense_mb = cfg.vocab * cfg.d_model * 4 / 1e6
+    log(f"[ssm] head W^T {cfg.vocab}x{cfg.d_model} f32 "
+        f"({dense_mb:.1f} MB dense, {_l2_note(cfg.vocab * cfg.d_model * 4)})"
+        f" -> nnz {head.mat.nnz:,}, {head.compressed_bytes:,} B "
+        f"({head.compression_vs_dense:.2f}x vs dense, "
+        f"{_l2_note(head.compressed_bytes)}); compress_lm_head "
+        f"{encode_s:.1f} s on the host")
+    prng = np.random.default_rng(SEED + 7)
+    prompts = [prng.integers(0, cfg.vocab, size=n) for n in SSM_PROMPTS]
+    run = _serve_and_check("ssm", model, head, prompts, SSM_MAX_SEQ)
+    long = _long_prefill(model, prompts[-1][:-1])
+    RESULTS["engine_ssm"] = {"build_s": build_s, "encode_s": encode_s,
+                             "long_prefill": long,
+                             "nnz": head.mat.nnz,
+                             "compressed_bytes": head.compressed_bytes,
+                             **run}
+    RESULTS["launches_engine_ssm"] = _engine_launches(run)
 
 
 # ---------------------------------------------------------------------------
@@ -1926,6 +2059,8 @@ def main() -> int:
     done("4f")
     phase_engine(sl)
     done("4g")
+    phase_engine_ssm()
+    done("4h")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -1957,7 +2092,8 @@ def main() -> int:
                 RESULTS["autotune"]["launches_selection"].get(name, 0),
             "launches_calibrate":
                 RESULTS["calibration"]["launches"].get(name, 0),
-            "launches_engine": RESULTS["launches_engine"][name]})
+            "launches_engine": RESULTS["launches_engine"][name],
+            "launches_engine_ssm": RESULTS["launches_engine_ssm"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -18,9 +18,9 @@ fused contraction.
 (`PackedSELL`, `PackedRGCSR`, `PackedBCSR`) of either package, and the
 ``*_from_arrays`` pair rebuilds this package's pack and uploads it.
 
-`model_from_jax_params` carries a transformer's weights across: the JAX
-package's parameter tree, as numpy arrays, becomes this package's
-`Transformer` with the same weights.
+`model_from_jax_params` carries a model's weights across: the JAX
+package's parameter tree, as numpy arrays, becomes this package's model of
+the same family (`api.build_model`) with the same weights.
 """
 
 from __future__ import annotations
@@ -216,24 +216,31 @@ def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda"):
 
     The reference stacks each layer leaf over the layers (``vmap``); leaf
     ``layers.attn.wq`` of shape (n_layers, d, H*hd) becomes
-    ``layers.<i>.attn.wq`` for each i. A tied config takes no ``head``,
+    ``layers.<i>.attn.wq`` for each i, and so do the encdec family's
+    ``enc_layers.*`` and ``dec_layers.*`` over ``n_enc_layers`` and
+    ``n_dec_layers`` (each ``or n_layers``); the hybrid family's one
+    ``shared_attn`` block is not stacked. A tied config takes no ``head``,
     an untied one needs it, and a moe config's ``router``, ``wi``, ``wg``,
     ``wo`` carry across the same way: every weight of the model must be
     given exactly once, at its shape, or this raises. bfloat16 leaves go
-    through float32 (exactly)."""
+    through float32 (exactly); float32 leaves (the SSM's ``A_log``, ``D``,
+    ``dt_bias``) stay float32."""
     model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
                             device=device)
+    stacks = {"layers": cfg.n_layers,
+              "enc_layers": cfg.n_enc_layers or cfg.n_layers,
+              "dec_layers": cfg.n_dec_layers or cfg.n_layers}
     state = {}
     for name, a in _flatten(params).items():
         if a.dtype.name == "bfloat16":     # ml_dtypes: no torch view
             a = a.astype(np.float32)
-        if name.startswith("layers."):
-            if a.shape[0] != cfg.n_layers:
+        stack, _, rest = name.partition(".")
+        if stack in stacks:
+            if a.shape[0] != stacks[stack]:
                 raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
-                                 f"config has {cfg.n_layers}")
-            rest = name[len("layers."):]
-            for i in range(cfg.n_layers):
-                state[f"layers.{i}.{rest}"] = torch.from_numpy(
+                                 f"config has {stacks[stack]}")
+            for i in range(stacks[stack]):
+                state[f"{stack}.{i}.{rest}"] = torch.from_numpy(
                     np.array(a[i]))
         else:
             state[name] = torch.from_numpy(np.array(a))

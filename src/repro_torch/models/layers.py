@@ -167,8 +167,10 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor,
 
 
 class Attention(nn.Module):
-    """Causal GQA self-attention; weights ``wq``, ``wk``, ``wv``
-    (d, heads x hd) and ``wo`` (H x hd, d)."""
+    """GQA attention; weights ``wq``, ``wk``, ``wv`` (d, heads x hd) and
+    ``wo`` (H x hd, d). Causal self-attention by default; ``causal=False``
+    (an encoder) drops the mask, and ``kv=`` (cross-attention) takes keys
+    and values from another sequence, unrotated and unmasked."""
 
     def __init__(self, cfg: ArchConfig, generator: torch.Generator, *,
                  device):
@@ -181,11 +183,16 @@ class Attention(nn.Module):
         self.wv = _dense_init(generator, (d, self.Hk * hd), dt, device)
         self.wo = _dense_init(generator, (self.H * hd, d), dt, device)
 
-    def forward(self, x, rot, *, kv_cache=None, write=None,
-                return_cache=False):
+    def forward(self, x, rot, *, causal=True, kv=None, kv_cache=None,
+                write=None, return_cache=False):
         """x: (B, S, d); ``rot``: `rope_tables` of the positions of x, for
         queries and keys alike (the reference rotates a cached step's
         keys at ``cache_pos``, which its callers set to those positions).
+
+        ``kv``: cross-attention memory (B, Sk, d); its keys and values are
+        projected from it, neither q nor k is rotated (``rot`` is unused)
+        and no key is masked, as in the reference (``causal and kv is
+        None``).
 
         ``kv_cache``: optional dict {k, v: (B, Smax, Hk, hd)}, written IN
         PLACE at ``write`` (a `CacheWrite`; the step attends the keys it
@@ -194,9 +201,13 @@ class Attention(nn.Module):
         call's {k, v}. Returns (out, cache or None)."""
         H, Hk, hd = self.H, self.Hk, self.cfg.hd
         B, S, _ = x.shape
-        q = apply_rope(matmul(x, self.wq).reshape(B, S, H, hd), rot)
-        k = apply_rope(matmul(x, self.wk).reshape(B, S, Hk, hd), rot)
-        v = matmul(x, self.wv).reshape(B, S, Hk, hd)
+        src = x if kv is None else kv
+        q = matmul(x, self.wq).reshape(B, S, H, hd)
+        k = matmul(src, self.wk).reshape(B, src.shape[1], Hk, hd)
+        v = matmul(src, self.wv).reshape(B, src.shape[1], Hk, hd)
+        if kv is None:                   # self-attention: rotary embedding
+            q, k = apply_rope(q, rot), apply_rope(k, rot)
+        causal = causal and kv is None
 
         new_cache = {"k": k, "v": v} if return_cache else None
         if kv_cache is not None:
@@ -222,14 +233,15 @@ class Attention(nn.Module):
         elif S > FLASH_THRESHOLD:
             # long-sequence prefill: blocked online-softmax attention
             out = _flash_attention(q, _repeat_kv(k, n_rep),
-                                   _repeat_kv(v, n_rep), causal=True)
+                                   _repeat_kv(v, n_rep), causal=causal)
         else:
             kf, vf = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
             logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q),
                                   _f32(kf)) * scale
-            qi = torch.arange(S, device=x.device)[:, None]
-            ki = torch.arange(Sk, device=x.device)[None, :]
-            logits = torch.where((ki <= qi)[None, None], logits, NEG)
+            if causal:
+                qi = torch.arange(S, device=x.device)[:, None]
+                ki = torch.arange(Sk, device=x.device)[None, :]
+                logits = torch.where((ki <= qi)[None, None], logits, NEG)
             probs = torch.softmax(logits, dim=-1)
             out = torch.einsum("bhqk,bkhd->bqhd", probs,
                                _f32(vf)).to(x.dtype)
@@ -341,3 +353,15 @@ class Embedding(nn.Module):
 def lm_head(embedding: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32 (the reference's ``preferred_element_type``)."""
     return _f32(x) @ _f32(embedding.head_weight())
+
+
+# --- pooled caches -----------------------------------------------------------
+
+def insert_slot(pool: torch.Tensor, req: torch.Tensor, slot: int,
+                axis: int) -> None:
+    """Write ``req`` (batch size 1 on ``axis``) into batch slot ``slot`` of
+    ``pool``, in place and cast to the pool's dtype, at offset 0 on every
+    other axis (`dynamic_update_slice_in_dim`'s semantics)."""
+    at = tuple(slice(0, n) for n in req.shape)
+    at = at[:axis] + (slice(slot, slot + req.shape[axis]),) + at[axis + 1:]
+    pool[at] = req.to(pool.dtype)

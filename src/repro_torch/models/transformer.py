@@ -17,8 +17,8 @@ from torch import nn
 from repro_torch.kernels.pack import check_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
-                                       cache_write, lm_head, pos_vector,
-                                       rope_tables)
+                                       cache_write, insert_slot, lm_head,
+                                       pos_vector, rope_tables)
 from repro_torch.models.moe import MoE
 
 
@@ -172,6 +172,5 @@ class Transformer(nn.Module):
         the pool overwrites the slot's whole line, so no K/V of its
         previous occupant survives."""
         for n, p in pool.items():
-            r = req[n]
-            p[:, slot:slot + r.shape[1], :r.shape[2]] = r.to(p.dtype)
+            insert_slot(p, req[n], slot, 1)
         return pool

@@ -132,9 +132,10 @@ class Engine:
         self.pos = np.full(slots, -1, dtype=np.int32)
         self.cache = model.make_decode_cache(slots, max_seq,
                                              dtype=torch.float32)
-        # A zeroed batch-size-1 cache, written into a slot on admission
-        # of a 1-token prompt (no prefill runs, but the slot's state from
-        # its previous occupant must still be cleared).
+        # A zeroed batch-size-1 cache of the model's tree (KV lines, SSM
+        # states and conv tails, encoder memory), written into a slot on
+        # admission of a 1-token prompt (no prefill runs, but the slot's
+        # state from its previous occupant must still be cleared).
         self._blank_slot = model.make_decode_cache(1, max_seq,
                                                    dtype=torch.float32)
 
@@ -235,6 +236,13 @@ class Engine:
         if L > 1:
             batch = {"inputs": torch.as_tensor(r.prompt[None, :-1],
                                                device=self.device)}
+            if self.cfg.family == "encdec":
+                # No frame frontend flows through `submit`; a zero frame
+                # block matches the zero `memory` of the pooled cache
+                # (the encoder maps zeros to zeros).
+                batch["frontend"] = torch.zeros(
+                    (1, self.cfg.n_frontend_tokens, self.cfg.d_model),
+                    dtype=torch.float32, device=self.device)
             _, req_cache, _ = self.model.prefill(batch,
                                                  max_seq=self.max_seq)
         else:

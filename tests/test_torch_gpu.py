@@ -1116,13 +1116,32 @@ def test_moe_engine_pooled_equals_sequential_on_card():
     assert outs[0] == outs[1]
 
 
+def _tree_map(fn, tree):
+    """``fn`` over the tensors of a nested cache dict, in the same tree."""
+    if isinstance(tree, dict):
+        return {n: _tree_map(fn, t) for n, t in tree.items()}
+    return fn(tree)
+
+
+def _tree_pairs(a, b):
+    """[(a leaf, b leaf)] of two caches of the same tree."""
+    if isinstance(a, dict):
+        return [p for n in a for p in _tree_pairs(a[n], b[n])]
+    return [(a, b)]
+
+
+FAMILY_ARCHS = ["mamba2-130m", "zamba2-7b", "seamless-m4t-large-v2"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-moe-30b-a3b"]
+                         + FAMILY_ARCHS)
 def test_pooled_decode_step_reads_nothing_back_on_card(arch):
     """A pooled decode step with an inactive slot captures into a CUDA
     graph: capture fails if anything in the step waits on the card (a
     `.item()`, a `bincount`, a boolean mask). Its replay gives the eager
-    step's hidden states."""
+    step's hidden states and cache; the inactive slot keeps its bits in
+    every cache line (KV, SSM state and conv tail, encoder memory)."""
     _need_card()
     model = api.build_model(configs.get_smoke(arch),
                             generator=torch.Generator().manual_seed(2),
@@ -1131,10 +1150,15 @@ def test_pooled_decode_step_reads_nothing_back_on_card(arch):
     pos = torch.tensor([4, -1, 0, 7], dtype=torch.int32, device="cuda")
     with torch.inference_mode():
         cache = model.make_decode_cache(4, 16, dtype=torch.float32)
-        cache["k"].normal_()
-        cache["v"].normal_()
-        start = {n: c.clone() for n, c in cache.items()}
+        _tree_map(lambda t: t.normal_(), cache)
+        start = _tree_map(lambda t: t.clone(), cache)
         eager, _ = model.decode_hidden(cache, toks, pos)
+        after = _tree_map(lambda t: t.clone(), cache)
+        for new, old in _tree_pairs(after, start):
+            axis = 0 if new.ndim == 3 else 1     # x0, memory: batch first
+            assert torch.equal(new.select(axis, 1), old.select(axis, 1))
+        for dst, src in _tree_pairs(cache, start):
+            dst.copy_(src)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -1143,17 +1167,93 @@ def test_pooled_decode_step_reads_nothing_back_on_card(arch):
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             hidden, _ = model.decode_hidden(cache, toks, pos)
-        for n in cache:
-            cache[n].copy_(start[n])
+        for dst, src in _tree_pairs(cache, start):
+            dst.copy_(src)
         g.replay()
         torch.cuda.synchronize()
     torch.testing.assert_close(hidden, eager, rtol=1e-4, atol=1e-5)
+    for got, want in _tree_pairs(cache, after):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.fixture
+def no_tf32():
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = was
 
 
 @pytest.mark.gpu
-def test_serve_launcher_runs_on_card(capsys):
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_card_matches_the_cpu(arch, no_tf32):
+    """The smoke model built on the card and on the CPU from one seeded
+    generator (the same weights): `forward`, `prefill` with every cache
+    leaf and a per-slot `decode_step` agree within rtol 1e-4 / atol 1e-5
+    with TF32 off."""
     _need_card()
-    reqs = serve.main(["--arch", "smollm-135m", "--smoke", "--requests",
+    cfg = configs.get_smoke(arch)
+    models = [api.build_model(cfg, generator=torch.Generator().manual_seed(3),
+                              device=d) for d in ("cpu", "cuda")]
+    rng = np.random.default_rng(14)
+    batch = {"inputs": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (3, 11)).astype(np.int64))}
+    if cfg.family == "encdec":
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (3, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (3, 1)))
+    pos = torch.tensor([11, -1, 9], dtype=torch.int32)
+    outs = []
+    with torch.inference_mode():
+        for m in models:
+            b = {k: v.to(m.device) for k, v in batch.items()}
+            fwd, _ = m.forward(b)
+            last, cache, _ = m.prefill(b, max_seq=16)
+            prefill_cache = _tree_map(lambda t: t.clone(), cache)
+            step, cache = m.decode_step(cache, tok.to(m.device),
+                                        pos.to(m.device))
+            outs.append([fwd, last, step]
+                        + [t for p in _tree_pairs(prefill_cache, cache)
+                           for t in p])
+    for want, got in zip(*outs):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_engine_pooled_equals_sequential_on_card(arch):
+    """Each family's smoke model through `Engine` on the card with a
+    compressed head: ``slots=4`` (one ``dtans_spmm`` a step) gives each
+    request the tokens ``slots=1`` (one ``dtans_spmv`` a step) gives it."""
+    _need_card()
+    cfg = configs.get_smoke(arch)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(4),
+                            device="cuda")
+    head = Engine.compress_lm_head(model, sparsity=0.6, value_bits=5,
+                                   lane_width=32)
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (1, 3, 7, 12, 5)]
+    outs = []
+    for slots in (4, 1):
+        eng = Engine(model, slots=slots, max_seq=24, sparse_head=head,
+                     metrics=obs.MetricsRegistry())
+        K.reset_launches()
+        reqs = [eng.submit(p, 5) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        steps = eng.metrics.counter("engine.steps_total").value
+        counts = {k: v for k, v in K.launches.items() if v}
+        assert counts == {"dtans_spmm" if slots > 1 else "dtans_spmv":
+                          steps}, counts
+        outs.append([list(r.out) for r in reqs])
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-130m"])
+def test_serve_launcher_runs_on_card(arch, capsys):
+    _need_card()
+    reqs = serve.main(["--arch", arch, "--smoke", "--requests",
                        "5", "--max-new-tokens", "4", "--sparse-head",
                        "--device", "cuda"])
     assert all(r.done and len(r.out) == 4 for r in reqs)

@@ -304,15 +304,6 @@ def test_convert_carries_an_untied_head():
                           np.asarray(params["embed"]["head"]))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-7b",
-                                  "seamless-m4t-large-v2"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5b"):
-        api.build_model(configs.get_smoke(arch),
-                        generator=torch.Generator().manual_seed(0),
-                        device="cpu")
-
-
 def test_cuda_model_without_a_card_raises():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
