@@ -100,6 +100,21 @@ Phases, each raising on failure (no phase falls back to the CPU):
    fits. The long prompt's 300-token chunked prefill is held against 299
    single-token steps over the same tokens (last logits within 1e-3 of
    their largest |logit|, argmax equal) and timed.
+4i. the row-sharded head: phase 4's weight built by
+   ``SparseLinear.from_dense(n_shards=4)`` (its four shards of 96 slices
+   encoded on the host; the whole head is not, the layer never needs it).
+   The per-shard loop serves B =
+   1, 4, 64 and 512 bitwise phase 4's layer, 4 launches a pass, and
+   phase 4g's requests through a pooled engine (4 launches a step) with
+   4g's token streams; a pooled step (``decode_hidden`` and the sharded
+   head) captures into one CUDA graph; the sharded head's times beside
+   phase 4's. Then the same plan (its host packs, not encoded again) on
+   4 gloo ranks on this one card (NCCL refuses two ranks on one GPU), each
+   uploading only its own shard, bitwise the loop path at B = 1 and 64 on
+   every rank, with the wall time of a pass; and every registered format's
+   plan of a phase-3 matrix on 2 and 4 ranks against the format's
+   single-device runner (bitwise for the kernel-backed formats; csr / coo
+   / dense, which add in no fixed order on the card, within `RTOL`).
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -135,7 +150,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-sys.path.append(str(ROOT / "tests"))  # hand_made_packs
+sys.path.append(str(ROOT / "tests"))  # hand_made_packs, torch_shard_ranks
 
 import torch  # noqa: E402
 
@@ -144,7 +159,7 @@ from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
 from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix  # noqa: E402
-from repro_torch.kernels import _build, ops, tiling  # noqa: E402
+from repro_torch.kernels import _build, ops, shard_ops, tiling  # noqa: E402
 from repro_torch.kernels import bcsr_spmv as BC  # noqa: E402
 from repro_torch.kernels import dtans_decode as DD  # noqa: E402
 from repro_torch.kernels import dtans_spmv as K  # noqa: E402
@@ -152,6 +167,7 @@ from repro_torch.kernels import rgcsr_spmv as RG  # noqa: E402
 from repro_torch.kernels import sell_spmv as SE  # noqa: E402
 from repro_torch.kernels.pack import pack_matrix, to_device  # noqa: E402
 from repro_torch.kernels.ref import decode_ref  # noqa: E402
+from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
@@ -163,6 +179,7 @@ from repro_torch.sparse import registry  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
 
 from hand_made_packs import HAND_MADE  # noqa: E402
+from torch_shard_ranks import rank_spmm  # noqa: E402
 
 SEED = 0
 D_MODEL, VOCAB = 576, 49152          # src/repro/configs/smollm_135m.py
@@ -1587,7 +1604,8 @@ def _serve_and_check(tag: str, model, head: SparseLinear, prompts: list,
             f"{s['head_nodes'] or 'not counted'} | {card()}")
     return {"stats": stats, "split": split, "dense_agree": agree,
             "logits_max_abs_err": e_ref,
-            "launches": {"pooled": pooled_counts, "sequential": seq_counts}}
+            "launches": {"pooled": pooled_counts, "sequential": seq_counts},
+            "streams": [[int(t) for t in r.out] for r in preqs]}
 
 
 def _engine_launches(run: dict) -> dict:
@@ -1597,10 +1615,11 @@ def _engine_launches(run: dict) -> dict:
             for k in _all_launches()}
 
 
-def phase_engine(sl: SparseLinear) -> None:
+def phase_engine(sl: SparseLinear) -> tuple:
     """SmolLM-135M at full width serves `ENGINE_PROMPTS` through the
     port's `Engine` with phase 4's layer as its compressed head
-    (`_serve_and_check`)."""
+    (`_serve_and_check`). Returns the model, the prompts and the pooled
+    engine's token streams, for phase 4i."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED)
     w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
@@ -1619,6 +1638,7 @@ def phase_engine(sl: SparseLinear) -> None:
     run = _serve_and_check("engine", model, sl, prompts)
     RESULTS["engine"] = {"build_s": build_s, **run}
     RESULTS["launches_engine"] = _engine_launches(run)
+    return model, prompts, run["streams"]
 
 
 # ---------------------------------------------------------------------------
@@ -1719,6 +1739,232 @@ def phase_engine_ssm() -> None:
                              "compressed_bytes": head.compressed_bytes,
                              **run}
     RESULTS["launches_engine_ssm"] = _engine_launches(run)
+
+
+# ---------------------------------------------------------------------------
+# 4i. the row-sharded head
+# ---------------------------------------------------------------------------
+
+HEAD_SHARDS = 4
+SHARD_BATCHES = (1, 4, 64, 512)
+SHARD_RANK_BATCHES = (1, 64)      # the head's collective passes
+SHARD_MATRIX = "random-f32-escapes-2tab"   # of phase 3's `CASES`
+SHARD_REPS = 5                    # timed collective passes a rank
+
+
+def _format_jobs(k: int, rng) -> list:
+    """(name, host plan, x, single-device y) of every registered format's
+    ``k``-shard plan of the phase-3 matrix `SHARD_MATRIX` at its default
+    knobs, B = 8; y from the format's own runner on the card."""
+    a = dict((c[0], c[1]) for c in CASES)[SHARD_MATRIX]()
+    jobs = []
+    for fmt in registry.format_names():
+        spec = registry.get_format(fmt)
+        x = rng.standard_normal((a.shape[1], 8)).astype(np.float32)
+        want = spec.spmm_runner(spec.pack(a), x, device="cuda")()
+        jobs.append((fmt, shard_ops.host_plan(spec.shard(a, k)), x,
+                     want.cpu().numpy()))
+    return jobs
+
+
+def _check_ranks(tag: str, ranks: list, jobs: list) -> dict:
+    """Every rank's result of every job against the job's truth: bitwise
+    for the formats with a shard adapter (each rank uploading its own shard
+    and no other); csr / coo / dense, which run the loop on every rank,
+    within `RTOL` (their CUDA stand-ins add in no fixed order). Returns the
+    formats whose results were bitwise."""
+    bitwise = {}
+    for i, (fmt, plan, _, want) in enumerate(jobs):
+        adapter = shard_ops.supports_shard_map(plan)
+        same = True
+        for r, res in enumerate(ranks):
+            got = res[i]
+            same &= bool(np.array_equal(got["y"], want))
+            if adapter:
+                assert got["uploaded"] == [j == r and rows > 0 for j, rows
+                                           in enumerate(plan.shard_rows)], \
+                    (tag, fmt, r, got["uploaded"])
+                assert np.array_equal(got["y"], want), (tag, fmt, r)
+            else:
+                assert not any(got["uploaded"]), (tag, fmt, r)
+                e, ok = _err(torch.as_tensor(got["y"]),
+                             torch.as_tensor(want), torch.float32)
+                assert ok, (tag, fmt, r, e)
+        bitwise[fmt] = same
+    return bitwise
+
+
+def phase_shard(sl: SparseLinear, model, prompts: list, streams: list
+                ) -> None:
+    """Phase 4's head built by ``SparseLinear.from_dense(n_shards=4)``: the
+    per-shard loop serves the phase-4 batch sizes bitwise phase 4's layer
+    (one launch a shard a pass) and phase 4g's requests through the pooled
+    engine (4g's token streams; the step captured in a CUDA graph); then
+    the same plan on 4 gloo ranks on this one card, each uploading its own
+    shard, bitwise the loop path; then every registered format's plan of a
+    phase-3 matrix on 2 and 4 ranks against its single-device runner."""
+    rng = np.random.default_rng(SEED)
+    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+    t0 = time.perf_counter()
+    sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
+                                 lane_width=128, shared_table=True,
+                                 n_shards=HEAD_SHARDS, device="cuda")
+    enc_s = time.perf_counter() - t0
+    plan = sh.plan
+    slices = [p.n_slices for p in plan.shards]
+    assert sh.mat is None, "the sharded layer encoded the whole head"
+    assert sum(int(p.nnz.sum()) for p in plan.shards) == sl.mat.nnz
+    assert sum(slices) == sl.packed.n_slices
+    log(f"[shard] head W^T {VOCAB}x{D_MODEL} f32 in {HEAD_SHARDS} row "
+        f"shards of {plan.shard_rows} rows ({slices} slices of 128), "
+        f"{plan.shard_nbytes} B ({plan.total_nbytes} B in all, "
+        f"{sl.compressed_bytes} B unsharded); from_dense {enc_s:.1f} s on "
+        f"the host (the shards encoded, not the whole head)")
+
+    # the main path of this slice: the loop, through the layer and the
+    # engine, counts from 0
+    xrng = np.random.default_rng(SEED + 9)
+    xs = {B: torch.as_tensor(xrng.standard_normal((B, D_MODEL)),
+                             dtype=torch.float32, device="cuda")
+          for B in SHARD_BATCHES}
+    torch.cuda.synchronize()
+    _reset_all()
+    ys = {B: sh.apply(x) for B, x in xs.items()}
+    torch.cuda.synchronize()
+    apply_counts = {k: v for k, v in _all_launches().items() if v}
+    _reset_all()
+    eng, reqs, secs = _serve_engine(model, sh, ENGINE_SLOTS, prompts,
+                                    ENGINE_MAX_SEQ)
+    engine_counts = {k: v for k, v in _all_launches().items() if v}
+    steps = eng.metrics.counter("engine.steps_total").value
+    log(f"[shard] launches: apply at B {SHARD_BATCHES} {apply_counts}; "
+        f"pooled engine, {steps} steps, {engine_counts}")
+    assert apply_counts == {"dtans_spmv": HEAD_SHARDS,
+                            "dtans_spmm": HEAD_SHARDS * 3}, apply_counts
+    assert engine_counts == {"dtans_spmm": HEAD_SHARDS * steps}, \
+        engine_counts
+    got_streams = [[int(t) for t in r.out] for r in reqs]
+    assert got_streams == streams, "sharded head's streams != phase 4g's"
+    for B, x in xs.items():
+        assert torch.equal(ys[B], sl.apply(x)), f"B={B}: sharded != phase 4"
+    log(f"[shard] loop path bitwise phase 4's layer at B {SHARD_BATCHES}; "
+        f"{len(reqs)} requests through the pooled engine give phase 4g's "
+        f"token streams ({secs:.2f} s)")
+
+    # the step captured whole: nothing on the path reads back to the host
+    graphs = _step_graphs(model, {"sharded": sh, "single": sl}, prompts)
+    log(f"[shard] pooled step (B={ENGINE_SLOTS}) as one CUDA graph, "
+        f"decode_hidden + sharded head: {graphs['step_ms']:.4f} ms; head "
+        f"alone (graph): " + ", ".join(
+            f"{name} {g['head_ms']:.4f} ms, nodes {g['nodes']}"
+            for name, g in graphs["heads"].items()) + f" | {card()}")
+
+    # times: the sharded head beside phase 4's, on the same inputs; CUDA
+    # graphs at every B (the loop's host work is not the card's), the
+    # events of a Python loop beside them at B > 1, as phase 5 times B2
+    times = {}
+    for B in SHARD_BATCHES:
+        X = xs[B].T.contiguous()
+        calls = {"sharded": lambda: shard_ops.shard_spmm(plan, X,
+                                                         device="cuda"),
+                 "single": lambda: ops.spmm(sl.packed, X, device="cuda")}
+        t = {}
+        for name, fn in calls.items():
+            g = device_ms(fn)
+            t[f"{name}_ms"], t[f"{name}_by"] = g["ms"], g["by"]
+            if B > 1:
+                t[f"{name}_events_ms"] = time_ms(fn, 20)
+        times[B] = t
+        ev = (f"; events {t['sharded_events_ms']:.4f} vs "
+              f"{t['single_events_ms']:.4f} ms" if B > 1 else "")
+        log(f"[shard] B={B:3d} {HEAD_SHARDS} launches over {slices[0]} "
+            f"slices each: {t['sharded_ms']:.4f} ms; phase 4's one launch "
+            f"over {sl.packed.n_slices} slices: {t['single_ms']:.4f} ms; "
+            f"ratio {t['sharded_ms'] / t['single_ms']:.2f} ({t['sharded_by']}"
+            f"){ev} | {card()}")
+
+    # the collective path: 4 gloo ranks on this card (NCCL refuses two
+    # ranks on one GPU), each uploading only its own shard
+    frng = np.random.default_rng(SEED + 10)
+    head_jobs = []
+    for B in SHARD_RANK_BATCHES:
+        X = xs[B].T.contiguous()
+        head_jobs.append((f"head B={B}", shard_ops.host_plan(plan),
+                          X.cpu().numpy(),
+                          shard_ops.shard_spmm(plan, X, device="cuda").cpu().numpy()))
+    fmt4 = _format_jobs(4, frng)
+    fmt2 = _format_jobs(2, frng)
+    t0 = time.perf_counter()
+    ranks = spawn(4, rank_spmm,
+                  [(p, x) for _, p, x, _ in head_jobs + fmt4], "cuda",
+                  SHARD_REPS, device_type="cuda")
+    spawn4_s = time.perf_counter() - t0
+    _check_ranks("head", [r[:len(head_jobs)] for r in ranks], head_jobs)
+    bit4 = _check_ranks("4 ranks", [r[len(head_jobs):] for r in ranks],
+                        fmt4)
+    t0 = time.perf_counter()
+    ranks2 = spawn(2, rank_spmm, [(p, x) for _, p, x, _ in fmt2],
+                   "cuda", 0, device_type="cuda")
+    spawn2_s = time.perf_counter() - t0
+    bit2 = _check_ranks("2 ranks", ranks2, fmt2)
+    coll = {}
+    for i, (name, *_rest) in enumerate(head_jobs):
+        ms = [r[i]["ms_p50"] for r in ranks]
+        coll[name] = {"rank_ms_p50": ms, "ms": ms[0]}
+        log(f"[shard] collective {name}: 4 gloo ranks on one card, each "
+            f"its own shard (bitwise the loop path on every rank); wall "
+            f"{ms[0]:.3f} ms a pass on rank 0 (median of {SHARD_REPS}; "
+            f"ranks {', '.join(f'{v:.3f}' for v in ms)}), broadcast of x "
+            f"and all-reduce of the {VOCAB}-row result staged through the "
+            f"host by gloo | {card()}")
+    log(f"[shard] {len(fmt4)} formats' plans of {SHARD_MATRIX} on 4 and 2 "
+        f"ranks: adapter families bitwise their single-device runners, "
+        f"each rank its own shard; csr / coo / dense (the loop on every "
+        f"rank) within rtol, bitwise at 4 / 2 ranks: "
+        f"{ {f: (bit4[f], bit2[f]) for f in bit4} }; spawns {spawn4_s:.1f} "
+        f"s (4 ranks) and {spawn2_s:.1f} s (2 ranks)")
+    RESULTS["shard"] = {
+        "encode_s": enc_s, "shard_rows": plan.shard_rows,
+        "shard_slices": slices, "shard_nbytes": plan.shard_nbytes,
+        "launches_apply": apply_counts, "launches_engine": engine_counts,
+        "engine_steps": steps, "engine_s": secs, "times": times,
+        "graphs": graphs, "collective": coll,
+        "bitwise_formats": {"4": bit4, "2": bit2},
+        "spawn_s": {"4": spawn4_s, "2": spawn2_s}}
+    RESULTS["launches_shard"] = {
+        k: apply_counts.get(k, 0) + engine_counts.get(k, 0)
+        for k in _all_launches()}
+
+
+def _step_graphs(model, heads: dict, prompts: list) -> dict:
+    """A pooled step of ``ENGINE_SLOTS`` live requests as CUDA graphs: the
+    first head of ``heads`` with `decode_hidden` in one graph
+    (``step_ms``), and each head alone on that step's hidden states
+    (``head_ms``, the graph's ``nodes``); medians of `_graph_runs`. A
+    capture that fails raises: nothing on these paths may read back to the
+    host."""
+    eng = Engine(model, slots=ENGINE_SLOTS, max_seq=ENGINE_MAX_SEQ,
+                 metrics=obs.MetricsRegistry(), device="cuda")
+    for p in prompts[:ENGINE_SLOTS]:
+        eng.submit(p, ENGINE_MAX_NEW)
+    first = next(iter(heads.values()))
+    with torch.inference_mode():
+        eng._fill_slots()
+        toks = torch.as_tensor([[int(r.prompt[-1])] for r in eng.active],
+                               device="cuda")
+        pos = torch.as_tensor(eng.pos, device="cuda")
+        step = _graph_runs(lambda: first.apply(
+            model.decode_hidden(eng.cache, toks, pos)[0]))
+        assert step is not None, "decode_hidden + head not captured"
+        hidden, _ = model.decode_hidden(eng.cache, toks, pos)
+        out = {"step_ms": statistics.median(step), "heads": {}}
+        for name, head in heads.items():
+            runs = _graph_runs(lambda: head.apply(hidden))
+            assert runs is not None, f"{name} head not captured"
+            out["heads"][name] = {
+                "head_ms": statistics.median(runs),
+                "nodes": _graph_nodes(lambda: head.apply(hidden))}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2057,10 +2303,13 @@ def main() -> int:
     done("4e")
     phase_registry()
     done("4f")
-    phase_engine(sl)
+    model, prompts, streams = phase_engine(sl)
     done("4g")
     phase_engine_ssm()
     done("4h")
+    phase_shard(sl, model, prompts, streams)
+    done("4i")
+    del model
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -2093,7 +2342,8 @@ def main() -> int:
             "launches_calibrate":
                 RESULTS["calibration"]["launches"].get(name, 0),
             "launches_engine": RESULTS["launches_engine"][name],
-            "launches_engine_ssm": RESULTS["launches_engine_ssm"][name]})
+            "launches_engine_ssm": RESULTS["launches_engine_ssm"][name],
+            "launches_shard": RESULTS["launches_shard"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -30,8 +30,10 @@ A copy of the JAX package's ``repro.autotune.search`` with two changes:
 by default, ``"cpu"`` for the plain torch versions), and a measured
 decision's cache key names the device it was timed on (`device_kind`),
 so a CPU timing is never served on a card, nor one card's on another.
-``mesh=`` is not ported yet (ROADMAP.md A6); ``n_shards > 1`` stays a
-modeled selection, pure cost model, as in the reference.
+``mesh=`` is a `torch.distributed.device_mesh.DeviceMesh`; only the size
+of its ``"model"`` dim enters the search. ``n_shards > 1`` (given, or
+swept under a mesh) stays a modeled selection, pure cost model, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -89,9 +91,10 @@ class Decision(KnobbedConfigMixin):
     # Number of right-hand sides the selection was priced for (the
     # SpMM batch; 1 = the classic single-vector SpMV regime).
     batch: int = 1
-    # Devices the winning plan is priced for (1 = single-chip; > 1 =
-    # the row-sharded path priced with `collective_time`; running it
-    # waits on ROADMAP.md A6).
+    # Devices the winning plan runs on (1 = single-chip; > 1 = the
+    # row-sharded path of `repro_torch.kernels.shard_ops`, priced with
+    # `collective_time`). `select(mesh=)` sweeps shard counts and this is
+    # its answer to "does this matrix want 1, 4, or 16 cards?".
     n_shards: int = 1
     # Median wall-clock seconds of the winner's real kernel when the
     # selection ran with ``measure=True``; None for modeled-only runs.
@@ -183,18 +186,21 @@ def _refine(a, cand: Candidate, fp: Fingerprint, *, warm: bool,
 
 def shard_counts(mesh=None, n_shards=None) -> tuple:
     """Shard counts one selection sweeps: an explicit ``n_shards`` pins
-    a single count, and none means the classic single-chip search
-    ``(1,)``. A ``mesh`` (the reference sweeps the powers of two up to
-    its ``model`` axis) raises `NotImplementedError`: device meshes are
-    not ported yet (ROADMAP.md A6)."""
+    a single count, a mesh sweeps the powers of two up to its ``"model"``
+    dim (1, 2, 4, ...: the counts a mesh can host), and neither means the
+    classic single-chip search ``(1,)``."""
     if n_shards is not None:
         if int(n_shards) < 1:
             raise ValueError(f"n_shards must be >= 1; got {n_shards}")
         return (int(n_shards),)
     if mesh is not None:
-        raise NotImplementedError(
-            "select(mesh=) is not ported yet (ROADMAP.md A6); pass "
-            "n_shards= for a modeled sharded selection")
+        from repro_torch.launch.mesh import model_axis_size
+        msize = model_axis_size(mesh)
+        ks, k = [], 1
+        while k <= msize:
+            ks.append(k)
+            k *= 2
+        return tuple(ks)
     return (1,)
 
 
@@ -234,11 +240,14 @@ def select(a, *, machine: MachineModel = H100, warm: bool = True,
         once per pass, x/y bytes and contraction work per RHS — so the
         winning format can flip as B grows (decode overhead amortizes).
         Part of both cache keys.
-      mesh: not ported yet; raises `NotImplementedError` (ROADMAP.md
-        A6).
-      n_shards: price the sweep at exactly one shard count (a modeled
-        selection: the cost model's `collective_time` terms); ``None``
-        = the classic single-chip search.
+      mesh: price every candidate at every power-of-two shard count up
+        to the mesh's ``"model"`` dim (`shard_counts`) and let the argmin
+        decide how many cards the matrix wants; the winner's count lands
+        in ``Decision.n_shards``. Only the dim's SIZE enters the search
+        (and the cache keys); the mesh object itself is never stored.
+      n_shards: pin the sweep to exactly one shard count instead
+        (overrides ``mesh``); ``None`` and no mesh = the classic
+        single-chip search.
       measure: with ``budget > 0``, additionally wall-clock time the
         top-``budget`` candidates' real kernels
         (`repro_torch.autotune.measure`, at this ``batch``) and rank them by

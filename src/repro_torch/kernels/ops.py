@@ -26,8 +26,17 @@ machine without a card raises.
 j + 1 before contracting j) is accepted by `spmv` / `spmm`: the CUDA
 kernels always run that schedule, in the same contraction order, so both
 values launch the same kernels and give the same bits (on the CPU the
-plain versions run either way). Not ported yet, and refused with
-`NotImplementedError` naming ROADMAP.md A6: ``mesh=`` / ``n_shards > 1``.
+plain versions run either way).
+
+With ``mesh=`` (a `torch.distributed.device_mesh.DeviceMesh` whose
+``"model"`` dim holds more than one rank) or ``n_shards > 1``, `spmv` /
+`spmm` row-partition a `CSRdtANS` along its decode-slice boundaries
+(`get_shard_plan`, cached on the matrix) and run the plan through
+`repro_torch.kernels.shard_ops`: a per-shard loop on one device, or, under
+a mesh, each rank decoding only its own shard and an all-reduce over the
+mesh's ``"model"`` group. The results are bitwise the single-device ones.
+A bare `PackedMatrix` carries no bitstream to re-partition, so sharding
+one raises `TypeError`.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
 from repro_torch.kernels.sell_spmv import PackedSELL
 
 _PACK_CACHE_FIELD = "_packed_cache"
+_SHARD_PLAN_FIELD = "_shard_plans"
 
 
 def _record_pass(kind: str, dm, n: int, m: int, batch: int,
@@ -71,8 +81,8 @@ def _record_pass(kind: str, dm, n: int, m: int, batch: int,
     r.histogram("kernels.col_tiles").observe(col_tiles)
 
 
-def _resolve_bn(batch: int, bn, choose, widest: int | None = None
-                ) -> int | None:
+def resolve_bn(batch: int, bn, choose, widest: int | None = None
+               ) -> int | None:
     """Effective column-tile width of one SpMM pass: an explicit ``bn``
     wins (untiled when it covers the whole batch); otherwise the kernel's
     ``choose`` (batch -> tile). A tile wider than ``widest`` (a whole
@@ -106,13 +116,55 @@ def get_packed(mat: CSRdtANS) -> PackedMatrix:
     return pm
 
 
-def _refuse(mesh, n_shards) -> None:
-    """Knobs of the JAX package's entry points that this port does not run
-    yet: each raises rather than being ignored."""
-    if mesh is not None or (n_shards is not None and int(n_shards) != 1):
-        raise NotImplementedError(
-            "sharded spmv/spmm (mesh= / n_shards > 1) is not ported yet "
-            "(ROADMAP.md A6)")
+def resolve_shards(mesh, n_shards) -> int:
+    """Shard count from the (mesh=, n_shards=) knobs: an explicit
+    ``n_shards`` wins, else the mesh's ``"model"`` dim, else 1."""
+    if n_shards is not None:
+        if int(n_shards) < 1:
+            raise ValueError(f"n_shards must be >= 1; got {n_shards}")
+        return int(n_shards)
+    if mesh is not None:
+        from repro_torch.launch.mesh import model_axis_size
+        return model_axis_size(mesh)
+    return 1
+
+
+def get_shard_plan(mat: CSRdtANS, n_shards: int):
+    """The ``n_shards``-way shard plan of a CSR-dtANS matrix, built
+    through the registry seam at the matrix's own encode knobs and cached
+    on the object (one plan per shard count), like `get_packed`. Decode is
+    lossless, so re-encoding each row block at the same ``lane_width``
+    gives the single-device decode values exactly."""
+    plans = getattr(mat, _SHARD_PLAN_FIELD, None)
+    if plans is None:
+        plans = {}
+        object.__setattr__(mat, _SHARD_PLAN_FIELD, plans)
+    plan = plans.get(n_shards)
+    if plan is None:
+        from repro_torch.core.csr_dtans import decode_matrix
+        from repro_torch.sparse.registry import get_format
+        plan = get_format("dtans").shard(
+            decode_matrix(mat), n_shards, params=mat.params,
+            lane_width=mat.lane_width,
+            shared_table=len(mat.tables) == 1)
+        plans[n_shards] = plan
+    return plan
+
+
+def _sharded_dtans(mat, x, y, *, mesh, k: int, device, spmm: bool,
+                   bn=None, pipeline: bool = False) -> torch.Tensor:
+    from repro_torch.kernels import shard_ops
+    if not isinstance(mat, CSRdtANS):
+        raise TypeError(
+            "sharded spmv/spmm needs the CSRdtANS matrix (a bare packed "
+            "artifact carries no bitstream to re-partition); pass the "
+            "matrix object or n_shards=1")
+    plan = get_shard_plan(mat, k)
+    if spmm:
+        return shard_ops.shard_spmm(plan, x, y=y, mesh=mesh, device=device,
+                                    bn=bn, pipeline=pipeline)
+    return shard_ops.shard_spmv(plan, x, y=y, mesh=mesh, device=device,
+                                pipeline=pipeline)
 
 
 def _resolve_fused(pm: PackedMatrix, fused) -> bool:
@@ -174,7 +226,7 @@ def _many_rhs(kind: str, dm, x, y, bn, one, run, choose, *,
     """Body of every multi-RHS entry point: B == 0 returns `_empty_y`,
     B == 1 calls the single-vector entry ``one`` (bitwise equal to it),
     otherwise ``run(x, bn)`` gives the padded rows of A X in column tiles
-    of the resolved ``bn`` (`_resolve_bn`: an explicit one, else the
+    of the resolved ``bn`` (`resolve_bn`: an explicit one, else the
     kernel's ``choose``, at most ``widest``)."""
     m, n = dm.shape
     x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
@@ -185,7 +237,7 @@ def _many_rhs(kind: str, dm, x, y, bn, one, run, choose, *,
     if B == 1:
         out = one(x[:, 0])[:, None]
     else:
-        bn_eff = _resolve_bn(B, bn, choose, widest)
+        bn_eff = resolve_bn(B, bn, choose, widest)
         _record_pass(kind, dm, n, m, B, x.element_size(), decodes=decodes,
                      col_tiles=_n_tiles(B, bn_eff))
         out = run(x, bn_eff).reshape(-1, B)[:m]
@@ -202,9 +254,13 @@ def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     ``fused`` selects the shared-column contraction (None: the pack's own
     ``shared_cols`` flag); it gives bitwise the generic result.
     ``pipeline`` names the reference's decode-ahead schedule, which the
-    kernel always runs: both values give the same bits."""
+    kernel always runs: both values give the same bits. ``mesh`` /
+    ``n_shards`` shard the rows (module docstring)."""
+    k = resolve_shards(mesh, n_shards)
+    if k > 1:
+        return _sharded_dtans(mat, x, y, mesh=mesh, k=k, device=device,
+                              spmm=False, pipeline=pipeline)
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards)
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
     return _one_rhs("dtans_spmv", dm, x, y,
@@ -226,29 +282,42 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     result as the untiled kernel. A lane width wider than the SpMM kernel
     takes (993 to 1024, `tiling.spmm_by_columns`) runs the SpMV kernel
     once a column, counted in its ``dtans_spmv`` launches: bitwise the
-    SpMM column by column (both sum each segment, then add it). ``fused``
-    and ``pipeline`` as in `spmv`."""
+    SpMM column by column (both sum each segment, then add it). ``fused``,
+    ``pipeline``, ``mesh`` and ``n_shards`` as in `spmv`."""
+    k = resolve_shards(mesh, n_shards)
+    if k > 1:
+        return _sharded_dtans(mat, x, y, mesh=mesh, k=k, device=device,
+                              spmm=True, bn=bn, pipeline=pipeline)
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
-    _refuse(mesh, n_shards)
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
-    L, T = pm.lane_width, int(pm.tab_symbol.shape[0])
-    item = dm.dtype.itemsize
-    by_columns = tiling.spmm_by_columns(L)
-
-    def run(X, b):
-        if by_columns:                          # tiles of one column
-            return torch.stack([dtans_spmv(dm, X[:, j].contiguous(),
-                                           shared_cols=shared)
-                                for j in range(X.shape[1])], dim=-1)
-        return dtans_spmm(dm, X, bn=b, shared_cols=shared)
+    run, choose, widest = dtans_tiles(dm, shared)
     return _many_rhs("dtans_spmm", dm, x, y, bn,
                      lambda v: spmv(pm, v, device=dm.device, fused=fused,
                                     pipeline=pipeline),
-                     run, lambda B: tiling.dtans_bn(L, T, B, item),
-                     decodes=True,
-                     widest=1 if by_columns else tiling.dtans_widest_bn(
-                         L, T, item))
+                     run, choose, decodes=True, widest=widest)
+
+
+def dtans_tiles(dm, shared: bool) -> tuple:
+    """``(run, choose, widest)`` of the dtANS SpMM on a device matrix:
+    ``run(X, bn)`` gives the padded rows of A X in column tiles of ``bn``,
+    ``choose(B)`` the default tile, ``widest`` the widest tile a block's
+    shared memory holds (`resolve_bn` takes the last two)."""
+    L, T = dm.lane_width, int(dm.tab_symbol.shape[0])
+    item = dm.dtype.itemsize
+    if tiling.spmm_by_columns(L):
+
+        def run(X, b):                          # tiles of one column
+            return torch.stack([dtans_spmv(dm, X[:, j].contiguous(),
+                                           shared_cols=shared)
+                                for j in range(X.shape[1])], dim=-1)
+        widest = 1
+    else:
+
+        def run(X, b):
+            return dtans_spmm(dm, X, bn=b, shared_cols=shared)
+        widest = tiling.dtans_widest_bn(L, T, item)
+    return run, (lambda B: tiling.dtans_bn(L, T, B, item)), widest
 
 
 def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"

@@ -19,6 +19,15 @@ family and its knobs per matrix. A layer whose ``mat`` is a `BCSRdtANS`
 `core.bcsr_dtans.encode_bcsr_matrix` and built with the dataclass
 constructor) serves the same way: its pack has ``shared_cols`` set, so
 `ops.spmm` runs the fused shared-column contraction.
+
+``from_dense(n_shards=k)`` or ``from_dense(mesh=)`` row-partitions the
+weight into a shard plan along the format's decode-slice boundaries, and
+`apply` runs it through `repro_torch.kernels.shard_ops`: a per-shard loop
+on the layer's device, or, under a mesh, each rank decoding only its own
+shard and an all-reduce of the rows. Either gives bitwise the unsharded
+layer's result. Such a layer encodes the whole matrix (``mat``) only when
+`whole` is first called (by ``compressed_bytes`` or the dense reference):
+`apply` never needs it.
 """
 
 from __future__ import annotations
@@ -30,17 +39,19 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.csr_dtans import CSRdtANS, decode_matrix, encode_matrix
-from repro_torch.kernels import ops
+from repro_torch.core.csr_dtans import CSRdtANS, decode_matrix
+from repro_torch.kernels import ops, shard_ops
 from repro_torch.kernels.pack import PackedMatrix, check_device, to_device
 from repro_torch.sparse.formats import best_baseline_nbytes
 from repro_torch.sparse.prune import codebook_quantize, magnitude_prune
+from repro_torch.sparse.registry import get_format
 
 
 @dataclasses.dataclass
 class SparseLinear:
-    mat: CSRdtANS            # encodes W^T: (d_out rows, d_in cols)
-    packed: PackedMatrix
+    mat: CSRdtANS | None     # encodes W^T: (d_out rows, d_in cols); None
+                             # on a sharded layer until `whole` encodes it
+    packed: PackedMatrix | None
     d_in: int
     d_out: int
     dense_bytes: int
@@ -48,6 +59,10 @@ class SparseLinear:
     decision: object = None  # autotune Decision when built with auto=True
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cuda"))
+    mesh: object = None      # DeviceMesh the layer serves from (or None)
+    plan: object = None      # sparse.shard.ShardPlan of a sharded layer
+    _encode_whole: object = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @classmethod
     def from_dense(cls, w, sparsity: float = 0.8, value_bits: int = 8,
@@ -83,13 +98,25 @@ class SparseLinear:
         ``autotune_cache`` overrides the default persistent cache (pass
         ``DecisionCache(path=None)`` for memory-only).
 
-        Not ported yet, and refused with `NotImplementedError`: ``mesh=``
-        and ``n_shards > 1`` (sharding, ROADMAP.md A6)."""
-        if mesh is not None or (n_shards is not None and int(n_shards) != 1):
-            raise NotImplementedError(
-                "sharded SparseLinear (mesh= / n_shards > 1) is not ported "
-                "yet (ROADMAP.md A6)")
+        ``mesh`` (a `torch.distributed.device_mesh.DeviceMesh` on
+        ``device``'s type, every rank of it calling this) builds the layer
+        for serving from several cards: the pruned weight is
+        row-partitioned into as many shards as the mesh's ``"model"`` dim
+        holds, along the winning format's decode-slice boundaries
+        (`FormatSpec.shard`), each rank uploads only its own shard, and
+        `apply` runs the all-reduce path of `repro_torch.kernels.shard_ops`.
+        ``n_shards`` pins the shard count (without a mesh: the per-shard
+        loop on ``device``); with a mesh it must equal the ``"model"`` dim,
+        and a mesh on another device type than ``device`` raises too, both
+        before any encode. A sharded layer encodes only its shards; the
+        whole matrix waits for `whole`. With ``auto=True`` the selection is priced at
+        the shard count it will serve on; at more than one shard it is the
+        modeled sharded cost, never measured (the timing harness times one
+        device)."""
         dev = check_device(device)           # before a long host encode
+        k = ops.resolve_shards(mesh, n_shards)
+        if mesh is not None:
+            shard_ops.validate_mesh(k, mesh, dev)
         if torch.is_tensor(w):
             w = w.detach().cpu().numpy()
         w_arr = np.asarray(w)
@@ -98,14 +125,14 @@ class SparseLinear:
         d_in, d_out = w_arr.shape
         pruned = magnitude_prune(w_arr.T, sparsity)
         pruned = codebook_quantize(pruned, bits=value_bits)
-        decision = None
+        decision, mat = None, None
         if auto:
             from repro_torch.autotune import H100, choose_dtans_config
-            from repro_torch.sparse.registry import get_format
             arts: dict = {}
             decision = choose_dtans_config(
                 pruned, warm=True, budget=autotune_budget,
-                batch=autotune_batch, measure=autotune_measure,
+                batch=autotune_batch, n_shards=k,
+                measure=autotune_measure if k == 1 else False,
                 machine=autotune_machine
                 if autotune_machine is not None else H100,
                 cache=autotune_cache, device=dev, artifacts=arts)
@@ -116,28 +143,51 @@ class SparseLinear:
             # a fresh `spec.encode`.
             mat = arts.get(spec.artifact_key(knobs))
             if not isinstance(mat, CSRdtANS):
-                mat = spec.encode(pruned, **knobs)
+                mat = None
         else:
-            mat = encode_matrix(pruned, lane_width=lane_width,
-                                shared_table=shared_table)
+            spec = get_format("dtans")
+            knobs = {"lane_width": lane_width, "shared_table": shared_table}
+        plan = spec.shard(pruned, k, **knobs) if k > 1 else None
+        if mat is None and plan is None:
+            mat = spec.encode(pruned, **knobs)
         _, bb = best_baseline_nbytes(pruned)
-        sl = cls(mat=mat, packed=ops.get_packed(mat), d_in=d_in,
-                 d_out=d_out, dense_bytes=w_arr.size * w_arr.dtype.itemsize,
-                 baseline_bytes=bb, decision=decision, device=dev)
-        to_device(sl.packed, dev)
+        sl = cls(mat=mat, packed=None if mat is None else ops.get_packed(mat),
+                 d_in=d_in, d_out=d_out,
+                 dense_bytes=w_arr.size * w_arr.dtype.itemsize,
+                 baseline_bytes=bb, decision=decision, device=dev,
+                 mesh=mesh, plan=plan)
+        if plan is None:
+            to_device(sl.packed, dev)
+        else:
+            sl._encode_whole = functools.partial(spec.encode, pruned, **knobs)
+            shard_ops.upload(plan, dev, mesh=mesh)
         return sl
 
     @property
+    def n_shards(self) -> int:
+        """Row shards of the weight (1: the whole matrix on one card)."""
+        return 1 if self.plan is None else self.plan.n_shards
+
+    def whole(self) -> CSRdtANS:
+        """``mat``, the whole matrix in one encode; a sharded layer from
+        `from_dense` encodes it here on the first call (on the host, as
+        long as the shards' encode) and keeps it."""
+        if self.mat is None:
+            self.mat = self._encode_whole()
+            self.packed = ops.get_packed(self.mat)
+        return self.mat
+
+    @property
     def compressed_bytes(self) -> int:
-        return self.mat.nbytes
+        return self.whole().nbytes
 
     @property
     def compression_vs_dense(self) -> float:
-        return self.dense_bytes / self.mat.nbytes
+        return self.dense_bytes / self.compressed_bytes
 
     @property
     def compression_vs_best_sparse(self) -> float:
-        return self.baseline_bytes / self.mat.nbytes
+        return self.baseline_bytes / self.compressed_bytes
 
     def apply(self, x, *, bn=None, pipeline: bool = False,
               metrics: obs.MetricsRegistry | None = None) -> torch.Tensor:
@@ -155,26 +205,38 @@ class SparseLinear:
         is the reference's decode-ahead schedule, which the kernels always
         run: either value gives the same bits.
 
+        A sharded layer runs its plan through `shard_ops.shard_spmm` (the
+        loop, or under the layer's mesh the all-reduce, which every rank
+        calls with the same batch shape); the results are bitwise the
+        unsharded layer's.
+
         ``metrics``: registry the ``serving.*`` instruments land in (the
         process default when omitted)."""
         x = torch.as_tensor(x)
-        dt = ops.out_dtype(self.packed)
+        dt = (ops.out_dtype(self.packed) if self.plan is None
+              else shard_ops.plan_dtype(self.plan))
         lead = x.shape[:-1]
         xb = x.to(device=self.device, dtype=dt).reshape(-1, self.d_in)
         reg = metrics if metrics is not None else obs.default_registry()
         reg.counter("serving.sparse_apply_calls").add(1)
         reg.histogram("serving.apply_batch").observe(xb.shape[0])
         with obs.span("serving.sparse_apply", batch=int(xb.shape[0]),
-                      d_in=self.d_in, d_out=self.d_out):
-            y = ops.spmm(self.packed, xb.T, device=self.device, bn=bn,
-                         pipeline=pipeline)                 # (d_out, B)
+                      d_in=self.d_in, d_out=self.d_out,
+                      n_shards=int(self.n_shards)):
+            if self.plan is not None:
+                y = shard_ops.shard_spmm(self.plan, xb.T, mesh=self.mesh,
+                                         device=self.device, bn=bn,
+                                         pipeline=pipeline)
+            else:
+                y = ops.spmm(self.packed, xb.T, device=self.device, bn=bn,
+                             pipeline=pipeline)             # (d_out, B)
         return y.T.reshape(*lead, self.d_out).to(x.dtype)
 
     @functools.cached_property
     def dense_weight(self) -> torch.Tensor:
         """The decoded matrix W^T (d_out, d_in) on the layer's device,
         decoded once by the numpy gold path."""
-        w = decode_matrix(self.mat).to_dense()
+        w = decode_matrix(self.whole()).to_dense()
         return torch.from_numpy(w).to(self.device)
 
     def apply_dense_reference(self, x) -> torch.Tensor:

@@ -32,8 +32,9 @@ kernel-backed formats launch the port's CUDA kernels through
 `repro_torch.kernels.ops`; ``device="cpu"`` runs their plain torch
 versions. csr / coo run a torch scatter-add (``index_add_``) and dense a
 ``torch.matmul``: neither has a hand-written kernel, by design.
-Running a `shard` plan (``shard_runner``) is not ported yet and raises
-(ROADMAP.md A6).
+``shard`` / ``shard_runner`` row-partition a matrix and run the plan,
+per shard in a loop or one shard a rank of a process group
+(`repro_torch.kernels.shard_ops`).
 
 ``fp`` arguments are duck-typed
 `repro_torch.autotune.fingerprint.Fingerprint` objects; this module
@@ -436,12 +437,24 @@ class FormatSpec:
 
     def shard_runner(self, plan, x, *, mesh=None, device="cuda",
                      bn=None, pipeline: bool = False):
-        """The sharded analogue of `runner` / `spmm_runner` in the JAX
-        package (``shard_map`` over a mesh, or a per-shard loop). Not
-        ported yet: raises `NotImplementedError` (ROADMAP.md A6)."""
-        raise NotImplementedError(
-            "running a shard plan (FormatSpec.shard_runner) is not ported "
-            "yet (ROADMAP.md A6)")
+        """Zero-arg callable computing ``y = A x`` (1-D ``x``) or
+        ``Y = A X`` (2-D ``x``) from a `shard` plan: the sharded analogue
+        of `runner` / `spmm_runner`; ``x`` goes to ``device`` now, once.
+        With a ``mesh`` whose ``"model"`` dim matches ``plan.n_shards``,
+        the kernel-backed families run one shard a rank and all-reduce
+        the rows (`repro_torch.kernels.shard_ops`); otherwise, and for
+        packs without a shard adapter, a per-shard loop through this
+        family's single-device runners, so EVERY registered format
+        (third-party specs included) has a sharded path."""
+        from repro_torch.kernels import shard_ops
+        xt = _rhs(x, shard_ops.plan_dtype(plan), check_device(device))
+        if xt.ndim == 1:
+            return lambda: shard_ops.shard_spmv(plan, xt, mesh=mesh,
+                                                device=xt.device,
+                                                pipeline=pipeline)
+        return lambda: shard_ops.shard_spmm(plan, xt, mesh=mesh,
+                                            device=xt.device, bn=bn,
+                                            pipeline=pipeline)
 
     # -- encoded artifact (decodes=True formats) ---------------------
 

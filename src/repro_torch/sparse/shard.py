@@ -20,8 +20,8 @@ CSR (`csr_row_block`), packs each row block through the family's own
 (`repro_torch.autotune.cost_model.candidate_time(n_shards=)`) price.
 
 This module holds only the layout (plan dataclass + boundary/slicing
-helpers). Running a plan across cards is not ported yet
-(`FormatSpec.shard_runner` raises, ROADMAP.md A6).
+helpers). `repro_torch.kernels.shard_ops` runs a plan, and
+`FormatSpec.shard_runner` wraps it as a runner.
 """
 
 from __future__ import annotations
@@ -77,8 +77,8 @@ class ShardPlan:
     """One format's row partition of one matrix across ``n_shards``
     devices: per-shard packed artifacts plus exact per-shard sizes.
 
-    Built by `repro_torch.sparse.registry.FormatSpec.shard` (running it
-    waits on ROADMAP.md A6).  ``shards[k]``
+    Built by `repro_torch.sparse.registry.FormatSpec.shard` and run by
+    `repro_torch.kernels.shard_ops`.  ``shards[k]``
     is the family's `pack` product for rows
     ``[boundaries[k], boundaries[k+1])``; empty shards hold the pack of
     a zero-row matrix and contribute zeros.

@@ -323,8 +323,22 @@ def test_time_kernel_on_cpu_is_positive_and_counted():
         A.time_kernel(lambda: None, repeats=0, device="cpu")
 
 
-def test_mesh_waits_on_a6():
-    with pytest.raises(NotImplementedError, match="A6"):
+def test_mesh_waits_on_a6(make_model_mesh):
+    """`select(mesh=)` in a gloo group of 2 ranks sweeps shard counts
+    (1, 2) and decides as the reference does under its 2-device mesh;
+    a mesh that is not a torch ``DeviceMesh`` raises. (The name dates
+    from when a mesh was refused; test ids are kept.)"""
+    from repro_torch.launch.mesh import spawn
+
+    import torch_shard_ranks
+    a, ra = suite()["tiny"]
+    got = spawn(2, torch_shard_ranks.select_body, a, device_type="cpu")
+    want = r_select(ra, machine=R_V5E, mesh=make_model_mesh(2),
+                    cache=RDecisionCache(path=None))
+    for counts, dec in got:
+        assert counts == (1, 2)
+        assert dec == want.to_dict()
+    with pytest.raises(TypeError, match="DeviceMesh"):
         A.select(_small(), mesh=object(), cache=A.DecisionCache(path=None))
 
 
@@ -389,7 +403,21 @@ def _pruned(w):
 
 
 def test_from_dense_still_refuses_sharding():
-    for kw in ({"mesh": object()}, {"n_shards": 2}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            SparseLinear.from_dense(_weight(), auto=True, device="cpu",
-                                    **kw)
+    """``auto=True`` with ``n_shards=2`` selects on the modeled sharded
+    cost (never measured) and builds the reference's choice; a mesh that
+    is not a torch ``DeviceMesh`` raises before any encode. (The name
+    dates from when sharding was refused; test ids are kept.)"""
+    w = _weight()
+    sl = SparseLinear.from_dense(w, auto=True, n_shards=2,
+                                 autotune_measure=True, autotune_budget=1,
+                                 autotune_machine=A.V5E,
+                                 autotune_cache=A.DecisionCache(path=None),
+                                 device="cpu")
+    ref = RSparseLinear.from_dense(w, auto=True, n_shards=2,
+                                   autotune_measure=True, autotune_budget=1,
+                                   autotune_cache=RDecisionCache(path=None))
+    assert sl.decision.to_dict() == ref.decision.to_dict()
+    assert sl.decision.n_shards == 2 and sl.decision.measured_time is None
+    assert sl.plan.boundaries == ref.plan.boundaries
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        SparseLinear.from_dense(w, auto=True, device="cpu", mesh=object())

@@ -256,7 +256,7 @@ def test_resolved_tile_is_cut_to_the_widest():
     when the batch is wider, resolves to ``widest``; narrower ones and a
     batch that fits stay; the kernel's own choice is cut alike."""
     def pick(B, bn, widest, choose=lambda B: None):
-        return ops._resolve_bn(B, bn, choose, widest)
+        return ops.resolve_bn(B, bn, choose, widest)
     assert pick(512, 512, 335) == 335
     assert pick(400, None, 335) == 335
     assert pick(400, 1000, 335) == 335

@@ -1306,3 +1306,136 @@ def test_build_is_keyed_on_the_source(tmp_path, monkeypatch):
     second = _build.library_path("k")
     assert second != first and not second.exists()
     assert _build.build_all(("k",))["k"] == second and second.exists()
+
+
+# ---------------------------------------------------------------------------
+# the row-sharded path on the card
+# ---------------------------------------------------------------------------
+
+_SHARD_FORMATS = ("dtans", "rgcsr_dtans", "bcsr_dtans", "sell", "rgcsr",
+                  "bcsr")
+
+
+def _shard_case(fmt, dtype):
+    from repro_torch.sparse.registry import get_format
+    spec = get_format(fmt)
+    a = CSR.from_dense(np.round(_dense(300, 90, 0.2, dtype, 21) * 4) / 4)
+    return spec, a, spec.pack(a, **spec.conformance_knobs)
+
+
+def _all_launches() -> dict:
+    return {k: v for mod in (K, SE, RG, BC) for k, v in mod.launches.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fmt", _SHARD_FORMATS)
+def test_shard_loop_on_card_bitwise_single_device(fmt, dtype):
+    """The per-shard loop on the card is bitwise the format's single-device
+    runner at 2 and 4 shards, B 1, 8 and 64, one launch a shard a pass."""
+    from repro_torch.kernels import shard_ops
+    _need_card()
+    spec, a, packed = _shard_case(fmt, dtype)
+    rng = np.random.default_rng(22)
+    for B in (1, 8, 64):
+        x = torch.as_tensor(rng.standard_normal((a.shape[1], B)),
+                            dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                            device="cuda")
+        if B == 1:
+            want = spec.runner(packed, x[:, 0])()[:a.shape[0], None]
+        else:
+            want = spec.spmm_runner(packed, x)().reshape(-1, B)[:a.shape[0]]
+        for k in (2, 4):
+            plan = spec.shard(a, k, **spec.conformance_knobs)
+            for mod in (K, SE, RG, BC):
+                mod.reset_launches()
+            got = shard_ops.shard_spmm(plan, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fmt, B, k)
+            assert sum(_all_launches().values()) == sum(
+                r > 0 for r in plan.shard_rows), _all_launches()
+
+
+@pytest.mark.gpu
+def test_shard_collective_two_ranks_on_one_card():
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one GPU):
+    each uploads its own shard, and both give bitwise the loop path; a
+    ``device="cpu"`` pass under the CUDA mesh raises."""
+    from repro_torch.kernels import shard_ops
+    from repro_torch.launch.mesh import spawn
+
+    import torch_shard_ranks
+    _need_card()
+    jobs, wants = [], []
+    rng = np.random.default_rng(23)
+    for fmt in _SHARD_FORMATS:
+        spec, a, _ = _shard_case(fmt, np.float32)
+        plan = spec.shard(a, 2, **spec.conformance_knobs)
+        for B in (1, 8):
+            x = rng.standard_normal((a.shape[1], B)).astype(np.float32)
+            wants.append(shard_ops.shard_spmm(plan, x).cpu().numpy())
+            jobs.append((shard_ops.host_plan(plan), x))
+    ranks = spawn(2, torch_shard_ranks.rank_spmm, jobs, "cuda",
+                  device_type="cuda")
+    for r, res in enumerate(ranks):
+        for job, want in zip(res, wants):
+            assert np.array_equal(job["y"], want)
+            assert job["uploaded"] == [j == r for j in range(2)]
+    plan, x = jobs[0]
+    msgs = spawn(2, torch_shard_ranks.refuse_cpu_call, plan, x,
+                 device_type="cuda")
+    assert all("mesh is on 'cuda'" in m for m in msgs), msgs
+
+
+@pytest.mark.gpu
+def test_pooled_step_with_a_two_shard_head_captures_on_card():
+    """A pooled engine whose compressed head is a 2-shard layer gives the
+    unsharded head's tokens (two ``dtans_spmm`` launches a step), and its
+    ``decode_hidden`` + head step captures into a CUDA graph (nothing read
+    back) whose replay gives the eager logits bitwise."""
+    _need_card()
+    cfg = configs.get_smoke("smollm-135m").with_(vocab=64)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+    kw = dict(sparsity=0.6, value_bits=5, lane_width=32)
+    one = Engine.compress_lm_head(model, **kw)
+    two = Engine.compress_lm_head(model, n_shards=2, **kw)
+    assert two.plan.shard_rows == (32, 32)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 64, size=n) for n in (1, 3, 7, 12, 5, 2)]
+    outs = []
+    for head in (one, two):
+        eng = Engine(model, slots=4, max_seq=32, sparse_head=head,
+                     metrics=obs.MetricsRegistry())
+        K.reset_launches()
+        reqs = [eng.submit(p, 5) for p in prompts]
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        steps = eng.metrics.counter("engine.steps_total").value
+        per_step = 1 if head is one else 2
+        assert {k: v for k, v in K.launches.items() if v} == \
+            {"dtans_spmm": per_step * steps}
+        outs.append([list(r.out) for r in reqs])
+    assert outs[0] == outs[1]
+    toks = torch.tensor([[3], [0], [5], [9]], device="cuda")
+    pos = torch.tensor([4, 2, 0, 7], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        cache = model.make_decode_cache(4, 16, dtype=torch.float32)
+
+        def step():
+            hidden, _ = model.decode_hidden(cache, toks, pos)
+            return two.apply(hidden)
+        eager = step()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            logits = step()
+        g.replay()
+        torch.cuda.synchronize()
+        hidden, _ = model.decode_hidden(cache, toks, pos)
+        assert torch.equal(two.apply(hidden), one.apply(hidden))
+    assert torch.equal(logits, eager)

@@ -295,34 +295,38 @@ class TestWrappers:
 
 class TestRefusals:
     @pytest.fixture(scope="class")
-    def pm(self):
+    def mat(self):
         a = _random_dense(20, 10, 0.5, np.float32, 33)
-        return pack_matrix(encode_matrix(CSR.from_dense(a), lane_width=8))
+        return encode_matrix(CSR.from_dense(a), lane_width=8)
 
     @pytest.mark.parametrize("kw", [dict(n_shards=2), dict(mesh=object()),
                                     dict(pipeline=True), dict(fused=True)])
     @pytest.mark.parametrize("fn", ["spmv", "spmm"])
-    def test_unported_knobs_raise(self, pm, kw, fn):
-        """Sharding is not ported; ``pipeline=True`` runs and gives bitwise
-        the ``pipeline=False`` result (the kernels always run that
-        schedule); ``fused=True`` runs, but on a pack that is not
-        block-filled it is a ValueError, as in the JAX package."""
+    def test_unported_knobs_raise(self, mat, kw, fn):
+        """``n_shards=2`` runs the per-shard loop and gives bitwise the
+        unsharded result; a ``mesh`` that is not a torch ``DeviceMesh``
+        raises TypeError; ``pipeline=True`` runs and gives bitwise the
+        ``pipeline=False`` result (the kernels always run that schedule);
+        ``fused=True`` runs, but on a pack that is not block-filled it is a
+        ValueError, as in the JAX package. (The name dates from when
+        these knobs were refused; test ids are kept.)"""
         x = np.ones(10, np.float32) if fn == "spmv" else np.ones((10, 2),
                                                                  np.float32)
         if "fused" in kw:
             with pytest.raises(ValueError, match="block-filled"):
-                getattr(ops, fn)(pm, x, device="cpu", **kw)
+                getattr(ops, fn)(mat, x, device="cpu", **kw)
             return
-        if "pipeline" in kw:
-            got = getattr(ops, fn)(pm, x, device="cpu", **kw)
-            assert torch.equal(got, getattr(ops, fn)(pm, x, device="cpu"))
+        if "mesh" in kw:
+            with pytest.raises(TypeError, match="DeviceMesh"):
+                getattr(ops, fn)(mat, x, device="cpu", **kw)
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(ops, fn)(pm, x, device="cpu", **kw)
+        got = getattr(ops, fn)(mat, x, device="cpu", **kw)
+        assert torch.equal(got, getattr(ops, fn)(mat, x, device="cpu"))
 
-    def test_cuda_request_without_card_raises(self, pm):
+    def test_cuda_request_without_card_raises(self, mat):
         if torch.cuda.is_available():
             pytest.skip("a CUDA card is present")
+        pm = pack_matrix(mat)
         with pytest.raises(RuntimeError, match="CUDA"):
             ops.spmv(pm, np.ones(10, np.float32))
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -141,13 +141,21 @@ def test_convert_round_trip_from_jax(layers, tmp_path):
 
 
 def test_from_dense_refusals():
-    w = np.ones((8, 16), np.float32)
+    w = np.random.default_rng(5).standard_normal((8, 40)).astype(np.float32)
+    x = torch.as_tensor(np.random.default_rng(6).standard_normal((3, 8)),
+                        dtype=torch.float32)
+    from repro_torch.autotune import DecisionCache
     for auto in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseLinear.from_dense(w, auto=auto, n_shards=2, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SparseLinear.from_dense(w, auto=auto, mesh=object(),
-                                    device="cpu")
+        kw = dict(auto=auto, device="cpu", lane_width=8,
+                  autotune_cache=DecisionCache(path=None))
+        # sharding is ported: n_shards=2 serves bitwise the unsharded layer
+        sl = SparseLinear.from_dense(w, n_shards=2, **kw)
+        assert sl.n_shards == 2 and sl.plan.n_shards == 2
+        assert torch.equal(sl.apply(x), ops.spmm(
+            sl.whole(), x.T.contiguous(), device="cpu").T)
+        # a mesh must be a torch DeviceMesh
+        with pytest.raises(TypeError, match="DeviceMesh"):
+            SparseLinear.from_dense(w, mesh=object(), **kw)
     # auto=True is ported (the autotuner): it no longer refuses
     w = np.random.default_rng(4).standard_normal((8, 16)).astype(np.float32)
     from repro_torch.autotune import DecisionCache
