@@ -115,6 +115,25 @@ Phases, each raising on failure (no phase falls back to the CPU):
    plan of a phase-3 matrix on 2 and 4 ranks against the format's
    single-device runner (bitwise for the kernel-backed formats; csr / coo
    / dense, which add in no fixed order on the card, within `RTOL`).
+4j. training at full width: SmolLM-135M (30 layers, d_model 576, 9 / 3
+   heads, d_ff 1536, vocab 49152, tied) in its own bfloat16 with float32
+   masters, ``remat=False``, AdamW lr 3e-4, 2 microbatches, on
+   `SyntheticTokens` batches of 16 x 512 (`examples/train_lm.py`'s full
+   run). One trainer runs 30 steps uninterrupted, each step between CUDA
+   events (p10 / 50 / 90, tokens/s, peak memory); a second from the same
+   weights checkpoints every 10 steps into a temporary directory, crashes
+   at step 25, restores step 20 (every leaf of its parameters and
+   optimizer state bitwise what it saved) and resumes to 30: the final
+   losses within 1e-4 (the reference's limit), the loss falling. The
+   trained head is scored by `examples/train_lm_torch.py::sparse_head_eval`
+   at sparsity 0.8: all 8192 hidden rows through one ``apply`` (one
+   ``dtans_spmm`` launch, counted), held against the decoded head (rtol
+   1e-4, atol 1e-5), its first 64 rows applied alone and through the plain
+   path bitwise the pool's; the B = 8192 pass timed beside dense
+   ``torch.matmul`` and cuSPARSE CSR. Then every `configs.ARCH_IDS` smoke
+   config trains 3 steps through ``repro_torch.launch.train.main`` (one
+   also with Adafactor, one at 2 microbatches with gradient compression):
+   finite losses, every parameter's gradient finite and nonzero.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -137,12 +156,16 @@ writes every number it measured to PATH. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -151,6 +174,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.append(str(ROOT / "tests"))  # hand_made_packs, torch_shard_ranks
+sys.path.append(str(ROOT / "examples"))  # train_lm_torch
 
 import torch  # noqa: E402
 
@@ -159,6 +183,7 @@ from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
 from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix  # noqa: E402
+from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens  # noqa: E402
 from repro_torch.kernels import _build, ops, shard_ops, tiling  # noqa: E402
 from repro_torch.kernels import bcsr_spmv as BC  # noqa: E402
 from repro_torch.kernels import dtans_decode as DD  # noqa: E402
@@ -167,6 +192,7 @@ from repro_torch.kernels import rgcsr_spmv as RG  # noqa: E402
 from repro_torch.kernels import sell_spmv as SE  # noqa: E402
 from repro_torch.kernels.pack import pack_matrix, to_device  # noqa: E402
 from repro_torch.kernels.ref import decode_ref  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
@@ -177,9 +203,12 @@ from repro_torch.sparse.prune import codebook_quantize, magnitude_prune  # noqa:
 from repro_torch.sparse.random_graphs import block_sparse, stencil_2d  # noqa: E402
 from repro_torch.sparse import registry  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
+from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
 from hand_made_packs import HAND_MADE  # noqa: E402
 from torch_shard_ranks import rank_spmm  # noqa: E402
+from train_lm_torch import sparse_head_eval  # noqa: E402
 
 SEED = 0
 D_MODEL, VOCAB = 576, 49152          # src/repro/configs/smollm_135m.py
@@ -1968,6 +1997,245 @@ def _step_graphs(model, heads: dict, prompts: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4j. training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 16, 512      # examples/train_lm.py's full run
+TRAIN_STEPS, TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 30, 25, 10
+TRAIN_LR = 3e-4
+TRAIN_RESUME_TOL = 1e-4    # the reference's crash/resume limit
+TRAIN_HEAD_SPARSITY = 0.8  # `from_dense`'s default, phase 4's
+TILE_ROWS = 64             # the pool's rows applied alone (tiling contract)
+SMOKE_TRAIN_STEPS = 3
+SMOKE_TRAIN_EXTRA = (("smollm-135m", "--optimizer", "adafactor"),
+                     ("mamba2-130m", "--microbatches", "2", "--grad-compress"))
+
+
+def _train_cfg():
+    """SmolLM-135M at full width in its own bfloat16, without remat, as
+    `examples/train_lm.py`'s full run."""
+    cfg = configs.get("smollm-135m").with_(remat=False)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab, cfg.tie_embeddings, cfg.dtype) == \
+        (30, D_MODEL, 9, 3, 1536, VOCAB, True, "bfloat16"), cfg
+    return cfg
+
+
+def _trainer(cfg, pipe, ckpt_dir: str = "") -> Trainer:
+    """AdamW at lr 3e-4, 2 microbatches, weights from a generator seeded
+    `SEED` on the card; a checkpoint every `TRAIN_CKPT_EVERY` steps into
+    ``ckpt_dir`` where one is given."""
+    tcfg = TrainConfig(optimizer="adamw", lr=TRAIN_LR, microbatches=2,
+                       ckpt_every=TRAIN_CKPT_EVERY, ckpt_dir=ckpt_dir)
+    return Trainer(cfg, tcfg, pipe, device="cuda",
+                   generator=torch.Generator().manual_seed(SEED))
+
+
+def _train_runs(cfg, pipe, ckpt_dir: str) -> tuple:
+    """Two trainers from one set of initial weights: ``a`` runs
+    `TRAIN_STEPS` steps uninterrupted, one `run` call a step between CUDA
+    events; ``b`` checkpoints, crashes at `TRAIN_FAIL_AT`, restores the
+    last checkpoint (bitwise the state it saved) and resumes. Returns
+    (a, b, measurements)."""
+    t0 = time.perf_counter()
+    a = _trainer(cfg, pipe)
+    init = checkpoint.host_copy(dict(a.model.named_parameters()))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in a.params)
+    log(f"[train] SmolLM-135M full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied), {n_params:,} parameters in "
+        f"{cfg.dtype} with float32 masters, built in {build_s:.1f} s; "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, 2 microbatches, AdamW lr "
+        f"{TRAIN_LR}, TF32 off (the float32 head)")
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        a.run(step + 1, log_every=0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    a_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    b = _trainer(cfg, pipe, ckpt_dir)
+    mine = dict(b.model.named_parameters())
+    assert all(torch.equal(mine[k].cpu(), v) for k, v in init.items()), \
+        "the two trainers start from other weights"
+    t0 = time.perf_counter()
+    b.run(2 * TRAIN_CKPT_EVERY, log_every=0)
+    saved = checkpoint.host_copy(b.state())
+    try:
+        b.run(TRAIN_STEPS, log_every=0, fail_at=TRAIN_FAIL_AT)
+    except RuntimeError as exc:
+        assert f"step {TRAIN_FAIL_AT}" in str(exc), exc
+    else:
+        raise AssertionError("no failure was injected")
+    t1 = time.perf_counter()
+    assert b.try_restore(), "no checkpoint to restore"
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    assert b.step == 2 * TRAIN_CKPT_EVERY, b.step
+    live = checkpoint.flatten(b.state())
+    assert list(live) == list(saved)
+    differ = [k for k, v in saved.items() if not torch.equal(live[k].cpu(), v)]
+    assert not differ, f"restored state differs from the saved: {differ[:5]}"
+    b.run(TRAIN_STEPS, log_every=0)
+    b_s = time.perf_counter() - t0
+    return a, b, {"build_s": build_s, "params": n_params, "step_ms": ms,
+                  "a_s": a_s, "b_s": b_s, "peak_bytes": peak,
+                  "restore_s": restore_s, "restored_leaves": len(saved)}
+
+
+def _score_head(model, cfg, batch) -> dict:
+    """`examples/train_lm_torch.py::sparse_head_eval` of the trained model
+    on one batch: the tied head pruned at `TRAIN_HEAD_SPARSITY` and
+    encoded, then all B * S hidden rows through one ``apply`` (the counted
+    run). Held against the decoded head (rtol 1e-4, atol 1e-5); its first
+    `TILE_ROWS` rows applied alone and through the plain path bitwise the
+    pool's. Times the B = 8192 pass beside dense ``torch.matmul`` and
+    cuSPARSE CSR (timed only)."""
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    dense, sparse, head, hidden, logits = sparse_head_eval(
+        model, cfg, batch, sparsity=TRAIN_HEAD_SPARSITY)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    counts = _all_launches()
+    B = TRAIN_BATCH * TRAIN_SEQ
+    assert counts["dtans_spmm"] == 1 and sum(counts.values()) == 1, counts
+    assert logits.shape == (TRAIN_BATCH, TRAIN_SEQ, VOCAB)
+    assert bool(torch.isfinite(logits).all())
+    log(f"[train] head eval: pruned at {TRAIN_HEAD_SPARSITY}, nnz "
+        f"{head.mat.nnz:,}, {head.compressed_bytes:,} B "
+        f"({head.compression_vs_dense:.2f}x vs dense); the whole pool of "
+        f"B={B} rows in one apply, {eval_s:.1f} s with the encode; "
+        f"launches {({k: v for k, v in counts.items() if v})}")
+    ref = head.apply_dense_reference(hidden)
+    e_ref = (logits - ref).abs().max().item()
+    assert torch.allclose(logits, ref, rtol=1e-4, atol=1e-5), e_ref
+    del ref
+    x = hidden.reshape(B, D_MODEL)
+    y = logits.reshape(B, VOCAB)
+    part = head.apply(x[:TILE_ROWS])
+    dm = to_device(head.packed, "cuda")
+    plain = K.dtans_spmm_plain(dm, x[:TILE_ROWS].T.contiguous()).reshape(
+        -1, TILE_ROWS)[:VOCAB].T
+    assert torch.equal(part, y[:TILE_ROWS]), "B=64 is not the pool's rows"
+    assert torch.equal(part, plain), "the kernel is not its plain path"
+    log(f"[train] logits {tuple(logits.shape)} |y - decoded dense| "
+        f"{e_ref:.3e}"
+        f" (rtol 1e-4, atol 1e-5); rows 0..{TILE_ROWS - 1} alone and "
+        f"through the plain path bitwise the pool's; eval loss dense-head "
+        f"{dense:.4f} sparse-head {sparse:.4f}")
+    X = x.T.contiguous()
+    w = head.dense_weight
+    a_csr = w.to_sparse_csr()
+    t = {"kernel_ms": time_ms(lambda: ops.spmm(head.packed, X,
+                                               device="cuda"), 5),
+         "dense_ms": time_ms(lambda: x @ w.T, 5),
+         "library_ms": time_ms(lambda: a_csr @ X, 5)}
+    b_ms, b_by, nbytes, flops = bound(head, B)
+    log(f"[train] B={B} pass: dtans_spmm {t['kernel_ms']:.3f} ms | "
+        f"cuSPARSE CSR {t['library_ms']:.3f} ms | dense matmul "
+        f"{t['dense_ms']:.3f} ms | bound {b_ms:.3f} ms ({b_by}) | "
+        f"{card()}")
+    return {"dense_loss": dense, "sparse_loss": sparse, "eval_s": eval_s,
+            "nnz": head.mat.nnz, "compressed_bytes": head.compressed_bytes,
+            "max_abs_err": e_ref, "B": B, "launches": counts, **t,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+            "flops": flops}
+
+
+def _train_smoke_configs() -> list:
+    """Every `configs.ARCH_IDS` smoke config through
+    ``repro_torch.launch.train.main`` on the card (3 AdamW steps; one with
+    Adafactor, one at 2 microbatches with gradient compression): the
+    losses finite, then one more backward with every parameter's gradient
+    finite and not all zero."""
+    runs = [(arch,) for arch in configs.ARCH_IDS] + list(SMOKE_TRAIN_EXTRA)
+    out = []
+    for arch, *extra in runs:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            t = launch_train.main(["--arch", arch, "--smoke", "--steps",
+                                   str(SMOKE_TRAIN_STEPS), *extra])
+        assert len(t.history) == SMOKE_TRAIN_STEPS and all(
+            np.isfinite(t.history)), (arch, t.history)
+        loss, _ = api.loss_fn(t.model, t.cfg, t.pipeline.batch(t.step))
+        loss.backward()
+        bad = [n for n, p in t.model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())
+               or not bool((p.grad != 0).any())]
+        assert not bad, (arch, bad)
+        secs = time.perf_counter() - t0
+        log(f"[train] smoke {arch} {' '.join(extra) or '(adamw)'}: losses "
+            f"{[round(v, 4) for v in t.history]}, every gradient of "
+            f"{len(t.params)} tensors finite and nonzero, {secs:.1f} s")
+        out.append({"arch": arch, "args": extra, "losses": t.history,
+                    "seconds": secs})
+    return out
+
+
+def phase_train() -> None:
+    """SmolLM-135M trains at full width (`_train_runs`) and its trained
+    head is scored compressed over the whole batch (`_score_head`); then
+    every smoke config trains on the card (`_train_smoke_configs`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _train_cfg()
+    pipe = SyntheticTokens(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          seed=SEED))
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        a, b, run = _train_runs(cfg, pipe, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ha, hb = a.history, b.history
+    resume_diff = abs(ha[-1] - hb[-1])
+    first, last = statistics.mean(ha[:5]), statistics.mean(ha[-5:])
+    same = max(abs(x - y) for x, y in zip(ha, hb[:TRAIN_FAIL_AT]))
+    ms = run["step_ms"]
+    spread = _spread(ms[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (spread["p50"] / 1e3)
+    saves = b.ckpt.saves
+    log(f"[train] uninterrupted: loss {ha[0]:.4f} -> {ha[-1]:.4f} (first 5 "
+        f"mean {first:.4f}, last 5 {last:.4f}); step (CUDA events, steps "
+        f"1-{TRAIN_STEPS - 1}) p10 {spread['p10']:.2f} / p50 "
+        f"{spread['p50']:.2f} / p90 {spread['p90']:.2f} ms, step 0 "
+        f"{ms[0]:.1f} ms; {tok_s:,.0f} tokens/s; peak "
+        f"{run['peak_bytes'] / 2**30:.2f} GiB allocated | {card()}")
+    log(f"[train] crash at {TRAIN_FAIL_AT}, restore at step "
+        f"{2 * TRAIN_CKPT_EVERY} ({run['restored_leaves']} leaves bitwise "
+        f"the saved state, {run['restore_s']:.2f} s), resumed to "
+        f"{TRAIN_STEPS}: final loss {hb[-1]:.6f} vs {ha[-1]:.6f}, diff "
+        f"{resume_diff:.2e} (limit {TRAIN_RESUME_TOL:g}); the first "
+        f"{TRAIN_FAIL_AT} losses differ by at most {same:.2e}; checkpoints "
+        + ", ".join(f"step {r['step']}: {r['bytes'] / 1e9:.3f} GB, snapshot "
+                    f"{r['snapshot_s']:.2f} s, write {r['write_s']:.2f} s"
+                    for r in saves)
+        + f"; wall {run['a_s']:.1f} s uninterrupted, {run['b_s']:.1f} s "
+        f"with checkpoints, crash and restore")
+    assert resume_diff <= TRAIN_RESUME_TOL, (ha[-1], hb[-1])
+    assert last < first, "the loss did not fall"
+    head = _score_head(b.model, cfg, pipe.batch(b.step))
+    del a, b
+    torch.cuda.empty_cache()
+    smoke = _train_smoke_configs()
+    RESULTS["train"] = {**run, "losses": ha, "losses_resumed": hb,
+                        "resume_diff": resume_diff, "first5": first,
+                        "last5": last, "step_spread_ms": spread,
+                        "tokens_per_s": tok_s, "checkpoints": saves,
+                        "head": head, "smoke": smoke}
+    RESULTS["launches_train"] = head["launches"]
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -2310,6 +2578,8 @@ def main() -> int:
     phase_shard(sl, model, prompts, streams)
     done("4i")
     del model
+    phase_train()
+    done("4j")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -2343,7 +2613,8 @@ def main() -> int:
                 RESULTS["calibration"]["launches"].get(name, 0),
             "launches_engine": RESULTS["launches_engine"][name],
             "launches_engine_ssm": RESULTS["launches_engine_ssm"][name],
-            "launches_shard": RESULTS["launches_shard"][name]})
+            "launches_shard": RESULTS["launches_shard"][name],
+            "launches_train": RESULTS["launches_train"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

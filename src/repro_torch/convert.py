@@ -20,7 +20,9 @@ fused contraction.
 
 `model_from_jax_params` carries a model's weights across: the JAX
 package's parameter tree, as numpy arrays, becomes this package's model of
-the same family (`api.build_model`) with the same weights.
+the same family (`api.build_model`) with the same weights;
+`jax_tree_from_model` carries a model's weights, or their gradients, back
+into that tree.
 """
 
 from __future__ import annotations
@@ -209,40 +211,75 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def _load(p: torch.Tensor, a: np.ndarray, name: str) -> None:
+    if tuple(a.shape) != tuple(p.shape):
+        raise RuntimeError(f"{name}: shape {tuple(a.shape)}, the model's "
+                           f"is {tuple(p.shape)}")
+    if a.dtype.name == "bfloat16":         # ml_dtypes: no torch view
+        a = a.astype(np.float32)
+    with torch.no_grad():
+        p.copy_(torch.from_numpy(np.array(a)))
+
+
 def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda"):
     """This package's model of ``cfg`` holding the weights of the JAX
     package's ``params`` (``init_params``'s tree with its leaves as numpy
     arrays: ``jax.tree.map(np.asarray, params)``, done by the caller).
 
-    The reference stacks each layer leaf over the layers (``vmap``); leaf
-    ``layers.attn.wq`` of shape (n_layers, d, H*hd) becomes
-    ``layers.<i>.attn.wq`` for each i, and so do the encdec family's
-    ``enc_layers.*`` and ``dec_layers.*`` over ``n_enc_layers`` and
-    ``n_dec_layers`` (each ``or n_layers``); the hybrid family's one
-    ``shared_attn`` block is not stacked. A tied config takes no ``head``,
-    an untied one needs it, and a moe config's ``router``, ``wi``, ``wg``,
-    ``wo`` carry across the same way: every weight of the model must be
-    given exactly once, at its shape, or this raises. bfloat16 leaves go
-    through float32 (exactly); float32 leaves (the SSM's ``A_log``, ``D``,
-    ``dt_bias``) stay float32."""
+    The leaves are matched by `api.reference_leaves`: the reference stacks
+    each layer leaf over the layers (``vmap``), so leaf ``layers.attn.wq``
+    of shape (n_layers, d, H*hd) fills ``layers.<i>.attn.wq`` for each i,
+    and so do the encdec family's ``enc_layers.*`` and ``dec_layers.*``
+    over ``n_enc_layers`` and ``n_dec_layers`` (each ``or n_layers``); the
+    hybrid family's one ``shared_attn`` block is not stacked. A tied
+    config takes no ``head``, an untied one needs it, and a moe config's
+    ``router``, ``wi``, ``wg``, ``wo`` carry across the same way: every
+    weight of the model must be given exactly once, at its shape, or this
+    raises. bfloat16 leaves go through float32 (exactly); float32 leaves
+    (the SSM's ``A_log``, ``D``, ``dt_bias``) stay float32."""
     model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
                             device=device)
-    stacks = {"layers": cfg.n_layers,
-              "enc_layers": cfg.n_enc_layers or cfg.n_layers,
-              "dec_layers": cfg.n_dec_layers or cfg.n_layers}
-    state = {}
-    for name, a in _flatten(params).items():
-        if a.dtype.name == "bfloat16":     # ml_dtypes: no torch view
-            a = a.astype(np.float32)
-        stack, _, rest = name.partition(".")
-        if stack in stacks:
-            if a.shape[0] != stacks[stack]:
+    leaves = api.reference_leaves(model, cfg)
+    flat = _flatten(params)
+    extra = sorted(set(flat) - set(leaves))
+    missing = sorted(set(leaves) - set(flat))
+    if extra or missing:
+        raise RuntimeError(f"weights the model lacks: {extra}; weights "
+                           f"not given: {missing}")
+    for name, p in leaves.items():
+        a = flat[name]
+        if isinstance(p, list):
+            if a.shape[0] != len(p):
                 raise ValueError(f"{name}: {a.shape[0]} stacked layers, "
-                                 f"config has {stacks[stack]}")
-            for i in range(stacks[stack]):
-                state[f"{stack}.{i}.{rest}"] = torch.from_numpy(
-                    np.array(a[i]))
+                                 f"config has {len(p)}")
+            for i, t in enumerate(p):
+                _load(t, a[i], f"{name}[{i}]")
         else:
-            state[name] = torch.from_numpy(np.array(a))
-    model.load_state_dict(state, strict=True)
+            _load(p, a, name)
     return model
+
+
+def jax_tree_from_model(cfg: ArchConfig, model, *, grads: bool = False
+                        ) -> dict:
+    """The inverse of `model_from_jax_params`: the model's weights (with
+    ``grads=True`` their ``.grad``, zeros where a parameter has none) as
+    the reference's nested parameter tree of numpy arrays, each layer leaf
+    stacked over its layers. bfloat16 tensors come back as float32
+    (exactly)."""
+    def host(p: torch.Tensor) -> np.ndarray:
+        t = p.grad if grads else p
+        t = torch.zeros_like(p) if t is None else t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy().copy()
+
+    tree: dict = {}
+    for name, p in api.reference_leaves(model, cfg).items():
+        a = (np.stack([host(t) for t in p]) if isinstance(p, list)
+             else host(p))
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = a
+    return tree

@@ -1,1 +1,2 @@
-"""Launchers: `python -m repro_torch.launch.serve`."""
+"""Launchers: `python -m repro_torch.launch.serve` and
+`python -m repro_torch.launch.train`."""

@@ -3,10 +3,11 @@ reference picks a module by family over a bare parameter tree; here
 `build_model` picks the model class, and the model's own methods
 (`forward`, `forward_hidden`, `prefill`, `decode_step`, `decode_hidden`,
 `make_decode_cache`, `cache_insert_slot`) are the entry points.
+`loss_fn` is the training loss over a model, and `reference_leaves`
+groups a model's parameters as the reference's stacked parameter tree.
 
 The dense, moe and vlm families run `transformer.py`, the ssm and hybrid
-families `hybrid.py`, the encdec family `encdec.py`; the training loss
-waits for ROADMAP.md A7.
+families `hybrid.py`, the encdec family `encdec.py`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.transformer import Transformer
+
+_MOE_AUX_WEIGHT = 0.01
 
 _FAMILIES = {"dense": Transformer, "moe": Transformer, "vlm": Transformer,
              "ssm": Hybrid, "hybrid": Hybrid, "encdec": EncDec}
@@ -34,3 +37,56 @@ def build_model(cfg: ArchConfig, *, generator: torch.Generator,
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def masked_ce(logits: torch.Tensor, targets, mask=None) -> tuple:
+    """Masked next-token cross entropy of (B, S, V) logits, in float32, the
+    mask defaulting to ones: (``nll / max(mask.sum(), 1)``, the mask's
+    sum). The gold logit is picked by an iota compare, as the reference
+    does, so its gradient is a ``where`` (no scatter)."""
+    logits = logits.float()
+    dev = logits.device
+    targets = torch.as_tensor(targets, device=dev)
+    mask = (torch.ones(targets.shape, device=dev) if mask is None
+            else torch.as_tensor(mask, device=dev).float())
+    logz = torch.logsumexp(logits, dim=-1)
+    iota = torch.arange(logits.shape[-1], device=dev)
+    gold = torch.where(iota == targets[..., None], logits, 0.0).sum(-1)
+    tokens = mask.sum()
+    return ((logz - gold) * mask).sum() / torch.clamp(tokens, min=1.0), \
+        tokens
+
+
+def loss_fn(model: nn.Module, cfg: ArchConfig, batch) -> tuple:
+    """The reference's ``loss_fn``: `masked_ce` of the model's logits (+ the
+    MoE load-balance aux). Returns (loss, metrics ``nll``, ``aux``,
+    ``tokens``)."""
+    logits, aux = model(batch)
+    loss, tokens = masked_ce(logits, batch["targets"], batch.get("mask"))
+    metrics = {"nll": loss, "aux": aux, "tokens": tokens}
+    if cfg.family == "moe":
+        loss = loss + _MOE_AUX_WEIGHT * aux
+    return loss, metrics
+
+
+def reference_leaves(model: nn.Module, cfg: ArchConfig) -> dict:
+    """The model's parameters grouped as the reference's parameter tree,
+    by its dotted leaf name, in the reference's leaf order (each level's
+    keys sorted). The reference stacks each layer leaf over the layers: a
+    name under ``layers`` (``enc_layers``, ``dec_layers``) maps to the list
+    of its per-layer tensors, ``layers.<i>.attn.wq`` at index i of
+    ``layers.attn.wq``. Every other leaf (the embedding, the norms, the
+    hybrid family's one ``shared_attn`` block) maps to its tensor."""
+    depth = {"layers": cfg.n_layers,
+             "enc_layers": cfg.n_enc_layers or cfg.n_layers,
+             "dec_layers": cfg.n_dec_layers or cfg.n_layers}
+    out: dict = {}
+    for name, p in model.named_parameters():
+        stack, _, rest = name.partition(".")
+        if stack in depth:
+            i, _, leaf = rest.partition(".")
+            out.setdefault(f"{stack}.{leaf}", [None] * depth[stack])[
+                int(i)] = p
+        else:
+            out[name] = p
+    return {k: out[k] for k in sorted(out, key=lambda k: k.split("."))}

@@ -19,7 +19,7 @@ from repro_torch.kernels.pack import check_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        cache_write, insert_slot, lm_head,
-                                       pos_vector, rope_tables)
+                                       pos_vector, remat, rope_tables)
 
 
 class EncLayer(nn.Module):
@@ -66,7 +66,9 @@ class EncDec(nn.Module):
     ``device`` (``"cuda"`` unless the caller asks for the CPU). Module
     names follow the reference's parameter tree: ``embed``,
     ``enc_layers.<i>``, ``enc_norm``, ``dec_layers.<i>``, ``dec_norm``.
-    Every weight is frozen."""
+    Every weight is built frozen, for serving; a trainer unfreezes its
+    model. With ``cfg.remat`` each encoder and decoder layer is
+    checkpointed while grad is enabled."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator,
                  device="cuda"):
@@ -101,7 +103,7 @@ class EncDec(nn.Module):
             self.cfg.param_dtype)
         rot = self._prompt_rope(x.shape[1])
         for layer in self.enc_layers:
-            x = layer(x, rot)
+            x = remat(self.cfg, layer, x, rot)
         return self.enc_norm(x)
 
     def _decode_prompt(self, batch, **kw):
@@ -110,7 +112,7 @@ class EncDec(nn.Module):
         rot = self._prompt_rope(x.shape[1])
         caches = []
         for layer in self.dec_layers:
-            x, c = layer(x, rot, memory, **kw)
+            x, c = remat(self.cfg, layer, x, rot, memory, **kw)
             caches.append(c)
         return self.dec_norm(x), memory, caches
 

@@ -27,7 +27,7 @@ from repro_torch.kernels.pack import check_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        _dense_init, cache_write, insert_slot,
-                                       lm_head, matmul, pos_vector,
+                                       lm_head, matmul, pos_vector, remat,
                                        rope_tables)
 from repro_torch.models.ssm import SSM, ssm_cache_init
 
@@ -80,7 +80,10 @@ class Hybrid(nn.Module):
     ``device`` (``"cuda"`` unless the caller asks for the CPU). Module
     names follow the reference's parameter tree: ``embed``,
     ``layers.<i>.{ln,ssm}``, ``final_norm`` and, for the hybrid family,
-    ``shared_attn.{in_proj,ln1,attn,ln2,mlp}``. Every weight is frozen."""
+    ``shared_attn.{in_proj,ln1,attn,ln2,mlp}``. Every weight is built
+    frozen, for serving; a trainer unfreezes its model. With ``cfg.remat``
+    each SSM layer is checkpointed while grad is enabled (the shared block
+    is not, as in the reference)."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator,
                  device="cuda"):
@@ -106,7 +109,7 @@ class Hybrid(nn.Module):
         x0 = x
         ssm_caches, attn_caches = [], []
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, **ssm_kw(i))
+            x, c = remat(self.cfg, layer, x, **ssm_kw(i))
             ssm_caches.append(c)
             g = i // every
             if g < n_groups and i % every == every - 1:

@@ -20,6 +20,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.config import ArchConfig
@@ -30,13 +31,25 @@ NEG = -1e30                 # the reference's masking constant
 def _dense_init(generator: torch.Generator, shape, dtype, device,
                 scale=None) -> nn.Parameter:
     """Normal weights of std ``scale`` (default 1/sqrt(fan_in)), drawn in
-    float32 from ``generator`` and cast to ``dtype``; frozen (the serving
-    path takes no gradients)."""
+    float32 from ``generator`` and cast to ``dtype``; frozen, since the
+    serving path takes no gradients (a trainer unfreezes its own model with
+    ``requires_grad_(True)``)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * scale
     return nn.Parameter(w.to(device=device, dtype=dtype),
                         requires_grad=False)
+
+
+def remat(cfg: ArchConfig, fn, *args, **kw):
+    """``fn(*args, **kw)``, its activations recomputed in the backward where
+    ``cfg.remat`` is set and grad is enabled: the reference's
+    ``jax.checkpoint`` around a layer. Without grad (serving) it is a plain
+    call."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:

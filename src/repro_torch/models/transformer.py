@@ -18,7 +18,7 @@ from repro_torch.kernels.pack import check_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        cache_write, insert_slot, lm_head,
-                                       pos_vector, rope_tables)
+                                       pos_vector, remat, rope_tables)
 from repro_torch.models.moe import MoE
 
 
@@ -55,7 +55,9 @@ class Transformer(nn.Module):
     the caller asks for the CPU; a CUDA request without a card raises).
     Module names follow the reference's parameter tree: ``embed.tok``
     (``embed.head`` when untied), ``layers.<i>.{ln1,attn,ln2,mlp|moe}``,
-    ``final_norm``. Every weight is frozen: this is the serving path."""
+    ``final_norm``. Every weight is built frozen, for serving; a trainer
+    unfreezes its model. With ``cfg.remat`` each layer of `forward_hidden`
+    is checkpointed while grad is enabled."""
 
     def __init__(self, cfg: ArchConfig, *, generator: torch.Generator,
                  device="cuda"):
@@ -96,7 +98,7 @@ class Transformer(nn.Module):
         rot = self._prompt_rope(x.shape[1])
         aux = torch.zeros((), device=self.device)
         for layer in self.layers:
-            x, a, _ = layer(x, rot)
+            x, a, _ = remat(self.cfg, layer, x, rot)
             aux = aux + a
         x = self.final_norm(x)
         if self.cfg.family == "vlm" and "frontend" in batch:

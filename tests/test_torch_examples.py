@@ -4,6 +4,9 @@
 on the port: a smoke SmolLM with random weights, its LM head compressed,
 the compressed logits against the head's decoded dense matrix, and six
 requests served through the engine with the compressed head.
+`examples/train_lm_torch.py` repeats `examples/train_lm.py`: a tiny SmolLM
+trains with checkpoints, crashes, restores and finishes, its loss falls,
+and its trained head is scored compressed over the whole batch.
 """
 
 import importlib.util
@@ -15,11 +18,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE = ROOT / "examples" / "sparse_inference_torch.py"
+TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
 
 
-def _example():
-    spec = importlib.util.spec_from_file_location("sparse_inference_torch",
-                                                  EXAMPLE)
+def _example(path=EXAMPLE):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -42,8 +45,60 @@ def test_sparse_inference_example_needs_a_card_by_default():
         _example().main()
 
 
-def test_sparse_inference_example_imports_no_jax_and_no_repro():
-    src = EXAMPLE.read_text()
+def _imports_no_jax_and_no_repro(path):
+    src = path.read_text()
     assert re.search(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)",
                      src, re.MULTILINE) is None
     assert "from repro_torch" in src
+
+
+def test_sparse_inference_example_imports_no_jax_and_no_repro():
+    _imports_no_jax_and_no_repro(EXAMPLE)
+
+
+def test_train_example_imports_no_jax_and_no_repro():
+    _imports_no_jax_and_no_repro(TRAIN_EXAMPLE)
+
+
+def test_train_example_runs_on_the_cpu(capsys):
+    t = _example(TRAIN_EXAMPLE).main(
+        ["--tiny", "--steps", "12", "--fail-at", "7", "--ckpt-every", "5",
+         "--device", "cpu"])
+    assert t.step == 12 and len(t.history) == 7 + 7   # 0-6, then 5-11
+    out = capsys.readouterr().out
+    for line in ("injected failure at step 7", "restored=True at step 5",
+                 "training loss decreased: OK", "pool B=512",
+                 "eval loss: dense-head"):
+        assert line in out
+
+
+def test_sparse_head_eval_scores_the_whole_pool():
+    mod = _example(TRAIN_EXAMPLE)
+    from repro_torch import configs
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
+    from repro_torch.models import api
+    cfg = configs.get_smoke("smollm-135m").with_(vocab=96)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(2),
+                            device="cpu")
+    batch = SyntheticTokens(PipelineConfig(vocab=96, seq_len=24,
+                                           global_batch=3)).batch(0)
+    dense, sparse, head, hidden, logits = mod.sparse_head_eval(
+        model, cfg, batch, sparsity=0.0, value_bits=16)
+    assert hidden.shape == (3, 24, cfg.d_model) and hidden.dtype == \
+        torch.float32
+    assert logits.shape == (3, 24, 96)
+    assert torch.allclose(logits, head.apply_dense_reference(hidden),
+                          rtol=1e-4, atol=1e-5)
+    assert head.apply(hidden.reshape(-1, cfg.d_model)[:5]).equal(
+        logits.reshape(-1, 96)[:5])
+    assert abs(dense - sparse) < 1e-3          # unpruned, 16-bit values
+    with torch.no_grad():
+        want, _ = api.loss_fn(model, cfg, batch)
+    assert dense == pytest.approx(float(want), rel=1e-6)
+
+
+def test_train_example_needs_a_card_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _example(TRAIN_EXAMPLE).main(["--tiny", "--steps", "2"])

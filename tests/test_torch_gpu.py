@@ -8,16 +8,19 @@ a GPU machine that has only PyTorch:
 The ``gpu`` tests hold each kernel against its plain torch version on the
 card (rtol 1e-4 f32 / 1e-12 f64, the reference's tolerances) and the
 port's schedules against each other bitwise, time a registry runner
-and a measured selection with CUDA events, and serve the smoke model
-through the engine's compressed head and the launcher; they skip in their
-body where torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
+and a measured selection with CUDA events, serve the smoke model
+through the engine's compressed head and the launcher, take a smoke
+training step and score a trained head through the dtANS SpMM; they skip
+in their body where torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
 failing compile must raise.
 """
 
 import dataclasses
+import importlib.util
 import os
 import stat
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -28,6 +31,7 @@ from repro_torch.autotune import measure
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
 from repro_torch.core.params import TOY
+from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
 from repro_torch.kernels import _build, ops, padded, tiling
 from repro_torch.kernels import bcsr_spmv as BC
 from repro_torch.kernels import dtans_decode as DD
@@ -44,6 +48,7 @@ from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES
 from repro_torch.sparse.formats import CSR
 from repro_torch.sparse.random_graphs import block_sparse
 from repro_torch.sparse.rgcsr import RGCSR
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 from hand_made_packs import HAND_LENGTHS, HAND_MADE
 
@@ -1439,3 +1444,58 @@ def test_pooled_step_with_a_two_shard_head_captures_on_card():
         hidden, _ = model.decode_hidden(cache, toks, pos)
         assert torch.equal(two.apply(hidden), one.apply(hidden))
     assert torch.equal(logits, eager)
+
+
+def _train_example():
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_smoke_train_step_on_card():
+    """One AdamW step of the smoke SmolLM at 2 microbatches on the card:
+    the loss is the CPU trainer's on the same weights (rtol 1e-4), the
+    gradient norm finite and every parameter moved."""
+    _need_card()
+    cfg = configs.get_smoke("smollm-135m")
+    pipe = SyntheticTokens(PipelineConfig(vocab=cfg.vocab, seq_len=32,
+                                          global_batch=4))
+    losses = []
+    for dev in ("cpu", "cuda"):
+        t = Trainer(cfg, TrainConfig(microbatches=2), pipe, device=dev,
+                    generator=torch.Generator().manual_seed(3))
+        before = [p.detach().clone() for p in t.params]
+        m = t.train_step(pipe.batch(0))
+        assert bool(torch.isfinite(m["gnorm"])) and float(m["gnorm"]) > 0
+        assert all(not torch.equal(p, b) for p, b in zip(t.params, before))
+        losses.append(float(m["loss"]))
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_sparse_head_eval_launches_dtans_spmm_on_card():
+    """`examples/train_lm_torch.py::sparse_head_eval` contracts the whole
+    (B, S) pool of a smoke model in one ``dtans_spmm`` launch, within
+    rtol 1e-4 / atol 1e-5 of the decoded head, its first rows bitwise
+    the same rows applied alone."""
+    _need_card()
+    cfg = configs.get_smoke("smollm-135m").with_(vocab=256)
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cuda")
+    batch = SyntheticTokens(PipelineConfig(vocab=256, seq_len=64,
+                                           global_batch=4)).batch(0)
+    K.reset_launches()
+    dense, sparse, head, hidden, logits = _train_example().sparse_head_eval(
+        model, cfg, batch, sparsity=0.6)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launches.items() if v} == {"dtans_spmm": 1}
+    assert logits.shape == (4, 64, 256) and logits.is_cuda
+    assert torch.allclose(logits, head.apply_dense_reference(hidden),
+                          rtol=1e-4, atol=1e-5)
+    assert torch.equal(head.apply(hidden.reshape(-1, cfg.d_model)[:16]),
+                       logits.reshape(-1, 256)[:16])
+    assert np.isfinite(dense) and np.isfinite(sparse)
