@@ -134,6 +134,27 @@ Phases, each raising on failure (no phase falls back to the CPU):
    config trains 3 steps through ``repro_torch.launch.train.main`` (one
    also with Adafactor, one at 2 microbatches with gradient compression):
    finite losses, every parameter's gradient finite and nonzero.
+4k. data parallelism and elasticity at full width: 4j's SmolLM-135M on 2
+   gloo ranks of this one card (``DataParallelTrainer`` over a ``"data"``
+   mesh, 8 x 512 each, the f32 gradients all-reduced in one flat bucket),
+   then shrunk in the same world to one rank (``resize``: the state
+   resharded onto a one-rank mesh, the global batch of 16 kept in 2
+   microbatches): every step's loss held against a one-rank ``Trainer`` on
+   the concatenated shard batches (`DP_LOSS_RTOL`); the all-reduce bytes
+   ``op_cost`` counts in a step equal the gradients' bytes plus the 4-byte
+   loss, and half of them with ``grad_compress``; step p50 by CUDA events
+   with the all-reduces' share.
+4l. the CG solve: ``examples/cg_solver_torch.py``'s CG on
+   ``stencil_2d(512)`` in float64 (262,144 unknowns) to a relative residual
+   of 1e-10 through B1 (``dtans_spmv``: iterations + 1 launches), and the
+   same CG through cuSPARSE CSR: both errors against ``x_true`` under kappa
+   x tol, the iteration counts within 2%; ms an iteration; one SpMV of each
+   timed as phase 5 times B=1, beside the bound.
+4m. ``examples/quickstart_torch.py`` on the card: its SpMV and its
+   ``SparseLinear(auto=True)`` batch launch kernels (counted).
+The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card);
+   its bound must lie below 4j's measured step p50, and the roofline's
+   80 GiB within 5% of the card's memory.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -150,7 +171,10 @@ Phases, each raising on failure (no phase falls back to the CPU):
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
-writes every number it measured to PATH. Imports nothing of JAX.
+writes every number it measured to PATH. Phases 4j-4m and the roofline
+check (after 4j) need nothing of the earlier ones: ``python -c "import
+chip_smoke as c; c.phase_device(); c.phase_build(); c.phase_dp()"`` runs
+one alone. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -160,6 +184,7 @@ import contextlib
 import ctypes
 import io
 import json
+import math
 import re
 import shutil
 import statistics
@@ -174,7 +199,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.append(str(ROOT / "tests"))  # hand_made_packs, torch_shard_ranks
-sys.path.append(str(ROOT / "examples"))  # train_lm_torch
+sys.path.append(str(ROOT / "examples"))  # train_lm, cg_solver, quickstart
 
 import torch  # noqa: E402
 
@@ -192,9 +217,11 @@ from repro_torch.kernels import rgcsr_spmv as RG  # noqa: E402
 from repro_torch.kernels import sell_spmv as SE  # noqa: E402
 from repro_torch.kernels.pack import pack_matrix, to_device  # noqa: E402
 from repro_torch.kernels.ref import decode_ref  # noqa: E402
+from repro_torch.launch import dryrun, op_cost, roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.mesh import spawn  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, make_debug_mesh, spawn  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
 from repro_torch.sparse.bcsr import BCSR, BCSR_BLOCK_SHAPES  # noqa: E402
@@ -204,8 +231,12 @@ from repro_torch.sparse.random_graphs import block_sparse, stencil_2d  # noqa: E
 from repro_torch.sparse import registry  # noqa: E402
 from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
+from repro_torch.train.data_parallel import DataParallelTrainer  # noqa: E402
+from repro_torch.train.elastic import reshard  # noqa: E402
 from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
+import quickstart_torch  # noqa: E402
+from cg_solver_torch import cg as cg_torch  # noqa: E402
 from hand_made_packs import HAND_MADE  # noqa: E402
 from torch_shard_ranks import rank_spmm  # noqa: E402
 from train_lm_torch import sparse_head_eval  # noqa: E402
@@ -2236,6 +2267,330 @@ def phase_train() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4k. data parallelism and elasticity at full width
+# ---------------------------------------------------------------------------
+
+DP_RANKS, DP_STEPS, DP_SHRUNK_STEPS = 2, 6, 3
+# Each step's loss against the one-rank `Trainer` on the concatenated
+# shard batches. Two ranks add their two f32 gradient sums in the one
+# order a sum of two has, so the runs may well be bitwise; the limit
+# allows a bf16 weight whose f32 master differs in its last bit after
+# another sum order to round the other way (2^-8 of that weight), which
+# moves a loss far less than 1e-3 in 9 steps.
+DP_LOSS_RTOL = 1e-3
+
+
+def _events():
+    return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+
+def _timed_run(t, step: int) -> float:
+    """`t.run` to ``step + 1`` between CUDA events; ms."""
+    ev = _events()
+    ev[0].record()
+    t.run(step + 1, log_every=0)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def dp_rank(mesh, cfg) -> dict:
+    """One rank of phase 4k (at module level: the ranks import this script
+    by name). One step of a `grad_compress` trainer counted by `op_cost`;
+    then `DP_STEPS` steps of the plain trainer, the first `DP_STEPS` - 1
+    between CUDA events with events around its all-reduces, the last
+    counted by `op_cost`; then every rank builds a one-rank mesh, `resize`
+    moves the state onto it, and its one rank trains `DP_SHRUNK_STEPS`
+    more steps on the whole global batch in 2 microbatches."""
+    pipe = SyntheticTokens(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          seed=SEED))
+
+    def trainer(**kw):
+        return DataParallelTrainer(
+            cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                             microbatches=1, **kw), pipe, mesh,
+            generator=torch.Generator().manual_seed(SEED), device="cuda")
+
+    out = {"rank": mesh.get_coordinate()[0]}
+    t = trainer(grad_compress=True)
+    _, c = op_cost.analyze(t.train_step, t.batch(0))
+    out["compress"] = {"raw": c.coll_raw["all-reduce"],
+                       "count": c.coll_counts["all-reduce"],
+                       "grad_bytes": sum(2 * p.numel() for p in t.params)}
+    del t, c
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = trainer()
+    reduce, pending = t._all_reduce, []
+
+    def timed(flat):
+        ev = _events()
+        ev[0].record()
+        reduce(flat)
+        ev[1].record()
+        pending.append(ev)
+    t._all_reduce = timed
+    step_ms, ar_ms = [], []
+    for step in range(DP_STEPS - 1):
+        pending.clear()
+        step_ms.append(_timed_run(t, step))
+        ar_ms.append(sum(e0.elapsed_time(e1) for e0, e1 in pending))
+    t._all_reduce = reduce
+    m, c = op_cost.analyze(t.train_step, t.batch(t.step))
+    t.history.append(float(m["loss"]))
+    t.step += 1
+    out["plain"] = {"raw": c.coll_raw["all-reduce"],
+                    "count": c.coll_counts["all-reduce"],
+                    "grad_bytes": sum(4 * p.numel() for p in t.params)}
+    out.update(step_ms=step_ms, all_reduce_ms=ar_ms,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    one = make_debug_mesh((1,), ("data",), "cuda")
+    t0 = time.perf_counter()
+    t.resize(one)
+    torch.cuda.synchronize()
+    out["resize_s"] = time.perf_counter() - t0
+    probe = reshard(torch.ones((4, 3), device="cuda"), one, ("data", None))
+    out["probe_local"] = tuple(probe.to_local().shape)
+    out["active_after"] = t.active
+    out["microbatches_after"] = t.tcfg.microbatches if t.active else None
+    out["shrunk_ms"] = [_timed_run(t, step) for step in
+                        range(DP_STEPS, DP_STEPS + DP_SHRUNK_STEPS)
+                        if t.active]
+    out["history"] = t.history
+    return out
+
+
+def phase_dp() -> None:
+    """Phase 4k: SmolLM-135M as 4j trains data-parallel on `DP_RANKS`
+    gloo ranks on this one card (NCCL refuses two ranks on one GPU), 8 x
+    512 each, then shrinks to one rank that keeps the global batch of 16
+    in 2 microbatches; every step's loss is held against a one-rank
+    `Trainer` on the concatenated shard batches (`DP_LOSS_RTOL`), and the
+    all-reduce bytes `op_cost` counts against the gradients' bytes."""
+    cfg = _train_cfg()
+    t0 = time.perf_counter()
+    ranks = spawn(DP_RANKS, dp_rank, cfg, device_type="cuda",
+                  backend="gloo", axes=("data",), timeout_s=900.0)
+    ranks_s = time.perf_counter() - t0
+    pipe = SyntheticTokens(PipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                          global_batch=TRAIN_BATCH,
+                                          seed=SEED))
+    ref = Trainer(cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                                   microbatches=DP_RANKS), pipe,
+                  device="cuda", generator=torch.Generator().manual_seed(SEED))
+    want = []
+    for step in range(DP_STEPS + DP_SHRUNK_STEPS):
+        parts = [pipe.batch(step, shard=j, num_shards=DP_RANKS)
+                 for j in range(DP_RANKS)]
+        want.append(float(ref.train_step(
+            {k: np.concatenate([q[k] for q in parts]) for k in parts[0]}
+        )["loss"]))
+    del ref
+    torch.cuda.empty_cache()
+    got = ranks[0]["history"]
+    assert len(got) == DP_STEPS + DP_SHRUNK_STEPS, len(got)
+    assert ranks[1]["history"] == got[:DP_STEPS]
+    assert [r["active_after"] for r in ranks] == [True, False]
+    # the rank outside the one-rank mesh holds an empty shard
+    assert [r["probe_local"] for r in ranks] == [(4, 3), (0,)], ranks
+    assert ranks[0]["microbatches_after"] == DP_RANKS
+    rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    for r in ranks:
+        assert r["plain"]["count"] == 2 and r["compress"]["count"] == 2
+        assert r["plain"]["raw"] == r["plain"]["grad_bytes"] + 4
+        assert r["compress"]["raw"] == r["compress"]["grad_bytes"] + 4
+        assert 2 * r["compress"]["grad_bytes"] == r["plain"]["grad_bytes"]
+    ms, ar = ranks[0]["step_ms"][1:], ranks[0]["all_reduce_ms"][1:]
+    spread, share = _spread(ms), sum(ar) / sum(ms)
+    log(f"[dp] SmolLM-135M as 4j on {DP_RANKS} gloo ranks of this card, "
+        f"{TRAIN_BATCH // DP_RANKS} x {TRAIN_SEQ} each: step (CUDA events, "
+        f"rank 0, steps 1-{DP_STEPS - 2}) p10 {spread['p10']:.1f} / p50 "
+        f"{spread['p50']:.1f} / p90 {spread['p90']:.1f} ms, the all-reduces "
+        f"{sum(ar) / len(ar):.1f} ms a step ({share:.1%} of it); peak "
+        f"{ranks[0]['peak_bytes'] / 2**30:.2f} GiB a rank | {card()}")
+    log(f"[dp] all-reduce a step counted by op_cost: "
+        f"{ranks[0]['plain']['raw']:,} B in 2 calls = the f32 gradients' "
+        f"{ranks[0]['plain']['grad_bytes']:,} B + the 4-byte loss; with "
+        f"grad_compress {ranks[0]['compress']['raw']:,} B (bf16: half)")
+    log(f"[dp] shrink to 1 rank (resize {ranks[0]['resize_s']:.2f} s), "
+        f"global batch {TRAIN_BATCH} kept in {DP_RANKS} microbatches: step "
+        f"{statistics.median(ranks[0]['shrunk_ms']):.1f} ms (median of "
+        f"{DP_SHRUNK_STEPS}); the idle rank's shard of a resharded (4, 3) "
+        f"tensor {ranks[1]['probe_local']}; losses "
+        f"{[round(v, 4) for v in got]}; against "
+        f"the one-rank Trainer on the concatenated shards max rel diff "
+        f"{max(rel):.2e} (limit {DP_LOSS_RTOL:g}); {ranks_s:.1f} s for the "
+        f"ranks")
+    assert max(rel) <= DP_LOSS_RTOL, (got, want)
+    RESULTS["dp"] = {"ranks": ranks, "want": want, "rel": rel,
+                     "step_spread_ms": spread, "all_reduce_share": share,
+                     "ranks_s": ranks_s}
+
+
+# ---------------------------------------------------------------------------
+# 4l. the CG solve through B1 in float64
+# ---------------------------------------------------------------------------
+
+CG_SIDE, CG_TOL, CG_MAXITER = 512, 1e-10, 20000
+
+
+def phase_cg() -> None:
+    """Phase 4l: CG on ``stencil_2d(CG_SIDE)`` in float64 (262,144
+    unknowns) to a relative residual of `CG_TOL`, its SpMV B1 (one launch
+    an iteration and one for the first residual), then the same CG with
+    cuSPARSE CSR (``torch.mv`` of a sparse CSR tensor). Each solution's
+    error against ``x_true`` is held under kappa x tol (a residual r
+    allows an error up to kappa r), their iteration counts within 2% of
+    each other; B1 bitwise its plain version on the system; B1 and
+    cuSPARSE CSR timed as phase 5 times a B=1 pass, with the bound."""
+    a = stencil_2d(CG_SIDE)
+    n = a.shape[0]
+    t0 = time.perf_counter()
+    mat = encode_matrix(a, lane_width=128)
+    pm = pack_matrix(mat)
+    enc_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    x_true = rng.standard_normal(n)
+    rows = np.repeat(np.arange(n), np.diff(a.indptr))
+    b_np = np.bincount(rows, weights=a.values * x_true[a.indices],
+                       minlength=n)
+    b = torch.as_tensor(b_np, device="cuda")
+    tol = CG_TOL * float(np.linalg.norm(b_np))
+    # stencil_2d is 4 on the diagonal and -1 to each neighbour: its
+    # eigenvalues are 4 - 2 cos(pi i / (s + 1)) - 2 cos(pi j / (s + 1))
+    c = math.cos(math.pi / (CG_SIDE + 1))
+    kappa = (1 + c) / (1 - c)
+    limit = kappa * CG_TOL
+    a_csr = torch.sparse_csr_tensor(
+        torch.as_tensor(a.indptr, device="cuda"),
+        torch.as_tensor(a.indices, device="cuda"),
+        torch.as_tensor(a.values, device="cuda"), size=a.shape,
+        check_invariants=False)
+    dm = to_device(pm, "cuda")
+    torch.cuda.synchronize()
+    _reset_all()
+    t0 = time.perf_counter()
+    x1, it1 = cg_torch(lambda v: ops.spmv(pm, v, device="cuda"), b, tol,
+                       CG_MAXITER)
+    torch.cuda.synchronize()
+    s1 = time.perf_counter() - t0
+    counts = _all_launches()
+    t0 = time.perf_counter()
+    x2, it2 = cg_torch(lambda v: torch.mv(a_csr, v), b, tol, CG_MAXITER)
+    torch.cuda.synchronize()
+    s2 = time.perf_counter() - t0
+    xt = torch.as_tensor(x_true, device="cuda")
+    nrm = float(torch.linalg.norm(xt))
+    err1 = float(torch.linalg.norm(x1 - xt)) / nrm
+    err2 = float(torch.linalg.norm(x2 - xt)) / nrm
+    agree = float(torch.linalg.norm(x1 - x2)) / nrm
+    v = torch.as_tensor(rng.standard_normal(n), device="cuda")
+    y, y_plain = K.dtans_spmv(dm, v), K.dtans_spmv_plain(dm, v)
+    bitwise = torch.equal(y, y_plain)
+    t_b1 = device_ms(lambda: K.dtans_spmv(dm, v))
+    t_csr = device_ms(lambda: torch.mv(a_csr, v), library=True)
+    plain_ms = time_ms(lambda: K.dtans_spmv_plain(dm, v), 3, 1)
+    b_ms, b_by, nbytes, flops = dtans_bound(mat, pm, n, n, 1)
+    log(f"[cg] stencil_2d({CG_SIDE}): {n:,} unknowns, {a.nnz:,} nonzeros, "
+        f"float64; CSR-dtANS {mat.nbytes:,} B (CSR {a.nnz * 12 + (n + 1) * 4:,} "
+        f"B), encoded in {enc_s:.1f} s; kappa {kappa:.4g}, tol {CG_TOL:g} "
+        f"relative, error limit kappa x tol = {limit:.3g} (the reference's "
+        f"1e-6 at side 48)")
+    log(f"[cg] B1: {it1} iterations, {s1 * 1e3 / it1:.3f} ms an iteration "
+        f"({s1:.2f} s), rel. error {err1:.3e}; launches "
+        f"{({k: v for k, v in counts.items() if v})} (iterations + 1 = "
+        f"{it1 + 1}) | cuSPARSE CSR: {it2} iterations, "
+        f"{s2 * 1e3 / it2:.3f} ms an iteration, rel. error {err2:.3e}; the "
+        f"two solutions {agree:.3e} apart | {card()}")
+    log(f"[cg] one SpMV (median of {RUNS}): B1 f64 {t_b1['ms']:.4f} ms "
+        f"({t_b1['by']}) | cuSPARSE CSR {t_csr['ms']:.4f} ms "
+        f"({t_csr['by']}) | plain {plain_ms:.2f} ms | bound {b_ms:.5f} ms "
+        f"({b_by}); B1 bitwise its plain version: {bitwise} | {card()}")
+    assert counts["dtans_spmv"] == it1 + 1 and sum(counts.values()) == \
+        it1 + 1, counts
+    assert it1 < CG_MAXITER and abs(it1 - it2) <= 0.02 * it2, (it1, it2)
+    assert err1 < limit and err2 < limit and agree < limit, \
+        (err1, err2, agree)
+    assert bitwise, "B1 is not its plain version on the CG system"
+    RESULTS["cg"] = {"n": n, "nnz": a.nnz, "bytes": mat.nbytes,
+                     "encode_s": enc_s, "kappa": kappa, "limit": limit,
+                     "iterations": it1, "iterations_csr": it2,
+                     "ms_per_iteration": s1 * 1e3 / it1,
+                     "ms_per_iteration_csr": s2 * 1e3 / it2,
+                     "rel_error": err1, "rel_error_csr": err2,
+                     "agree": agree, "b1": t_b1, "csr": t_csr,
+                     "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "bound_bytes": nbytes,
+                     "flops": flops}
+    RESULTS["launches_cg"] = counts
+
+
+# ---------------------------------------------------------------------------
+# 4m. the quickstart on the card
+# ---------------------------------------------------------------------------
+
+def phase_quickstart() -> None:
+    """Phase 4m: `examples/quickstart_torch.py` on the card; its SpMV
+    (B1) and its `SparseLinear(auto=True)` batch must launch kernels."""
+    _reset_all()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = quickstart_torch.main(device="cuda")
+    secs = time.perf_counter() - t0
+    counts = _all_launches()
+    for line in buf.getvalue().splitlines():
+        log(f"[quickstart] {line}")
+    log(f"[quickstart] {secs:.1f} s; launches "
+        f"{({k: v for k, v in counts.items() if v})}; layer "
+        f"{out['layer'].decision.config_name} | {card()}")
+    assert counts["dtans_spmv"] >= 1, counts
+    assert sum(counts.values()) > counts["dtans_spmv"], counts
+    RESULTS["quickstart"] = {"seconds": secs, "picks": {
+        f"{g}|{r}": v for (g, r), v in out["picks"].items()},
+        "layer": out["layer"].decision.config_name}
+    RESULTS["launches_quickstart"] = counts
+
+
+# ---------------------------------------------------------------------------
+# the roofline check
+# ---------------------------------------------------------------------------
+
+def phase_roofline() -> None:
+    """`dryrun.run_cell` on phase 4j's cell (SmolLM-135M, bf16, 16 x 512,
+    2 microbatches, one card): its bound must lie below 4j's measured step
+    p50, and the roofline's memory figure within 5% of the card's."""
+    cfg = _train_cfg()
+    rec = dryrun.run_cell(
+        "smollm-135m", "train_4k", "single", None, verbose=False, cfg=cfg,
+        shape=ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        mesh=MeshShape(("data", "model"), (1, 1)), microbatches=2)
+    assert rec["status"] == "ok", rec.get("traceback")
+    r = rec["roofline"]
+    bound_ms = r["bound_s"] * 1e3
+    p50 = RESULTS["train"]["step_spread_ms"]["p50"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    mem_off = abs(total - roofline.HBM_PER_CHIP) / roofline.HBM_PER_CHIP
+    log(f"[roofline] 4j's cell: {rec['flops_per_device'] / 1e12:.3f} TFLOP, "
+        f"{rec['hbm_bytes_per_device'] / 1e9:.1f} GB moved (eager, counted "
+        f"by op_cost): compute {r['compute_s'] * 1e3:.2f} ms, memory "
+        f"{r['memory_s'] * 1e3:.2f} ms -> bound {bound_ms:.2f} ms "
+        f"({r['dominant']}); 4j's step p50 {p50:.1f} ms = "
+        f"{p50 / bound_ms:.2f}x the bound; model FLOPs "
+        f"{rec['model_flops_global'] / 1e12:.3f} T (useful ratio "
+        f"{rec['useful_flops_ratio']:.3f}); reckoned peak "
+        f"{rec['memory']['peak_live_bytes'] / 2**30:.2f} GiB; the card's "
+        f"memory {total:,} B, the roofline's {roofline.HBM_PER_CHIP:,} "
+        f"({mem_off:.1%} apart) | {card()}")
+    assert bound_ms < p50, (bound_ms, p50)
+    assert mem_off <= 0.05, (total, roofline.HBM_PER_CHIP)
+    RESULTS["roofline"] = {"record": rec, "bound_ms": bound_ms,
+                           "step_p50_ms": p50, "ratio": p50 / bound_ms,
+                           "total_memory": total}
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -2338,22 +2693,27 @@ def _roofline(nbytes: int, flops: int, itemsize: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
-    """Least time for one dtANS pass at batch B: the larger of the bytes
-    the function must move (compressed stream and escape words actually
-    present, one per-lane count array, coding tables at 12 bytes a slot,
-    x, y; each once)
-    over the HBM rate, and its multiply-adds (2 nnz B) over the f32 rate.
-    The kernels also read ``ns``, but it is ``2 * nnz`` and not needed."""
-    mat, pm = sl.mat, sl.packed
+def dtans_bound(mat, pm, n_in: int, n_out: int,
+                B: int) -> tuple[float, str, int, int]:
+    """Least time for one dtANS pass of ``mat`` (packed as ``pm``) at
+    batch B: the larger of the bytes the function must move (compressed
+    stream and escape words actually present, one per-lane count array,
+    coding tables at 12 bytes a slot, x, y; each once) over the HBM rate,
+    and its multiply-adds (2 nnz B) over the rate of its float type. The
+    kernels also read ``ns``, but it is ``2 * nnz`` and not needed."""
     item = pm.dtype.itemsize
     nbytes = (int(mat.stream.size) * 4
               + sum(int(e.size) for e in mat.esc_streams) * 8
               + pm.nnz.nbytes
               + pm.tab_symbol.size * 12
-              + sl.d_in * B * item + sl.d_out * B * item)
+              + n_in * B * item + n_out * B * item)
     flops = 2 * mat.nnz * B
     return (*_roofline(nbytes, flops, item), nbytes, flops)
+
+
+def bound(sl: SparseLinear, B: int) -> tuple[float, str, int, int]:
+    """`dtans_bound` of a layer's matrix."""
+    return dtans_bound(sl.mat, sl.packed, sl.d_in, sl.d_out, B)
 
 
 def comparator_bound(csr: CSR, fmt: str, rows, pk,
@@ -2580,6 +2940,14 @@ def main() -> int:
     del model
     phase_train()
     done("4j")
+    phase_dp()
+    done("4k")
+    phase_cg()
+    done("4l")
+    phase_quickstart()
+    done("4m")
+    phase_roofline()
+    done("roofline")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -2614,7 +2982,9 @@ def main() -> int:
             "launches_engine": RESULTS["launches_engine"][name],
             "launches_engine_ssm": RESULTS["launches_engine_ssm"][name],
             "launches_shard": RESULTS["launches_shard"][name],
-            "launches_train": RESULTS["launches_train"][name]})
+            "launches_train": RESULTS["launches_train"][name],
+            "launches_cg": RESULTS["launches_cg"][name],
+            "launches_quickstart": RESULTS["launches_quickstart"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

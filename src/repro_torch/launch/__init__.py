@@ -1,2 +1,2 @@
-"""Launchers: `python -m repro_torch.launch.serve` and
-`python -m repro_torch.launch.train`."""
+"""Launchers: `python -m repro_torch.launch.serve`,
+`python -m repro_torch.launch.train` and `python -m repro_torch.launch.dryrun`."""

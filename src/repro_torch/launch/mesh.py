@@ -13,11 +13,16 @@ The constructors are functions, never module-level constants, and run
 inside an initialised process group (`torch.distributed.init_process_
 group`): importing this module touches no process group and no card.
 
+`MeshShape` is a mesh without ranks: its axis names and sizes, for the
+sharding rules and the dry-run of a 256- or 512-chip layout that no
+process group holds (`abstract_production_mesh`), as the reference's
+tests use a ``FakeMesh``. The axis helpers take either kind.
+
 `spawn` starts ``k`` ranks on one host, each in a process of its own,
 joins them in one process group over a `FileStore` in a temporary
-directory, builds a one-dim ``"model"`` mesh and runs a function in
-each rank: the counterpart of the reference's test mesh of 8 host
-devices. The function must be importable by name in a fresh process (a
+directory, builds a mesh over them (one ``"model"`` dim unless asked
+otherwise) and runs a function in each rank: the counterpart of the
+reference's test mesh of 8 host devices. The function must be importable by name in a fresh process (a
 module-level function of an importable module). The ranks start with
 the ``spawn`` method, since CUDA cannot be initialised again in a forked
 child. On one card every rank runs on that card; NCCL refuses two ranks
@@ -27,6 +32,7 @@ and stages them through the host.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import os
@@ -71,27 +77,58 @@ def make_debug_mesh(shape=(2, 2), axes=("data", "model"),
     return _mesh(tuple(shape), tuple(axes), device_type)
 
 
-def _names(mesh) -> tuple:
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no ranks behind them."""
+    axis_names: tuple
+    sizes: tuple
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.sizes):
+            raise ValueError(f"{self.axis_names} against {self.sizes}")
+
+    @property
+    def shape(self) -> dict:
+        """Axis name -> size, as a jax ``Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def ndevices(self) -> int:
+        return math.prod(self.sizes)
+
+
+def abstract_production_mesh(multi_pod: bool = False) -> MeshShape:
+    """The production layout of `make_production_mesh`, without ranks."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def mesh_shape(mesh) -> dict:
+    """Axis name -> size of a `DeviceMesh` or a `MeshShape`; anything else
+    raises `TypeError`."""
+    if isinstance(mesh, MeshShape):
+        return mesh.shape
     if not isinstance(mesh, DeviceMesh):
-        raise TypeError(f"a mesh is a torch DeviceMesh; got "
+        raise TypeError(f"a mesh is a torch DeviceMesh or a MeshShape; got "
                         f"{type(mesh).__name__}")
-    return tuple(mesh.mesh_dim_names or ())
+    names = tuple(mesh.mesh_dim_names or ())
+    return {a: int(mesh.size(i)) for i, a in enumerate(names)}
 
 
-def data_axis_names(mesh: DeviceMesh) -> tuple:
-    return tuple(a for a in _names(mesh) if a in ("pod", "data"))
+def data_axis_names(mesh) -> tuple:
+    return tuple(a for a in mesh_shape(mesh) if a in ("pod", "data"))
 
 
-def data_axis_size(mesh: DeviceMesh) -> int:
-    return math.prod(mesh.size(_names(mesh).index(a))
-                     for a in data_axis_names(mesh))
+def data_axis_size(mesh) -> int:
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in data_axis_names(mesh))
 
 
-def model_axis_size(mesh: DeviceMesh) -> int:
-    """Ranks on the mesh's ``"model"`` dim (1 when it has none); anything
-    but a `DeviceMesh` raises `TypeError`."""
-    names = _names(mesh)
-    return int(mesh.size(names.index("model"))) if "model" in names else 1
+def model_axis_size(mesh) -> int:
+    """Size of the mesh's ``"model"`` axis (1 when it has none); anything
+    but a `DeviceMesh` or a `MeshShape` raises `TypeError`."""
+    return mesh_shape(mesh).get("model", 1)
 
 
 # ---------------------------------------------------------------------------
@@ -99,19 +136,22 @@ def model_axis_size(mesh: DeviceMesh) -> int:
 # ---------------------------------------------------------------------------
 
 def _rank_main(rank: int, k: int, tmp: str, backend: str, device_type: str,
-               timeout_s: float, fn, args) -> None:
+               timeout_s: float, shape: tuple, axes: tuple, fn,
+               args) -> None:
     """One rank of `spawn`: joins the group, runs ``fn(mesh, *args)`` and
     writes its result to ``tmp/rank<rank>.pkl``."""
     # the ranks talk over the loopback interface
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     if device_type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    else:   # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // k))
     dist.init_process_group(
         backend, store=dist.FileStore(os.path.join(tmp, "store"), k),
         rank=rank, world_size=k,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        out = fn(make_debug_mesh((k,), ("model",), device_type), *args)
+        out = fn(make_debug_mesh(shape, axes, device_type), *args)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -121,12 +161,14 @@ def _rank_main(rank: int, k: int, tmp: str, backend: str, device_type: str,
 
 
 def spawn(k: int, fn, *args, backend: str = "gloo",
-          device_type: str = "cuda", timeout_s: float = 300.0) -> list:
+          device_type: str = "cuda", timeout_s: float = 300.0,
+          axes: tuple = ("model",), shape: tuple | None = None) -> list:
     """Runs ``fn(mesh, *args)`` in ``k`` ranks, each a process of its own
     joined in one ``backend`` process group, where ``mesh`` is the ranks'
-    one-dim ``"model"`` mesh on ``device_type`` (on ``"cuda"``, rank r
-    runs on card r modulo the cards). Returns the ranks' results, rank 0
-    first; they travel by pickle, so return host objects (numpy arrays,
+    mesh on ``device_type``: dims ``axes`` of sizes ``shape`` (default: one
+    dim of all ``k`` ranks) over the first ranks of the world (on
+    ``"cuda"``, rank r runs on card r modulo the cards). Returns the
+    ranks' results, rank 0 first; they travel by pickle, so return host objects (numpy arrays,
     numbers), not device tensors. A rank that raises fails the call and
     the other ranks are stopped; a collective that waits longer than
     ``timeout_s`` raises in its rank. A ``"cuda"`` mesh without a card
@@ -136,9 +178,13 @@ def spawn(k: int, fn, *args, backend: str = "gloo",
     if k < 1:
         raise ValueError(f"spawn needs at least 1 rank; got {k}")
     check_device(device_type)
+    shape = (k,) if shape is None else tuple(shape)
+    if len(shape) != len(axes) or math.prod(shape) > k:
+        raise ValueError(f"a mesh {shape} of axes {axes} over {k} ranks")
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
         mp.start_processes(_rank_main, args=(k, tmp, backend, device_type,
-                                             float(timeout_s), fn, args),
+                                             float(timeout_s), shape,
+                                             tuple(axes), fn, args),
                            nprocs=k, join=True, start_method="spawn")
         return [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                 for r in range(k)]

@@ -1,0 +1,128 @@
+"""FLOPs, bytes and collectives of an eager step, counted op by op: the
+port's counterpart of the JAX package's `launch/hlo_cost.py`.
+
+The reference walks the compiled, partitioned HLO of a jitted step. The
+port runs eagerly and has no HLO, so `analyze(fn, *args)` runs ``fn``
+under a `TorchDispatchMode` (on meta tensors for a shape-only model, or on
+real ones) and counts every aten op it dispatches:
+
+  flops       = `torch.utils.flop_counter`'s formula for the op (matrix
+                products, attention, convolutions; 2 per multiply-add);
+                elementwise ops count none, as the reference's dots do
+  bytes       = operand plus result bytes of the op: the device-memory
+                traffic of an eager step, which fuses nothing (views and
+                collectives move none here)
+  collectives = the ``torch.ops.c10d`` ops that ``torch.distributed``
+                dispatches, by type: raw bytes (the result side: the
+                first operand) and on-wire bytes weighted as
+                `hlo_cost.py`'s ``COLLECTIVE_WIRE`` (a ring all-reduce
+                moves ~2x its operand)
+
+It also records every op that produced a float64 tensor: the counterpart
+of the reference's dtype-leak check (``dryrun.py``, on ``f64[`` and
+``s64[`` in the HLO). int64 is torch's index dtype, so it is no leak here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter",
+                  "all-to-all", "collective-permute", "broadcast")
+# on-wire multiplier (ring algorithms), as the reference's
+COLLECTIVE_WIRE = {"all-gather": 1.0, "all-reduce": 2.0,
+                   "reduce-scatter": 1.0, "all-to-all": 1.0,
+                   "collective-permute": 1.0, "broadcast": 1.0}
+# the c10d ops `torch.distributed` dispatches, by collective
+_C10D = {"allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
+         "allgather_": "all-gather", "_allgather_base_": "all-gather",
+         "allgather_into_tensor_coalesced_": "all-gather",
+         "allgather_coalesced_": "all-gather",
+         "reduce_scatter_": "reduce-scatter",
+         "_reduce_scatter_base_": "reduce-scatter",
+         "reduce_scatter_tensor_coalesced_": "reduce-scatter",
+         "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
+         "send": "collective-permute", "recv_": "collective-permute",
+         "broadcast_": "broadcast"}
+
+
+@dataclasses.dataclass
+class Costs:
+    flops: float = 0.0
+    bytes: float = 0.0
+    coll_wire: dict = dataclasses.field(
+        default_factory=lambda: {k: 0.0 for k in COLLECTIVE_OPS})
+    coll_raw: dict = dataclasses.field(
+        default_factory=lambda: {k: 0.0 for k in COLLECTIVE_OPS})
+    coll_counts: dict = dataclasses.field(
+        default_factory=lambda: {k: 0 for k in COLLECTIVE_OPS})
+    f64_ops: set = dataclasses.field(default_factory=set)
+    n_ops: int = 0
+    max_result: int = 0        # bytes of the largest tensor an op made
+
+    def add(self, other: "Costs", mult: float = 1.0):
+        self.flops += other.flops * mult
+        self.bytes += other.bytes * mult
+        for k in COLLECTIVE_OPS:
+            self.coll_wire[k] += other.coll_wire[k] * mult
+            self.coll_raw[k] += other.coll_raw[k] * mult
+            self.coll_counts[k] += int(other.coll_counts[k] * mult)
+        self.f64_ops |= other.f64_ops
+        self.n_ops += int(other.n_ops * mult)
+        self.max_result = max(self.max_result, other.max_result)
+
+    def add_collective(self, kind: str, raw_bytes: float, count: int = 1):
+        self.coll_raw[kind] += raw_bytes
+        self.coll_wire[kind] += raw_bytes * COLLECTIVE_WIRE[kind]
+        self.coll_counts[kind] += count
+
+    @property
+    def collective_bytes(self) -> float:
+        return sum(self.coll_wire.values())
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.nbytes for t in tree_flatten(tree)[0]
+               if isinstance(t, torch.Tensor))
+
+
+class _Counter(TorchDispatchMode):
+    def __init__(self, costs: Costs):
+        super().__init__()
+        self.costs = costs
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        c = self.costs
+        c.n_ops += 1
+        if func.namespace == "c10d":
+            kind = _C10D.get(func._overloadpacket.__name__)
+            if kind is not None:
+                c.add_collective(kind, _tensor_bytes(args[0]))
+            return out
+        packet = func._overloadpacket
+        if packet in flop_registry:
+            c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        if not func.is_view:
+            result = _tensor_bytes(out)
+            c.bytes += _tensor_bytes((args, kwargs)) + result
+            c.max_result = max(c.max_result, result)
+        if any(isinstance(t, torch.Tensor) and t.dtype == torch.float64
+               for t in tree_flatten(out)[0]):
+            c.f64_ops.add(str(packet))
+        return out
+
+
+def analyze(fn, *args, **kwargs) -> tuple:
+    """Runs ``fn(*args, **kwargs)`` and counts what it dispatches. Returns
+    (its result, `Costs`)."""
+    costs = Costs()
+    with _Counter(costs):
+        out = fn(*args, **kwargs)
+    return out, costs

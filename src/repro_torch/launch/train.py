@@ -6,23 +6,36 @@ real-execution mode, with ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --smoke --steps 20 --device cpu           # reduced config, CPU
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --smoke --steps 20 --ranks 2 --device cpu # data-parallel, 2 ranks
+
 Fault tolerance: ``--restore`` resumes from the newest valid checkpoint
 in ``--ckpt-dir`` (examples/train_lm_torch.py injects a failure and
 resumes).
+
+``--ranks K`` trains data-parallel (`train.data_parallel`): K ranks, each
+a process of its own, over one ``"data"`` mesh; ``--batch`` is the global
+batch, drawn as K pipeline shards. The ranks join over NCCL where there
+are K cards, and over gloo otherwise (on the CPU, or several ranks on one
+card: NCCL refuses two ranks on one GPU).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
+
+import torch
 
 from repro_torch import configs
 from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
 from repro_torch.kernels.pack import check_device
+from repro_torch.launch.mesh import spawn
+from repro_torch.train.data_parallel import DataParallelTrainer
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 
-def main(argv=None) -> Trainer:
-    """Train ``--steps`` steps; returns the trainer."""
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=configs.ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
@@ -40,9 +53,12 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--restore", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="data-parallel ranks (default 1)")
+    return ap
 
-    dev = check_device(args.device)
+
+def _setup(args) -> tuple:
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     pipe = SyntheticTokens(PipelineConfig(
@@ -54,13 +70,44 @@ def main(argv=None) -> Trainer:
                        microbatches=args.microbatches,
                        grad_compress=args.grad_compress,
                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
-    trainer = Trainer(cfg, tcfg, pipe, device=dev)
-    if args.restore and trainer.try_restore():
+    return cfg, pipe, tcfg
+
+
+def _train(trainer, args, log: bool) -> None:
+    if args.restore and trainer.try_restore() and log:
         print(f"restored from step {trainer.step}")
-    hist = trainer.run(args.steps, log_every=max(1, args.steps // 5))
-    print(f"done: {trainer.step} steps, final loss {hist[-1]:.4f}")
-    if trainer.straggler_steps:
-        print(f"straggler steps: {trainer.straggler_steps}")
+    hist = trainer.run(args.steps,
+                       log_every=max(1, args.steps // 5) if log else 0)
+    if log:
+        print(f"done: {trainer.step} steps, final loss {hist[-1]:.4f}")
+        if trainer.straggler_steps:
+            print(f"straggler steps: {trainer.straggler_steps}")
+
+
+def _rank(mesh, argv) -> dict:
+    """One data-parallel rank of ``--ranks``; data rank 0 logs."""
+    args = _parser().parse_args(argv)
+    cfg, pipe, tcfg = _setup(args)
+    t = DataParallelTrainer(cfg, tcfg, pipe, mesh, device=args.device)
+    _train(t, args, log=t.rank == 0)
+    return {"rank": t.rank, "step": t.step, "history": t.history,
+            "straggler_steps": t.straggler_steps}
+
+
+def main(argv=None):
+    """Train ``--steps`` steps; returns the trainer, or with ``--ranks``
+    above 1 the ranks' results (step, loss history), data rank 0 first."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    dev = check_device(args.device)
+    if args.ranks > 1:
+        cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        return spawn(args.ranks, _rank, argv, device_type=dev.type,
+                     backend="nccl" if cards >= args.ranks else "gloo",
+                     axes=("data",))
+    cfg, pipe, tcfg = _setup(args)
+    trainer = Trainer(cfg, tcfg, pipe, device=dev)
+    _train(trainer, args, log=True)
     return trainer
 
 

@@ -26,12 +26,17 @@ _FAMILIES = {"dense": Transformer, "moe": Transformer, "vlm": Transformer,
              "ssm": Hybrid, "hybrid": Hybrid, "encdec": EncDec}
 
 
-def build_model(cfg: ArchConfig, *, generator: torch.Generator,
+def build_model(cfg: ArchConfig, *, generator: torch.Generator | None,
                 device="cuda") -> nn.Module:
     """The model of ``cfg`` with weights drawn from ``generator``, on
-    ``device``."""
+    ``device``. ``generator=None`` builds it shape-only, which only the
+    meta device takes: every weight is ``torch.empty`` there and nothing
+    is drawn (the dry-run's full-width models)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
+    if generator is None and torch.device(device).type != "meta":
+        raise ValueError(f"a model without a generator is shape-only and "
+                         f"is built on the meta device, not {device!r}")
     return _FAMILIES[cfg.family](cfg, generator=generator, device=device)
 
 

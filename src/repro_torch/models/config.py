@@ -69,3 +69,24 @@ class ArchConfig:
 
     def with_(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape (seq_len x global_batch + step kind)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

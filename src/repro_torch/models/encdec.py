@@ -21,6 +21,10 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        cache_write, insert_slot, lm_head,
                                        pos_vector, remat, rope_tables)
 
+# the dry-run's prefill: the long input is the audio side and the decoder
+# prefills a short prefix of this many tokens (the reference's constant)
+DEC_PREFILL_LEN = 1024
+
 
 class EncLayer(nn.Module):
     """``ln1``, non-causal ``attn``, ``ln2``, ``mlp``."""

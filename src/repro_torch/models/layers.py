@@ -28,12 +28,16 @@ from repro_torch.models.config import ArchConfig
 NEG = -1e30                 # the reference's masking constant
 
 
-def _dense_init(generator: torch.Generator, shape, dtype, device,
+def _dense_init(generator: torch.Generator | None, shape, dtype, device,
                 scale=None) -> nn.Parameter:
     """Normal weights of std ``scale`` (default 1/sqrt(fan_in)), drawn in
     float32 from ``generator`` and cast to ``dtype``; frozen, since the
     serving path takes no gradients (a trainer unfreezes its own model with
-    ``requires_grad_(True)``)."""
+    ``requires_grad_(True)``). Without a generator (the shape-only build
+    of `api.build_model` on the meta device) nothing is drawn."""
+    if generator is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                            requires_grad=False)
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * scale

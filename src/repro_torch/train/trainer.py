@@ -70,6 +70,7 @@ class Trainer:
         self.step = 0
         self.ckpt = (AsyncCheckpointer(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
+        self.writes_ckpt = True
         self._ema = None
         self.straggler_steps: list[int] = []
         self.history: list[float] = []
@@ -107,10 +108,21 @@ class Trainer:
         grads = like(self.leaves, [s.to(torch.float32) / n for s in gsum])
         if self.tcfg.grad_compress:
             grads, self.err = compress(grads, self.err)
+        grads, loss = self.reduce(grads, lsum / n)
         self.opt_state = self.opt.update(grads, self.opt_state, self.leaves)
         gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
                                for g in leaves_of(grads)))
-        return {"loss": lsum / n, "gnorm": gnorm}
+        return {"loss": loss, "gnorm": gnorm}
+
+    def reduce(self, grads: dict, loss: torch.Tensor) -> tuple:
+        """The gradients the optimizer takes and the loss logged, from this
+        process's own: itself on one device (`DataParallelTrainer`
+        averages them over its data replicas)."""
+        return grads, loss
+
+    def batch(self, step: int) -> dict:
+        """The batch this process trains on at ``step``."""
+        return self.pipeline.batch(step)
 
     # --- fault tolerance --------------------------------------------------
     def try_restore(self) -> bool:
@@ -139,7 +151,7 @@ class Trainer:
                 fail_at = None
                 raise RuntimeError(f"injected failure at step {self.step}")
             t0 = time.perf_counter()
-            metrics = self.train_step(self.pipeline.batch(self.step))
+            metrics = self.train_step(self.batch(self.step))
             loss = float(metrics["loss"])
             self.history.append(loss)
             dt = time.perf_counter() - t0
@@ -149,7 +161,8 @@ class Trainer:
                 self.straggler_steps.append(self.step)
             self._ema = 0.9 * self._ema + 0.1 * dt
             self.step += 1
-            if self.ckpt and self.step % self.tcfg.ckpt_every == 0:
+            if self.ckpt and self.writes_ckpt and \
+                    self.step % self.tcfg.ckpt_every == 0:
                 self.ckpt.save_async(self.step, self.state())
             if log_every and self.step % log_every == 0:
                 print(f"step {self.step:5d} loss {loss:.4f} "

@@ -7,6 +7,12 @@ requests served through the engine with the compressed head.
 `examples/train_lm_torch.py` repeats `examples/train_lm.py`: a tiny SmolLM
 trains with checkpoints, crashes, restores and finishes, its loss falls,
 and its trained head is scored compressed over the whole batch.
+`examples/cg_solver_torch.py` repeats `examples/cg_solver.py`: a CG solve
+whose SpMV is `ops.spmv` on device tensors, held against the same CG with
+the reference's numpy `spmv_gold` (iterations within one: the dot
+products sum in another order; solutions within 1e-10).
+`examples/quickstart_torch.py` repeats `examples/quickstart.py`'s six
+steps; its encoded matrix has the reference's size to the byte.
 """
 
 import importlib.util
@@ -19,6 +25,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLE = ROOT / "examples" / "sparse_inference_torch.py"
 TRAIN_EXAMPLE = ROOT / "examples" / "train_lm_torch.py"
+CG_EXAMPLE = ROOT / "examples" / "cg_solver_torch.py"
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 
 
 def _example(path=EXAMPLE):
@@ -102,3 +110,49 @@ def test_train_example_needs_a_card_by_default():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA card"):
         _example(TRAIN_EXAMPLE).main(["--tiny", "--steps", "2"])
+
+
+@pytest.mark.parametrize("path", [CG_EXAMPLE, QUICKSTART],
+                         ids=["cg_solver", "quickstart"])
+def test_new_examples_import_no_jax_and_no_repro(path):
+    _imports_no_jax_and_no_repro(path)
+
+
+@pytest.mark.parametrize("path", [CG_EXAMPLE, QUICKSTART],
+                         ids=["cg_solver", "quickstart"])
+def test_new_examples_need_a_card_by_default(path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _example(path).main()
+
+
+def test_cg_example_matches_the_reference_cg(capsys):
+    import numpy as np
+    from repro.core.csr_dtans import encode_matrix, spmv_gold
+    from repro.sparse.random_graphs import stencil_2d
+    got = _example(CG_EXAMPLE).main(device="cpu")
+    out = capsys.readouterr().out
+    assert "system: 2304 unknowns" in out and "CG converged in" in out
+    ref = _example(ROOT / "examples" / "cg_solver.py")
+    a = stencil_2d(48)
+    mat = encode_matrix(a, lane_width=128)
+    b = a.to_dense() @ got["x_true"]
+    x, iters = ref.cg(lambda v: spmv_gold(mat, v), b, a.shape[0])
+    assert abs(got["iterations"] - iters) <= 1
+    assert np.abs(got["x"] - x).max() < 1e-10
+    assert got["rel_error"] < 1e-6
+
+
+def test_quickstart_example_runs_on_the_cpu(capsys):
+    from repro.core.csr_dtans import encode_matrix
+    from repro.sparse.random_graphs import stencil_2d
+    got = _example(QUICKSTART).main(device="cpu")
+    out = capsys.readouterr().out
+    for line in ("matrix: (14400, 14400)", "lossless roundtrip: OK",
+                 "fused decode+SpMVM: OK", "autotune[erdos_renyi",
+                 "autotune[watts_strogatz", "SparseLinear(auto=True)"):
+        assert line in out
+    assert got["mat"].nbytes == encode_matrix(stencil_2d(120),
+                                              lane_width=128).nbytes
+    assert len(got["picks"]) == 4

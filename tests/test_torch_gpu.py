@@ -10,8 +10,9 @@ card (rtol 1e-4 f32 / 1e-12 f64, the reference's tolerances) and the
 port's schedules against each other bitwise, time a registry runner
 and a measured selection with CUDA events, serve the smoke model
 through the engine's compressed head and the launcher, take a smoke
-training step and score a trained head through the dtANS SpMM; they skip
-in their body where torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
+training step and score a trained head through the dtANS SpMM, solve
+the CG example through B1 and train data-parallel on two ranks of the
+card; they skip in their body where torch sees no card. The build tests run anywhere: a missing ``nvcc`` and a
 failing compile must raise.
 """
 
@@ -1499,3 +1500,41 @@ def test_sparse_head_eval_launches_dtans_spmm_on_card():
     assert torch.equal(head.apply(hidden.reshape(-1, cfg.d_model)[:16]),
                        logits.reshape(-1, 256)[:16])
     assert np.isfinite(dense) and np.isfinite(sparse)
+
+
+def _example(name: str):
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+def test_cg_example_runs_b1_on_card():
+    """`examples/cg_solver_torch.py` on the card: one ``dtans_spmv`` launch
+    an iteration and one for the first residual, the solution within the
+    reference's 1e-6, the iterations within one of the CPU run's."""
+    _need_card()
+    mod = _example("cg_solver_torch")
+    K.reset_launches()
+    got = mod.main(device="cuda")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.launches.items() if v} == \
+        {"dtans_spmv": got["iterations"] + 1}
+    assert got["rel_error"] < 1e-6
+    assert abs(mod.main(device="cpu")["iterations"] - got["iterations"]) <= 1
+
+
+@pytest.mark.gpu
+def test_data_parallel_launcher_on_card():
+    """`launch.train --ranks 2` on the card (gloo where the ranks share
+    one card): both ranks log the same all-reduced losses."""
+    _need_card()
+    from repro_torch.launch import train as launch_train
+    out = launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps",
+                             "2", "--batch", "4", "--seq", "32", "--ranks",
+                             "2"])
+    assert [r["rank"] for r in out] == [0, 1]
+    assert out[0]["history"] == out[1]["history"]
+    assert all(np.isfinite(out[0]["history"]))
