@@ -152,6 +152,24 @@ Phases, each raising on failure (no phase falls back to the CPU):
    timed as phase 5 times B=1, beside the bound.
 4m. ``examples/quickstart_torch.py`` on the card: its SpMV and its
    ``SparseLinear(auto=True)`` batch launch kernels (counted).
+4n. tensor parallelism at full width: 4g's SmolLM-135M (f32, TF32 off) on
+   a (1 data, 3 model) mesh of 3 gloo ranks on this one card (NCCL
+   refuses two ranks on one GPU), its parameters DTensors placed by the
+   sharding rules (each rank's bytes exactly the specs' reckoning); 4g's
+   8 prompts prefilled into a head-sharded cache, then 16 greedy decode
+   steps through phase 4's weight as a 3-shard compressed head (each rank
+   encodes its own shard, at once; ``dtans_spmm`` launches counted on
+   every rank): the head's output bitwise the one-device loop over the
+   three shards, the dense TP logits within rtol 1e-4 / atol 1e-5 x
+   max|logit| of the one-device model's on the same tokens, the tokens
+   the one-device model's and (first 8) 4g's streams, a differing token
+   allowed only inside its top-2 gap. ``op_cost`` counts one decode
+   step's collectives: Megatron's 2 all-reduces a layer, the embedding's
+   and the logits' gather, nothing else. Three ``TensorParallelTrainer``
+   steps in f32 (8 x 512) within 1e-4 of a one-rank ``Trainer``, then 5
+   steps of 4j's bf16 configuration within `DP_LOSS_RTOL`; prefill,
+   decode-step and train-step times by CUDA events on rank 0 with the
+   collectives' share.
 The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card);
    its bound must lie below 4j's measured step p50, and the roofline's
    80 GiB within 5% of the card's memory.
@@ -171,10 +189,11 @@ The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card);
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
-writes every number it measured to PATH. Phases 4j-4m and the roofline
+writes every number it measured to PATH. Phases 4j-4n and the roofline
 check (after 4j) need nothing of the earlier ones: ``python -c "import
 chip_smoke as c; c.phase_device(); c.phase_build(); c.phase_dp()"`` runs
-one alone. Imports nothing of JAX.
+one alone (``c.phase_tp()`` without 4g's streams compares the tokens with
+the one-device model's only). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -182,9 +201,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
+import functools
 import io
 import json
 import math
+import multiprocessing
 import re
 import shutil
 import statistics
@@ -192,6 +214,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -202,6 +225,7 @@ sys.path.append(str(ROOT / "tests"))  # hand_made_packs, torch_shard_ranks
 sys.path.append(str(ROOT / "examples"))  # train_lm, cg_solver, quickstart
 
 import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import configs, obs  # noqa: E402
 from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
@@ -220,7 +244,9 @@ from repro_torch.kernels.ref import decode_ref  # noqa: E402
 from repro_torch.launch import dryrun, op_cost, roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import MeshShape, make_debug_mesh, spawn  # noqa: E402
+from repro_torch.launch.sharding import local_shape  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
+from repro_torch.models.sharding import full, tp_context  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.serving.sparse_linear import SparseLinear  # noqa: E402
@@ -233,6 +259,7 @@ from repro_torch.sparse.rgcsr import RGCSR  # noqa: E402
 from repro_torch.train import checkpoint  # noqa: E402
 from repro_torch.train.data_parallel import DataParallelTrainer  # noqa: E402
 from repro_torch.train.elastic import reshard  # noqa: E402
+from repro_torch.train.tensor_parallel import TensorParallelTrainer  # noqa: E402
 from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 
 import quickstart_torch  # noqa: E402
@@ -2429,6 +2456,477 @@ def phase_dp() -> None:
 
 
 # ---------------------------------------------------------------------------
+# 4n. tensor parallelism at full width
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 3          # a (1 data, 3 model) mesh: 9 / 3 heads, d_ff 1536 and
+                      # vocab 49152 divide 3, so every TP site shards and
+                      # the KV cache is sharded by its heads
+TP_DECODE_STEPS = 16
+TP_F32_BATCH, TP_F32_STEPS = 8, 3
+TP_BF16_STEPS = 5     # 4j's configuration: 16 x 512, 2 microbatches, bf16
+TP_LOSS_RTOL = 1e-4   # f32 TP against the one-rank Trainer
+
+
+def _tp_train_runs() -> tuple:
+    """(name, config, global batch, microbatches, steps) of 4n's training:
+    f32 8 x 512, then 4j's bf16 configuration."""
+    return (("f32", _train_cfg().with_(dtype="float32"), TP_F32_BATCH, 1,
+             TP_F32_STEPS),
+            ("bf16", _train_cfg(), TRAIN_BATCH, 2, TP_BF16_STEPS))
+TP_RTOL, TP_ATOL = 1e-4, 1e-5   # logits; atol of the largest |logit|
+
+
+class _CollectiveTimer(TorchDispatchMode):
+    """CUDA events around every collective the ranks dispatch (DTensor's
+    functional ones and their waits, `torch.distributed`'s own): the time
+    the card's stream spends in them, and the number of collectives issued
+    (`op_cost.collective_kind`; waits not counted). A dispatch mode runs
+    Python for every op of the step, so the step it times runs slower than
+    an untimed one: the collectives' share is taken against untimed steps
+    (`_collective_share`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.pairs: list = []
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.namespace not in ("_c10d_functional",
+                                  "_c10d_functional_autograd", "c10d"):
+            return func(*args, **kwargs)
+        self.count += op_cost.collective_kind(func) is not None
+        ev = _events()
+        ev[0].record()
+        out = func(*args, **kwargs)
+        ev[1].record()
+        self.pairs.append(ev)
+        return out
+
+    def result(self, ms: float) -> dict:
+        """The timed step (``ms`` long by its own events): its collectives'
+        count and ms."""
+        torch.cuda.synchronize()
+        return {"ms": ms, "collectives": self.count,
+                "collective_ms": sum(a.elapsed_time(b)
+                                     for a, b in self.pairs)}
+
+
+def _collective_share(timed: dict, untimed_ms: list) -> float:
+    """The timed step's collective ms over the p50 of the untimed steps
+    of the same work."""
+    return timed["collective_ms"] / statistics.median(untimed_ms)
+
+
+def _tp_serve(model, head, prompts: list, feed: list | None = None) -> dict:
+    """4g's requests on ``model`` (tensor-parallel, or a plain one-device
+    model) as one pool of ``len(prompts)`` slots: each ``prompt[:-1]``
+    prefilled alone and inserted into its slot (as the engine admits),
+    then `TP_DECODE_STEPS` greedy steps, each `decode_hidden` and the
+    compressed ``head`` on its hidden states (``head`` None: the dense
+    head picks the tokens); the dense head's logits beside (not timed).
+    ``feed``: each step's tokens given in place of the model's own picks.
+    Times by CUDA events on this rank (the first prefill and the first
+    steps are DTensor's first calls of their shapes: no warm-up run)."""
+    ctx = (functools.partial(tp_context, model.logical)
+           if hasattr(model, "logical") else contextlib.nullcontext)
+    n = len(prompts)
+    cache = model.make_decode_cache(n, ENGINE_MAX_SEQ)
+    pos = np.zeros(n, dtype=np.int32)
+    prefill_ms = []
+    for s, p in enumerate(prompts):
+        if len(p) > 1:
+            ev = _events()
+            ev[0].record()
+            _, c, _ = model.prefill({"inputs": torch.as_tensor(
+                p[None, :-1], device="cuda")}, max_seq=ENGINE_MAX_SEQ)
+            model.cache_insert_slot(cache, c, s)
+            ev[1].record()
+            prefill_ms.append(ev)
+        pos[s] = len(p) - 1
+    tok = np.array([[int(p[-1])] for p in prompts], dtype=np.int32)
+    out = {"tokens": [], "hidden": [], "head": [], "dense": [],
+           "step_ms": []}
+    for step in range(TP_DECODE_STEPS):
+        tt = torch.as_tensor(tok, device="cuda")
+        pt = torch.as_tensor(pos, device="cuda")
+        ev = _events() + _events()[:1]
+        ev[0].record()
+        hidden, cache = model.decode_hidden(cache, tt, pt)
+        ev[2].record()
+        h = full(hidden)                     # replicated: the whole rows
+        y = head.apply(h) if head is not None else None
+        ev[1].record()
+        with ctx():
+            dense = full(layers.lm_head(model.embed, hidden))
+        tok = (y if y is not None else dense).argmax(-1).to(
+            torch.int32).cpu().numpy()
+        out["step_ms"].append(ev)
+        for key, t in (("tokens", tok), ("hidden", h), ("head", y),
+                       ("dense", dense)):
+            out[key].append(t if key == "tokens" or t is None
+                            else t.cpu().numpy())
+        if feed is not None:
+            tok = feed[step].astype(np.int32)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    out["prefill_ms"] = [a.elapsed_time(b) for a, b in prefill_ms]
+    out["model_ms"] = [a.elapsed_time(m) for a, _, m in out["step_ms"]]
+    out["step_ms"] = [a.elapsed_time(b) for a, b, _ in out["step_ms"]]
+    out["cache"], out["pos"], out["tok"] = cache, pos, tok
+    return out
+
+
+def _head_weight() -> np.ndarray:
+    """Phase 4's head weight W (d_model, vocab), drawn from `SEED`."""
+    rng = np.random.default_rng(SEED)
+    return (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+
+
+def tp_head_shard(k: int):
+    """Shard ``k`` of phase 4's head in `TP_RANKS` row shards, encoded
+    alone (`FormatSpec.shard(only=k)`; `SparseLinear.from_dense`'s prune,
+    quantization and knobs): a host plan holding that shard only. Rank k
+    of 4n runs this in a process of its own while it trains, so the ranks'
+    three host encodes run at once and beside their training."""
+    pruned = codebook_quantize(magnitude_prune(_head_weight().T, 0.8),
+                               bits=8)
+    return registry.get_format("dtans").shard(
+        pruned, TP_RANKS, only=k, lane_width=128, shared_table=True)
+
+
+def _tp_train(mesh) -> dict:
+    """`TensorParallelTrainer` steps in f32 (8 x 512) and in 4j's bf16
+    configuration on ``mesh``: losses, step ms by CUDA events, the last
+    step's collectives timed, peak memory."""
+    out = {}
+    for name, cfg, batch, micro, steps in _tp_train_runs():
+        pipe = SyntheticTokens(PipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch,
+            seed=SEED))
+        t = TensorParallelTrainer(
+            cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                             microbatches=micro), pipe, mesh,
+            generator=torch.Generator().manual_seed(SEED), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, coll = [], [], None
+        for step in range(steps):
+            timer = _CollectiveTimer() if step == steps - 1 else None
+            ev = _events()
+            with timer or contextlib.nullcontext():
+                ev[0].record()
+                m = t.train_step(t.batch(step))
+                ev[1].record()
+            losses.append(float(m["loss"]))
+            step_ms.append(_elapsed(ev))
+            if timer is not None:
+                coll = timer.result(step_ms[-1])
+        out[name] = {"loss": losses, "step_ms": step_ms, "timed_step": coll,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(mesh, prompts) -> dict:
+    """One rank of phase 4n (at module level: the ranks import this script
+    by name). Its own shard of phase 4's head is encoded by a helper
+    process (`tp_head_shard`) while the rank trains (`_tp_train`); then
+    4g's model placed on the (1, 3) mesh serves 4g's requests through the
+    sharded head (`_tp_serve`), the kernels' launches counted from 0; one
+    more decode step is counted by `op_cost` and one timed with its
+    collectives."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k = mesh.get_local_rank("model")
+    out = {"coord": tuple(mesh.get_coordinate())}
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=ctx) as helper:
+        t0 = time.perf_counter()
+        shard = helper.submit(tp_head_shard, k)
+        out["train"] = _tp_train(mesh)
+        t1 = time.perf_counter()
+        plan = shard.result()
+        out["encode_s"] = time.perf_counter() - t0
+        out["encode_wait_s"] = time.perf_counter() - t1
+    out["plan"] = plan
+    w = _head_weight()
+    head = SparseLinear(mat=None, packed=None, d_in=D_MODEL, d_out=VOCAB,
+                        dense_bytes=w.nbytes, baseline_bytes=0,
+                        device=torch.device("cuda"), mesh=mesh,
+                        plan=shard_ops.host_plan(plan))
+    shard_ops.upload(head.plan, "cuda", mesh=mesh)
+    model = _smollm(w)
+    whole = sum(p.nbytes for p in model.parameters())
+    api.distribute(model, model.cfg, mesh)
+    rules = model.tp_rules
+    out["param_bytes"] = rules.check_distributed(model)   # raises if off
+    out["param_bytes_specs"] = sum(
+        math.prod(local_shape(rules.tensor_spec(n, tuple(p.shape)),
+                              tuple(p.shape), mesh)) * 4
+        for n, p in model.named_parameters())
+    out["param_bytes_whole"] = whole
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_all()
+        run = _tp_serve(model, head, prompts)
+        out["launches"] = {n: v for n, v in _all_launches().items() if v}
+        cache, pos, tok = run.pop("cache"), run.pop("pos"), run.pop("tok")
+        if k:
+            run = {key: v for key, v in run.items()
+                   if key not in ("hidden", "head", "dense")}
+        out["serve"] = run
+
+        def dense_step():
+            logits, _ = model.decode_step(cache, torch.as_tensor(
+                tok, device="cuda"), torch.as_tensor(pos, device="cuda"))
+            return full(logits).argmax(-1)
+        _, costs = op_cost.analyze(dense_step)
+        out["collectives"] = {"counts": dict(costs.coll_counts),
+                              "raw": dict(costs.coll_raw),
+                              "sites": costs.sites}
+        timer = _CollectiveTimer()
+        ev = _events()
+        with timer:
+            ev[0].record()
+            hidden, _ = model.decode_hidden(cache, torch.as_tensor(
+                tok, device="cuda"), torch.as_tensor(pos + 1, device="cuda"))
+            head.apply(hidden.to_local())
+            ev[1].record()
+        out["timed_step"] = timer.result(_elapsed(ev))
+    return out
+
+
+def _elapsed(ev) -> float:
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1])
+
+
+def _tp_reference_losses() -> dict:
+    """The one-rank `Trainer` on the batches `tp_rank` trains on: f32 (8 x
+    512, one microbatch) and 4j's bf16 configuration, from the same seed."""
+    out = {}
+    for name, cfg, batch, micro, steps in _tp_train_runs():
+        pipe = SyntheticTokens(PipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=batch,
+            seed=SEED))
+        t = Trainer(cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                                     microbatches=micro), pipe,
+                    device="cuda", generator=torch.Generator().manual_seed(
+                        SEED))
+        out[name] = [float(t.train_step(t.batch(s))["loss"])
+                     for s in range(steps)]
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gap(row: np.ndarray) -> float:
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0])
+
+
+def phase_tp(streams: list | None = None, backend: str = "gloo") -> None:
+    """Phase 4n: full-width SmolLM-135M (4g's f32 weights, TF32 off) on a
+    (1, 3) mesh of `TP_RANKS` gloo ranks of this one card (NCCL refuses
+    two ranks on one GPU), its parameters DTensors placed by the sharding
+    rules (each rank's bytes the specs' reckoning, exactly); 4g's 8
+    prompts prefilled, then `TP_DECODE_STEPS` greedy steps on the
+    head-sharded cache with phase 4's weight as a 3-shard compressed head
+    (each rank encodes and serves its own shard; `dtans_spmm` launches
+    counted on each rank), the streams equal to 4g's (``streams``, where
+    given) and to the one-device model's, the logits within `TP_RTOL` /
+    `TP_ATOL` of the one-device model's on the same tokens, the head
+    bitwise the one-device loop over the three shards; `op_cost`'s
+    collectives of one decode step equal to the Megatron count; then
+    `TensorParallelTrainer` losses against the one-rank `Trainer`.
+    ``backend="nccl"`` runs the ranks on cards of their own instead
+    (`experiments/tensor_parallel/time_tp_step.py`)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prng = np.random.default_rng(SEED + 7)
+    prompts = [prng.integers(0, VOCAB, size=n) for n in ENGINE_PROMPTS]
+    t0 = time.perf_counter()
+    # the ranks start (imports, their shards' host encodes) while this
+    # process trains the one-rank references on the card
+    with ThreadPoolExecutor(1) as pool:
+        group = pool.submit(spawn, TP_RANKS, tp_rank, prompts,
+                            device_type="cuda", backend=backend,
+                            axes=("data", "model"), shape=(1, TP_RANKS),
+                            timeout_s=900.0)
+        want = _tp_reference_losses()
+        ref_s = time.perf_counter() - t0
+        ranks = group.result()
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    cfg = configs.get("smollm-135m")
+
+    # parameters: each rank's bytes the specs' reckoning
+    for r in ranks:
+        assert r["param_bytes"] == r["param_bytes_specs"], r["coord"]
+    enc = ", ".join(f"{r['encode_s']:.1f}" for r in ranks)
+    wait = ", ".join(f"{r['encode_wait_s']:.1f}" for r in ranks)
+    where = ("gloo ranks on this card" if backend == "gloo"
+             else f"{backend} ranks, a card each")
+    log(f"[tp] SmolLM-135M full width (f32) on a (1, {TP_RANKS}) mesh of "
+        f"{where}: {r0['param_bytes']:,} B of parameters a "
+        f"rank = the specs' reckoning (local_shape) exactly, of "
+        f"{r0['param_bytes_whole']:,} B whole; head shards encoded at "
+        f"once, each beside its rank's training, in {enc} s (the ranks "
+        f"waited {wait} s for them)")
+
+    # the head: the ranks' shards as one plan, its loop on this device
+    plan = dataclasses.replace(
+        r0["plan"], shards=tuple(r["plan"].shards[i]
+                                 for i, r in enumerate(ranks)),
+        shard_nbytes=tuple(r["plan"].shard_nbytes[i]
+                           for i, r in enumerate(ranks)))
+    shard_ops.upload(plan, "cuda")
+    for r in ranks:
+        assert r["launches"] == {"dtans_spmm": TP_DECODE_STEPS}, \
+            (r["coord"], r["launches"])
+    serve = r0["serve"]
+    n = len(prompts)
+    # the one-device model on the TP run's tokens, through the same head
+    # run as the one-device loop over the shards
+    loop_head = SparseLinear(mat=None, packed=None, d_in=D_MODEL,
+                             d_out=VOCAB, dense_bytes=0, baseline_bytes=0,
+                             device=torch.device("cuda"), plan=plan)
+    model = _smollm(_head_weight())
+    with torch.no_grad():
+        one = _tp_serve(model, loop_head, prompts, feed=serve["tokens"])
+    del model, one["cache"]
+    torch.cuda.empty_cache()
+    e_logit, flips = 0.0, []
+    with torch.no_grad():
+        for step in range(TP_DECODE_STEPS):
+            dense, got = one["dense"][step], serve["dense"][step]
+            bound = TP_RTOL * np.abs(dense) + TP_ATOL * np.abs(dense).max()
+            e_logit = max(e_logit, float(np.abs(got - dense).max()))
+            assert (np.abs(got - dense) <= bound).all(), step
+            # the head on the TP hidden states: bitwise the loop
+            h_tp = torch.as_tensor(serve["hidden"][step], device="cuda")
+            loop = loop_head.apply(h_tp)
+            assert np.array_equal(loop.cpu().numpy(), serve["head"][step]), \
+                step
+            # the one-device model's greedy token through the same head
+            mine = one["head"][step].reshape(n, VOCAB)
+            tp_tok = serve["tokens"][step][:, 0]
+            for s in range(n):
+                if int(mine[s].argmax()) != int(tp_tok[s]):
+                    gap = _gap(mine[s])
+                    flips.append((step, s, gap))
+                    limit = TP_RTOL * float(np.abs(mine[s]).max()) + \
+                        TP_ATOL * float(np.abs(mine[s]).max())
+                    log(f"[tp] step {step} slot {s}: TP token "
+                        f"{int(tp_tok[s])} != one device "
+                        f"{int(mine[s].argmax())}; top-2 gap {gap:.3e} "
+                        f"(limit {limit:.3e})")
+                    assert gap <= limit, (step, s, gap)
+    tp_streams = [[int(serve["tokens"][t][s, 0]) for t in
+                   range(TP_DECODE_STEPS)] for s in range(n)]
+    agree_4g = None
+    if streams is not None:
+        agree_4g = sum(a[:ENGINE_MAX_NEW] == b for a, b in
+                       zip(tp_streams, streams))
+        bad = [i for i, (a, b) in enumerate(zip(tp_streams, streams))
+               if a[:ENGINE_MAX_NEW] != b]
+        assert not bad or all(
+            any(f[1] == i for f in flips) for i in bad), \
+            ("TP streams != 4g's", bad)
+    log(f"[tp] {n} requests, {TP_DECODE_STEPS} greedy decode steps through "
+        f"the 3-shard compressed head: {TP_DECODE_STEPS} dtans_spmm "
+        f"launches on each rank ({[r['launches'] for r in ranks]}); the "
+        f"head's output bitwise the one-device loop over the shards at "
+        f"every step; dense TP logits within rtol {TP_RTOL:g} / atol "
+        f"{TP_ATOL:g} x max|logit| of the one-device model's (max |diff| "
+        f"{e_logit:.3e}); tokens equal the one-device model's "
+        f"({len(flips)} differ, each inside the top-2 gap limit); first "
+        f"{ENGINE_MAX_NEW} equal 4g's streams on "
+        f"{'(4g not run)' if agree_4g is None else agree_4g} of {n}")
+
+    # collectives of one TP decode step (dense head + the argmax's gather)
+    c = r0["collectives"]
+    megatron = {"all-reduce": 2 * cfg.n_layers + 1, "all-gather": 1}
+    counts = {k: v for k, v in c["counts"].items() if v}
+    extra = [site for site in c["sites"]
+             if site[0] not in megatron]
+    log(f"[tp] one decode step's collectives (op_cost, rank 0): {counts}; "
+        f"Megatron's count {megatron} (2 all-reduces of B x 1 x d a layer, "
+        f"the vocab-parallel embedding's, the logits' gather for the "
+        f"argmax); {c['raw']['all-reduce']:,.0f} B all-reduced, "
+        f"{c['raw']['all-gather']:,.0f} B gathered"
+        + (f"; extra: {extra}" if extra else ""))
+    assert counts == megatron, (counts, c["sites"])
+
+    # training
+    tr = r0["train"]
+    rel32 = [abs(g - w) / abs(w) for g, w in zip(tr["f32"]["loss"],
+                                                 want["f32"])]
+    rel16 = [abs(g - w) / abs(w) for g, w in zip(tr["bf16"]["loss"],
+                                                 want["bf16"])]
+    for r in ranks:
+        assert r["train"]["f32"]["loss"] == tr["f32"]["loss"]
+    assert max(rel32) <= TP_LOSS_RTOL, (tr["f32"]["loss"], want["f32"])
+    assert max(rel16) <= DP_LOSS_RTOL, (tr["bf16"]["loss"], want["bf16"])
+
+    ts = r0["timed_step"]
+    pf = _spread(serve["prefill_ms"][1:])
+    st = _spread(serve["step_ms"][2:])
+    mo = _spread(serve["model_ms"][2:])
+    b16 = tr["bf16"]
+    # the collectives' shares: each timed step's collective ms over the
+    # p50 of the untimed steps of its kind (after the first, DTensor's
+    # first dispatch of each shape)
+    shares = {"decode": _collective_share(ts, serve["step_ms"][2:]),
+              **{name: _collective_share(tr[name]["timed_step"],
+                                         tr[name]["step_ms"][1:-1])
+                 for name in ("f32", "bf16")}}
+    log(f"[tp] times on rank 0 (CUDA events): prefill of one prompt p50 "
+        f"{pf['p50']:.1f} ms [{pf['p10']:.1f}, {pf['p90']:.1f}] (the first "
+        f"{serve['prefill_ms'][0]:.1f}); decode step (decode_hidden + "
+        f"sharded head, B={n}, steps 3-{TP_DECODE_STEPS}) p50 "
+        f"{st['p50']:.1f} ms [{st['p10']:.1f}, {st['p90']:.1f}] (the first "
+        f"{serve['step_ms'][0]:.1f}; decode_hidden alone p50 "
+        f"{mo['p50']:.1f}); one more step with its {ts['collectives']} "
+        f"collectives timed in a dispatch mode ({ts['ms']:.1f} ms): "
+        f"{ts['collective_ms']:.1f} ms in them, {shares['decode']:.1%} of "
+        f"the untimed p50; train step f32 {TP_F32_BATCH} x {TRAIN_SEQ} "
+        f"{tr['f32']['step_ms'][1]:.1f} ms (the second; the timed third "
+        f"{tr['f32']['timed_step']['collective_ms']:.1f} ms in "
+        f"{tr['f32']['timed_step']['collectives']} collectives, "
+        f"{shares['f32']:.1%} of the second), bf16 {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in 2 microbatches p50 of steps 2-{TP_BF16_STEPS - 1} "
+        f"{statistics.median(b16['step_ms'][1:-1]):.1f} ms (the timed "
+        f"last: {b16['timed_step']['collective_ms']:.1f} ms in "
+        f"{b16['timed_step']['collectives']} collectives, "
+        f"{shares['bf16']:.1%} of that p50); peak "
+        f"{b16['peak_bytes'] / 2**30:.2f} GiB a rank | {card()}")
+    log(f"[tp] losses f32 {[round(v, 5) for v in tr['f32']['loss']]} vs "
+        f"one rank: max rel {max(rel32):.2e} (limit {TP_LOSS_RTOL:g}); bf16 "
+        f"{[round(v, 4) for v in b16['loss']]}: max rel {max(rel16):.2e} "
+        f"(limit {DP_LOSS_RTOL:g}); references {ref_s:.1f} s, ranks "
+        f"{ranks_s:.1f} s")
+    RESULTS["tp"] = {
+        "ranks_s": ranks_s, "reference_s": ref_s,
+        "param_bytes": r0["param_bytes"],
+        "param_bytes_whole": r0["param_bytes_whole"],
+        "encode_s": [r["encode_s"] for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+        "logit_max_abs_err": e_logit, "flips": flips,
+        "agree_4g": agree_4g, "streams": tp_streams,
+        "collectives": {"counts": counts, "raw": c["raw"],
+                        "sites": c["sites"]},
+        "backend": backend, "prefill_ms": serve["prefill_ms"],
+        "step_ms": serve["step_ms"], "model_ms": serve["model_ms"],
+        "timed_step": ts, "collective_share": shares, "train": tr,
+        "want": want,
+        "rel": {"f32": rel32, "bf16": rel16}}
+    RESULTS["launches_tp"] = {
+        name: sum(r["launches"].get(name, 0) for r in ranks)
+        for name in _all_launches()}
+
+
+# ---------------------------------------------------------------------------
 # 4l. the CG solve through B1 in float64
 # ---------------------------------------------------------------------------
 
@@ -2946,6 +3444,8 @@ def main() -> int:
     done("4l")
     phase_quickstart()
     done("4m")
+    phase_tp(streams)
+    done("4n")
     phase_roofline()
     done("roofline")
     times = phase_times(sl, csr, packs, blk)
@@ -2984,7 +3484,8 @@ def main() -> int:
             "launches_shard": RESULTS["launches_shard"][name],
             "launches_train": RESULTS["launches_train"][name],
             "launches_cg": RESULTS["launches_cg"][name],
-            "launches_quickstart": RESULTS["launches_quickstart"][name]})
+            "launches_quickstart": RESULTS["launches_quickstart"][name],
+            "launches_tp": RESULTS["launches_tp"][name]})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -22,7 +22,9 @@ fused contraction.
 package's parameter tree, as numpy arrays, becomes this package's model of
 the same family (`api.build_model`) with the same weights;
 `jax_tree_from_model` carries a model's weights, or their gradients, back
-into that tree.
+into that tree. Both take a model distributed for tensor parallelism
+(`api.distribute`): ``mesh=`` places the carried weights, and DTensor
+leaves are gathered whole on the way back.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
 from repro_torch.kernels.sell_spmv import PackedSELL
 from repro_torch.models import api
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import full
 from repro_torch.serving.sparse_linear import SparseLinear
 
 _PARAM_FIELDS = ("w_bits", "k_bits", "l", "o", "f", "m_bits")
@@ -221,10 +224,14 @@ def _load(p: torch.Tensor, a: np.ndarray, name: str) -> None:
         p.copy_(torch.from_numpy(np.array(a)))
 
 
-def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda"):
+def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda",
+                          mesh=None, **rules_kw):
     """This package's model of ``cfg`` holding the weights of the JAX
     package's ``params`` (``init_params``'s tree with its leaves as numpy
     arrays: ``jax.tree.map(np.asarray, params)``, done by the caller).
+    With a `DeviceMesh` ``mesh`` (every rank passing the same ``params``)
+    the model is then placed on it for tensor parallelism,
+    `api.distribute(model, cfg, mesh, **rules_kw)`.
 
     The leaves are matched by `api.reference_leaves`: the reference stacks
     each layer leaf over the layers (``vmap``), so leaf ``layers.attn.wq``
@@ -256,6 +263,8 @@ def model_from_jax_params(cfg: ArchConfig, params: dict, *, device="cuda"):
                 _load(t, a[i], f"{name}[{i}]")
         else:
             _load(p, a, name)
+    if mesh is not None:
+        api.distribute(model, cfg, mesh, **rules_kw)
     return model
 
 
@@ -265,10 +274,12 @@ def jax_tree_from_model(cfg: ArchConfig, model, *, grads: bool = False
     ``grads=True`` their ``.grad``, zeros where a parameter has none) as
     the reference's nested parameter tree of numpy arrays, each layer leaf
     stacked over its layers. bfloat16 tensors come back as float32
-    (exactly)."""
+    (exactly). A distributed model's DTensor leaves come back whole
+    (`sharding.full`), on every rank."""
     def host(p: torch.Tensor) -> np.ndarray:
         t = p.grad if grads else p
         t = torch.zeros_like(p) if t is None else t.detach()
+        t = full(t)
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy().copy()

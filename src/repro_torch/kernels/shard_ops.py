@@ -90,8 +90,11 @@ SHARD_MAP_ADAPTERS = {
 
 def supports_shard_map(plan) -> bool:
     """Whether this plan's packed artifacts have a collective-path adapter
-    (the four kernel-backed families do)."""
-    return bool(plan.shards) and type(plan.shards[0]) in SHARD_MAP_ADAPTERS
+    (the four kernel-backed families do). A rank's plan may hold its own
+    shard alone (`FormatSpec.shard(only=)`): the first shard it holds
+    decides."""
+    held = [p for p in plan.shards if p is not None]
+    return bool(held) and type(held[0]) in SHARD_MAP_ADAPTERS
 
 
 def host_plan(plan):
@@ -112,7 +115,8 @@ def upload(plan, device="cuda", *, mesh=None) -> None:
     without an adapter upload when their runner is built."""
     if not supports_shard_map(plan):
         return
-    up = SHARD_MAP_ADAPTERS[type(plan.shards[0])][0]
+    up = SHARD_MAP_ADAPTERS[type(next(
+        p for p in plan.shards if p is not None))][0]
     ks = range(plan.n_shards)
     if mesh is not None and plan.n_shards > 1:
         ks = [mesh.get_local_rank("model")]

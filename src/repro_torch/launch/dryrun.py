@@ -7,8 +7,10 @@ port of the JAX package's `launch/dryrun.py`.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
 The reference lowers and compiles each cell on 512 placeholder CPU devices
-and reads XLA's memory analysis and the partitioned HLO. The port has no
-partitioner and needs no process group, no card and no JAX: it builds the
+and reads XLA's memory analysis and the partitioned HLO. The port's
+sharded step runs on a real `DeviceMesh` (`launch.steps.build_cell` with
+one: DTensor parameters, `api.distribute`), but a dry-run has no process
+group of 256 or 512 ranks; it needs no card and no JAX: it builds the
 model shape-only on the meta device (nothing is allocated), takes the
 mesh as a `MeshShape` (`abstract_production_mesh`), and
 

@@ -38,6 +38,7 @@ import math
 import os
 import pickle
 import tempfile
+import traceback
 from pathlib import Path
 
 import torch
@@ -150,9 +151,19 @@ def _rank_main(rank: int, k: int, tmp: str, backend: str, device_type: str,
         backend, store=dist.FileStore(os.path.join(tmp, "store"), k),
         rank=rank, world_size=k,
         timeout=datetime.timedelta(seconds=timeout_s))
+    if backend == "gloo" and device_type == "cuda":
+        # DTensor's collectives over gloo on the card (torch 2.11 crashes
+        # in their wait): through torch.distributed's own
+        from repro_torch.launch import gloo_route
+        gloo_route.install()
     try:
         out = fn(make_debug_mesh(shape, axes, device_type), *args)
         dist.barrier()
+    except BaseException:
+        # noted before this rank leaves the group: a rank that then fails
+        # in a collective with it must not hide the first failure
+        Path(tmp, f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
     finally:
         dist.destroy_process_group()
     path = Path(tmp, f"rank{rank}.pkl")
@@ -169,7 +180,8 @@ def spawn(k: int, fn, *args, backend: str = "gloo",
     dim of all ``k`` ranks) over the first ranks of the world (on
     ``"cuda"``, rank r runs on card r modulo the cards). Returns the
     ranks' results, rank 0 first; they travel by pickle, so return host objects (numpy arrays,
-    numbers), not device tensors. A rank that raises fails the call and
+    numbers), not device tensors. A rank that raises fails the call (a
+    `RuntimeError` carrying the traceback of every rank that raised) and
     the other ranks are stopped; a collective that waits longer than
     ``timeout_s`` raises in its rank. A ``"cuda"`` mesh without a card
     raises here, before any rank starts; pass ``device_type="cpu"`` for
@@ -182,9 +194,18 @@ def spawn(k: int, fn, *args, backend: str = "gloo",
     if len(shape) != len(axes) or math.prod(shape) > k:
         raise ValueError(f"a mesh {shape} of axes {axes} over {k} ranks")
     with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
-        mp.start_processes(_rank_main, args=(k, tmp, backend, device_type,
-                                             float(timeout_s), shape,
-                                             tuple(axes), fn, args),
-                           nprocs=k, join=True, start_method="spawn")
+        try:
+            mp.start_processes(_rank_main,
+                               args=(k, tmp, backend, device_type,
+                                     float(timeout_s), shape, tuple(axes),
+                                     fn, args),
+                               nprocs=k, join=True, start_method="spawn")
+        except Exception as exc:
+            notes = [f"rank {r}:\n{Path(tmp, f'rank{r}.err').read_text()}"
+                     for r in range(k) if Path(tmp, f"rank{r}.err").exists()]
+            if not notes:
+                raise
+            raise RuntimeError("ranks failed; each failing rank's "
+                               "traceback:\n" + "\n".join(notes)) from exc
         return [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
                 for r in range(k)]

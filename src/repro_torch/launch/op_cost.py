@@ -16,7 +16,10 @@ real ones) and counts every aten op it dispatches:
                 dispatches, by type: raw bytes (the result side: the
                 first operand) and on-wire bytes weighted as
                 `hlo_cost.py`'s ``COLLECTIVE_WIRE`` (a ring all-reduce
-                moves ~2x its operand)
+                moves ~2x its operand); and the functional collectives
+                DTensor issues (``torch.ops._c10d_functional``: raw bytes
+                the op's result), each counted once where it is issued,
+                not again at its ``wait_tensor``
 
 It also records every op that produced a float64 tensor: the counterpart
 of the reference's dtype-leak check (``dryrun.py``, on ``f64[`` and
@@ -48,6 +51,17 @@ _C10D = {"allreduce_": "all-reduce", "allreduce_coalesced_": "all-reduce",
          "alltoall_": "all-to-all", "alltoall_base_": "all-to-all",
          "send": "collective-permute", "recv_": "collective-permute",
          "broadcast_": "broadcast"}
+# the functional collectives DTensor's redistributions dispatch (and their
+# autograd-aware forms), by collective
+_FUNCTIONAL = {"all_reduce": "all-reduce",
+               "all_reduce_coalesced": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_coalesced": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "reduce_scatter_tensor_coalesced": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "broadcast"}
+_FUNCTIONAL_NS = ("_c10d_functional", "_c10d_functional_autograd")
 
 
 @dataclasses.dataclass
@@ -61,6 +75,9 @@ class Costs:
     coll_counts: dict = dataclasses.field(
         default_factory=lambda: {k: 0 for k in COLLECTIVE_OPS})
     f64_ops: set = dataclasses.field(default_factory=set)
+    # (kind, raw bytes, the innermost frame of the port's models or
+    # trainer that issued it) of each collective
+    sites: list = dataclasses.field(default_factory=list)
     n_ops: int = 0
     max_result: int = 0        # bytes of the largest tensor an op made
 
@@ -72,6 +89,7 @@ class Costs:
             self.coll_raw[k] += other.coll_raw[k] * mult
             self.coll_counts[k] += int(other.coll_counts[k] * mult)
         self.f64_ops |= other.f64_ops
+        self.sites += other.sites
         self.n_ops += int(other.n_ops * mult)
         self.max_result = max(self.max_result, other.max_result)
 
@@ -90,10 +108,38 @@ def _tensor_bytes(tree) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def _site() -> str:
+    """The innermost frame of the port's own code (not this module, not
+    the sharding helpers) on the current stack, as ``file:line``."""
+    import traceback
+    for fr in reversed(traceback.extract_stack()):
+        f = fr.filename.replace("\\", "/")
+        if "/repro_torch/" in f and not f.endswith(
+                ("launch/op_cost.py", "models/sharding.py")):
+            return f"{f.split('/repro_torch/')[-1]}:{fr.lineno}"
+    return "?"
+
+
+def collective_kind(func) -> str | None:
+    """The collective (one of `COLLECTIVE_OPS`) that the dispatched op
+    ``func`` issues, or None: a ``c10d`` or functional collective counts,
+    its ``wait_tensor`` and wrappers do not."""
+    name = func._overloadpacket.__name__
+    if func.namespace == "c10d":
+        return _C10D.get(name)
+    if func.namespace in _FUNCTIONAL_NS:
+        return _FUNCTIONAL.get(name)
+    return None
+
+
 class _Counter(TorchDispatchMode):
     def __init__(self, costs: Costs):
         super().__init__()
         self.costs = costs
+
+    def _collective(self, kind: str, raw: int) -> None:
+        self.costs.add_collective(kind, raw)
+        self.costs.sites.append((kind, raw, _site()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
@@ -101,11 +147,12 @@ class _Counter(TorchDispatchMode):
         out = func(*args, **kwargs)
         c = self.costs
         c.n_ops += 1
-        if func.namespace == "c10d":
-            kind = _C10D.get(func._overloadpacket.__name__)
+        if func.namespace == "c10d" or func.namespace in _FUNCTIONAL_NS:
+            kind = collective_kind(func)
             if kind is not None:
-                c.add_collective(kind, _tensor_bytes(args[0]))
-            return out
+                self._collective(kind, _tensor_bytes(
+                    args[0] if func.namespace == "c10d" else out))
+            return out       # wait_tensor and the wrappers move nothing
         packet = func._overloadpacket
         if packet in flop_registry:
             c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
@@ -121,7 +168,8 @@ class _Counter(TorchDispatchMode):
 
 def analyze(fn, *args, **kwargs) -> tuple:
     """Runs ``fn(*args, **kwargs)`` and counts what it dispatches. Returns
-    (its result, `Costs`)."""
+    (its result, `Costs`), which also list where each collective was
+    issued (`Costs.sites`)."""
     costs = Costs()
     with _Counter(costs):
         out = fn(*args, **kwargs)

@@ -21,9 +21,18 @@ The rules take a `DeviceMesh` or a `launch.mesh.MeshShape`. A leaf is
 named by its dotted name in `models.api.reference_leaves` (``layers.attn.
 wq``) and has the reference's stacked shape (``(n_layers,) + shape`` for a
 layer leaf), so a spec here is the reference's spec for the same leaf.
+
+On a `DeviceMesh` the rules also place real tensors: `distribute` turns a
+model's parameters into DTensors (a layer's tensor takes its stacked
+leaf's spec without the leading layer entry), `distribute_cache` and
+`distribute_batch` a decode cache and a batch, and `gather` undoes
+`distribute`. Each rank builds the whole tensor from the same seed and
+keeps its own slice (`local_slice`): no communication.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.launch.mesh import (data_axis_names, data_axis_size,
                                      mesh_shape, model_axis_size)
@@ -231,3 +240,111 @@ class ShardingRules:
             return (self.batch_axis(shape[0]), None, None)
         b = self.batch_axis(shape[1]) if len(shape) > 1 else None
         return (None, b) + (None,) * (len(shape) - 2)
+
+    # ----- placing real tensors (a DeviceMesh) ------------------------------
+    def tensor_spec(self, name: str, shape: tuple) -> tuple:
+        """The spec of one parameter tensor of a model, by its module name
+        (``layers.3.attn.wq``): a layer's tensor takes its stacked leaf's
+        spec (`param_spec`) without the layer entry."""
+        stack, _, rest = name.partition(".")
+        if stack in _STACKS:
+            leaf = f"{stack}.{rest.partition('.')[2]}"
+            return self.param_spec(leaf, (1,) + tuple(shape))[1:]
+        return self.param_spec(name, tuple(shape))
+
+    def distribute(self, model):
+        """Every parameter of ``model`` replaced, in place, by a DTensor on
+        ``self.mesh`` placed by `tensor_spec`, built from this rank's slice
+        of the whole tensor (`local_slice`); returns ``model``. The local
+        bytes of every parameter are `local_shape`'s, exactly
+        (`check_distributed`)."""
+        from torch import nn
+        for mod_name, mod in model.named_modules():
+            for pname, p in list(mod._parameters.items()):
+                if p is None:
+                    continue
+                name = f"{mod_name}.{pname}" if mod_name else pname
+                spec = self.tensor_spec(name, tuple(p.shape))
+                mod._parameters[pname] = nn.Parameter(
+                    self.place(p.detach(), spec),
+                    requires_grad=p.requires_grad)
+        return model
+
+    def check_distributed(self, model) -> int:
+        """The bytes of this rank's parameters, after checking that each
+        parameter is a DTensor whose local shape is `local_shape` of its
+        spec; raises on the first that is not."""
+        total = 0
+        for name, p in model.named_parameters():
+            spec = self.tensor_spec(name, tuple(p.shape))
+            want = local_shape(spec, tuple(p.shape), self.mesh)
+            got = tuple(p.to_local().shape)
+            if got != want or tuple(p.placements) != placements(spec,
+                                                                 self.mesh):
+                raise AssertionError(f"{name}: local {got} "
+                                     f"{p.placements}, spec {spec} gives "
+                                     f"{want}")
+            total += p.to_local().nbytes
+        return total
+
+    def place(self, t, spec: tuple):
+        """``t`` as a DTensor placed by ``spec``: a plain tensor by this
+        rank's slice (every rank holds the same whole tensor), a DTensor by
+        `redistribute`."""
+        from torch.distributed.tensor import DTensor
+        pl = placements(spec, self.mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(self.mesh, pl)
+        return DTensor.from_local(local_slice(t, spec, self.mesh),
+                                  self.mesh, pl, run_check=False)
+
+    def distribute_cache(self, cache: dict, prefix: str = "") -> dict:
+        """A decode cache (nested dict of tensors) placed by `cache_spec`
+        of each leaf's dotted name."""
+        out = {}
+        for k, v in cache.items():
+            name = f"{prefix}{k}"
+            out[k] = (self.distribute_cache(v, f"{name}.")
+                      if isinstance(v, dict)
+                      else self.place(v, self.cache_spec(name,
+                                                         tuple(v.shape))))
+        return out
+
+    def distribute_batch(self, batch: dict) -> dict:
+        """A batch's tensors placed by `batch_spec`: each rank keeps its
+        data shard of the rows."""
+        specs = self.batch_spec({k: tuple(v.shape) for k, v in
+                                 batch.items()})
+        return {k: self.place(v, specs[k]) for k, v in batch.items()}
+
+
+def local_slice(t, spec: tuple, mesh):
+    """This rank's block of the whole tensor ``t`` under ``spec`` on the
+    `DeviceMesh` ``mesh`` (a copy): each tensor dim split evenly over its
+    axes, the major axis first, as `placements` orders them."""
+    names = tuple(mesh_shape(mesh))
+    coord = mesh.get_coordinate()
+    out = t
+    for d, entry in enumerate(spec):
+        for a in spec_axes(entry):
+            i = names.index(a)
+            n = out.shape[d] // mesh.size(i)
+            out = out.narrow(d, coord[i] * n, n)
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def gather(model):
+    """The inverse of `ShardingRules.distribute`: every DTensor parameter
+    of ``model`` replaced, in place, by its whole tensor (`full_tensor`);
+    returns ``model``."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor
+    for mod in model.modules():
+        for pname, p in list(mod._parameters.items()):
+            if isinstance(p, DTensor):
+                mod._parameters[pname] = nn.Parameter(
+                    p.detach().full_tensor(),
+                    requires_grad=p.requires_grad)
+    if hasattr(model, "logical"):
+        model.logical = model.tp_rules = None
+    return model

@@ -9,6 +9,15 @@ width, nothing allocated), the specs `ShardingRules` gives its leaves, and
 the inputs of ONE device's share of the step: its data shard of the batch
 (a microbatch of it, for training) and its shard of the decode cache's
 batch. `Cell.run` runs that step on meta tensors under `op_cost.analyze`.
+
+On a real `DeviceMesh` (the counterpart of the reference's
+``Cell.lower(mesh)``) the cell holds the model drawn from a seed on the
+mesh's device and placed on the mesh for tensor parallelism
+(`api.distribute` with the cell's rules), and the step's whole inputs
+placed by the rules: a microbatch of the global batch by `batch_spec`,
+the decode cache by `cache_spec`. `Cell.run` then executes that step on
+every rank of the mesh under `sharding.tp_context`, counted the same way,
+DTensor's collectives included.
 """
 
 from __future__ import annotations
@@ -16,16 +25,16 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import configs
-from repro_torch.launch.mesh import data_axis_size, mesh_shape, \
-    model_axis_size
+from repro_torch.launch.mesh import data_axis_size, mesh_shape
 from repro_torch.launch.op_cost import Costs, analyze
 from repro_torch.launch.sharding import ShardingRules, spec_axes
 from repro_torch.models import api
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 from repro_torch.models.encdec import DEC_PREFILL_LEN
-from repro_torch.models.sharding import logical_rules, rules_for_mesh
+from repro_torch.models.sharding import logical_rules, tp_context
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.grad_compress import compress, init_error_state
 from repro_torch.optim.tree import leaves_of, like
@@ -153,15 +162,18 @@ class Cell:
                 for k, (s, _) in self.leaf_shapes().items()}
 
     def run(self) -> tuple:
-        """One device's step on meta tensors, counted: (`Costs`, the bytes
-        of the activations it keeps). Training counts one microbatch's
-        forward and backward ``n_micro`` times plus one optimizer update,
-        and keeps one microbatch's saved tensors (weights excluded);
-        prefill and decode keep the largest tensor one op makes. It runs
-        under the cell's logical rules, as the reference lowers its step;
-        the port's models carry no annotations yet, so they change
-        nothing."""
-        with logical_rules(self.logical):
+        """One device's step, counted: (`Costs`, the bytes of the
+        activations it keeps). Training counts one microbatch's forward
+        and backward ``n_micro`` times plus one optimizer update, and keeps
+        one microbatch's saved tensors (weights excluded); prefill and
+        decode keep the largest tensor one op makes. On a `MeshShape` it
+        runs on meta tensors under the cell's logical rules, where the
+        annotations change nothing (the tensors are plain); on a
+        `DeviceMesh` every rank runs its part of the sharded step under
+        `tp_context`."""
+        ctx = (tp_context if isinstance(self.rules.mesh, DeviceMesh)
+               else logical_rules)
+        with ctx(self.logical):
             return self._run()
 
     def _run(self) -> tuple:
@@ -222,7 +234,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
                shape: ShapeConfig | None = None) -> Cell:
     """The cell of ``arch`` (its full config unless ``cfg`` is given) at
     ``shape_name`` (`SHAPES`' unless ``shape`` is given) on ``mesh``, a
-    `DeviceMesh` or a `MeshShape`."""
+    `MeshShape` (shape-only, one device's share) or a `DeviceMesh` (the
+    sharded step itself, every rank of the mesh calling this)."""
     cfg = cfg or configs.get(arch)
     shape = shape or SHAPES[shape_name]
     if dp_only is None:
@@ -236,20 +249,38 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
     if seq_axis is None and shape.kind != "decode" \
             and TRAIN_KNOBS[arch].get("seq_parallel"):
         seq_axis = "model"
-    logical = rules_for_mesh(
-        tuple(mesh_shape(mesh)), dp_only=dp_only,
-        batch_axes=rules.batch_axis(shape.global_batch),
-        seq_axis=seq_axis)
-    if cfg.family == "moe" and not dp_only:
-        if cfg.n_experts % model_axis_size(mesh) != 0:
-            # E doesn't divide the model axis: shard dispatch capacity
-            # instead of experts (granite-moe: E=40 on a 16-way axis)
-            logical["experts"] = None
-            logical["moe_capacity"] = "model"
-    model = api.build_model(cfg, generator=None, device="meta")
-    ways = _batch_ways(rules, shape.global_batch)
+    # E that doesn't divide the model axis shards the dispatch capacity
+    # instead of the experts (granite-moe: E=40 on a 16-way axis)
+    logical = api.logical_rules_for(cfg, rules,
+                                    global_batch=shape.global_batch,
+                                    seq_axis=seq_axis)
+    real = isinstance(mesh, DeviceMesh)
+    if real:
+        model = api.build_model(cfg,
+                                generator=torch.Generator().manual_seed(0),
+                                device=mesh.device_type)
+        api.distribute(model, cfg, mesh, fsdp=fsdp, zero1=zero1,
+                       seq_shard_cache=seq_shard_cache, dp_only=dp_only,
+                       seq_axis=seq_axis, global_batch=shape.global_batch)
+        ways = 1            # the inputs are whole, placed by the rules
+    else:
+        model = api.build_model(cfg, generator=None, device="meta")
+        ways = _batch_ways(rules, shape.global_batch)
     common = dict(arch=arch, shape=shape, cfg=cfg, rules=rules,
                   logical=logical, model=model)
+
+    def inputs(batch: dict) -> dict:
+        if not real:
+            return batch
+        g = torch.Generator().manual_seed(0)
+        out = {}
+        for k, v in batch.items():
+            t = (torch.randint(0, cfg.vocab, v.shape, generator=g,
+                               dtype=v.dtype) if k in ("inputs", "targets")
+                 else torch.ones(v.shape) if k == "mask"
+                 else torch.randn(v.shape, generator=g))
+            out[k] = t.to(mesh.device_type)
+        return rules.distribute_batch(out)
 
     if shape.kind == "train":
         knobs = TRAIN_KNOBS[arch]
@@ -258,14 +289,17 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
         per = max(1, shape.global_batch // n_mb // ways)
         return Cell(kind="train", n_micro=n_mb, knobs=knobs,
                     grad_compress=grad_compress,
-                    inputs={"batch": batch_struct(cfg, shape, "train", per)},
+                    inputs={"batch": inputs(batch_struct(cfg, shape,
+                                                         "train", per))},
                     **common)
     per = max(1, shape.global_batch // ways)
     if shape.kind == "prefill":
         return Cell(kind="prefill",
-                    inputs={"batch": batch_struct(cfg, shape, "prefill",
-                                                  per)}, **common)
+                    inputs={"batch": inputs(batch_struct(cfg, shape,
+                                                         "prefill", per))},
+                    **common)
     cache = model.make_decode_cache(per, shape.seq_len)
-    token = torch.empty((per, 1), dtype=torch.int32, device="meta")
+    token = torch.zeros((per, 1), dtype=torch.int32,
+                        device=mesh.device_type if real else "meta")
     return Cell(kind="decode", inputs={"cache": cache, "token": token,
                                        "pos": shape.seq_len - 1}, **common)

@@ -18,6 +18,14 @@ a process of its own, over one ``"data"`` mesh; ``--batch`` is the global
 batch, drawn as K pipeline shards. The ranks join over NCCL where there
 are K cards, and over gloo otherwise (on the CPU, or several ranks on one
 card: NCCL refuses two ranks on one GPU).
+
+``--ranks K --model-ranks M`` trains tensor-parallel
+(`train.tensor_parallel`) on a ``(K / M, M)`` (data, model) mesh: the
+model's weights placed by the sharding rules, each microbatch split over
+the data axis:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --smoke --steps 3 --ranks 4 --model-ranks 2 --device cpu
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
 from repro_torch.kernels.pack import check_device
 from repro_torch.launch.mesh import spawn
 from repro_torch.train.data_parallel import DataParallelTrainer
+from repro_torch.train.tensor_parallel import TensorParallelTrainer
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 
@@ -54,7 +63,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--ranks", type=int, default=1,
-                    help="data-parallel ranks (default 1)")
+                    help="ranks (default 1): data-parallel, or with "
+                         "--model-ranks the whole (data, model) mesh")
+    ap.add_argument("--model-ranks", type=int, default=1,
+                    help="tensor-parallel ranks of the mesh's model axis "
+                         "(default 1: data parallelism only)")
     return ap
 
 
@@ -94,17 +107,38 @@ def _rank(mesh, argv) -> dict:
             "straggler_steps": t.straggler_steps}
 
 
+def _tp_rank(mesh, argv) -> dict:
+    """One rank of ``--ranks K --model-ranks M``; the mesh's first rank
+    logs."""
+    args = _parser().parse_args(argv)
+    cfg, pipe, tcfg = _setup(args)
+    t = TensorParallelTrainer(cfg, tcfg, pipe, mesh, device=args.device)
+    first = not any(mesh.get_coordinate())
+    _train(t, args, log=first)
+    return {"coord": tuple(mesh.get_coordinate()), "step": t.step,
+            "history": t.history}
+
+
 def main(argv=None):
     """Train ``--steps`` steps; returns the trainer, or with ``--ranks``
-    above 1 the ranks' results (step, loss history), data rank 0 first."""
+    above 1 the ranks' results (step, loss history), the first rank
+    first."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     dev = check_device(args.device)
+    if args.model_ranks > 1 and args.ranks % args.model_ranks:
+        raise ValueError(f"--model-ranks {args.model_ranks} does not "
+                         f"divide --ranks {args.ranks}")
     if args.ranks > 1:
         cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        backend = "nccl" if cards >= args.ranks else "gloo"
+        if args.model_ranks > 1:
+            m = args.model_ranks
+            return spawn(args.ranks, _tp_rank, argv, device_type=dev.type,
+                         backend=backend, axes=("data", "model"),
+                         shape=(args.ranks // m, m))
         return spawn(args.ranks, _rank, argv, device_type=dev.type,
-                     backend="nccl" if cards >= args.ranks else "gloo",
-                     axes=("data",))
+                     backend=backend, axes=("data",))
     cfg, pipe, tcfg = _setup(args)
     trainer = Trainer(cfg, tcfg, pipe, device=dev)
     _train(trainer, args, log=True)

@@ -5,6 +5,8 @@ reference picks a module by family over a bare parameter tree; here
 `make_decode_cache`, `cache_insert_slot`) are the entry points.
 `loss_fn` is the training loss over a model, and `reference_leaves`
 groups a model's parameters as the reference's stacked parameter tree.
+`distribute` places a model on a (data, model) `DeviceMesh` for tensor
+parallelism, with the rules the reference's launcher builds.
 
 The dense, moe and vlm families run `transformer.py`, the ssm and hybrid
 families `hybrid.py`, the encdec family `encdec.py`.
@@ -18,6 +20,7 @@ from torch import nn
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.hybrid import Hybrid
+from repro_torch.models.sharding import is_dtensor, rules_for_mesh
 from repro_torch.models.transformer import Transformer
 
 _MOE_AUX_WEIGHT = 0.01
@@ -48,13 +51,22 @@ def masked_ce(logits: torch.Tensor, targets, mask=None) -> tuple:
     """Masked next-token cross entropy of (B, S, V) logits, in float32, the
     mask defaulting to ones: (``nll / max(mask.sum(), 1)``, the mask's
     sum). The gold logit is picked by an iota compare, as the reference
-    does, so its gradient is a ``where`` (no scatter)."""
+    does, so its gradient is a ``where`` (no scatter).
+
+    Vocab-sharded logits (a DTensor) meet the iota and the targets as
+    replicated tensors, and their log-sum-exp is taken over the sharded
+    dim as a max and a sum (each a small all-reduce; `torch.logsumexp`
+    would gather the whole logits first)."""
     logits = logits.float()
     dev = logits.device
     targets = torch.as_tensor(targets, device=dev)
     mask = (torch.ones(targets.shape, device=dev) if mask is None
             else torch.as_tensor(mask, device=dev).float())
-    logz = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits):
+        top = logits.detach().amax(dim=-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - top).sum(-1)) + top[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
     iota = torch.arange(logits.shape[-1], device=dev)
     gold = torch.where(iota == targets[..., None], logits, 0.0).sum(-1)
     tokens = mask.sum()
@@ -95,3 +107,45 @@ def reference_leaves(model: nn.Module, cfg: ArchConfig) -> dict:
         else:
             out[name] = p
     return {k: out[k] for k in sorted(out, key=lambda k: k.split("."))}
+
+
+def logical_rules_for(cfg: ArchConfig, rules, *, global_batch=None,
+                      seq_axis=None) -> dict:
+    """The logical rules of ``rules`` (a `launch.sharding.ShardingRules`)
+    as the reference's launcher builds them (`launch/steps.py::
+    build_cell`): `rules_for_mesh` of its mesh, the batch on
+    ``rules.batch_axis(global_batch)`` where a global batch is given, and
+    for a moe config whose experts do not divide the model axis the
+    dispatch capacity sharded in their place."""
+    from repro_torch.launch.mesh import mesh_shape
+    logical = rules_for_mesh(
+        tuple(mesh_shape(rules.mesh)), dp_only=rules.dp_only,
+        batch_axes=(None if global_batch is None
+                    else rules.batch_axis(global_batch)),
+        seq_axis=seq_axis)
+    if cfg.family == "moe" and not rules.dp_only \
+            and cfg.n_experts % rules.msize != 0:
+        logical["experts"] = None
+        logical["moe_capacity"] = "model"
+    return logical
+
+
+def distribute(model: nn.Module, cfg: ArchConfig, mesh, *, fsdp=False,
+               zero1=False, seq_shard_cache=True, dp_only=False,
+               seq_axis=None, global_batch=None) -> nn.Module:
+    """Tensor parallelism: ``model``'s parameters turned into DTensors on
+    the `DeviceMesh` ``mesh`` by `ShardingRules` (the reference's
+    parameter specs; every rank must hold the same whole weights, as
+    models drawn from one seed do), in place. Its entry points then run
+    under `sharding.tp_context` of the logical rules the reference's
+    launcher builds (`logical_rules_for`), and its decode caches are
+    placed by `cache_spec`. Returns ``model``, with ``tp_rules`` (the
+    `ShardingRules`) and ``logical`` set."""
+    from repro_torch.launch.sharding import ShardingRules
+    rules = ShardingRules(cfg, mesh, fsdp=fsdp, zero1=zero1,
+                          seq_shard_cache=seq_shard_cache, dp_only=dp_only)
+    rules.distribute(model)
+    model.tp_rules = rules
+    model.logical = logical_rules_for(cfg, rules, global_batch=global_batch,
+                                      seq_axis=seq_axis)
+    return model

@@ -8,6 +8,11 @@ over its layers (n_dec, B, Smax, Hk, hd), and the encoder's ``memory``
 (B, Se, d). Cross-attention projects its keys and values from ``memory``
 in every step, as the reference does. The decode entry points write the
 cache IN PLACE and return it; a slot at position -1 keeps its bits.
+
+The entry points run under `sharding.tp_context` on a model that
+`api.distribute` placed on a mesh: the encoder's input carries the
+reference's annotation, each attention `layers.Attention`'s, and the
+caches made and returned are placed by the rules' `cache_spec`.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        cache_write, insert_slot, lm_head,
                                        pos_vector, remat, rope_tables)
+from repro_torch.models.sharding import pad, place_cache, shard, sharded
 
 # the dry-run's prefill: the long input is the audio side and the decoder
 # prefills a short prefix of this many tokens (the reference's constant)
@@ -100,11 +106,13 @@ class EncDec(nn.Module):
         return self._rope(torch.arange(S, dtype=torch.int32,
                                        device=self.device))
 
+    @sharded
     def encode(self, frames):
         """frames: (B, Se, d) precomputed frontend embeddings -> the memory
         (B, Se, d) in the config's dtype."""
         x = torch.as_tensor(frames, device=self.device).to(
             self.cfg.param_dtype)
+        x = shard(x, "batch", "seq", "d_model")
         rot = self._prompt_rope(x.shape[1])
         for layer in self.enc_layers:
             x = remat(self.cfg, layer, x, rot)
@@ -120,24 +128,27 @@ class EncDec(nn.Module):
             caches.append(c)
         return self.dec_norm(x), memory, caches
 
+    @sharded
     def forward(self, batch):
         """batch: ``frontend`` (B, Se, d), ``inputs`` (B, S). Returns
         (float32 logits over the token positions, aux = 0)."""
         x, _, _ = self._decode_prompt(batch)
         return lm_head(self.embed, x), torch.zeros((), device=self.device)
 
+    @sharded
     def prefill(self, batch, max_seq: int | None = None):
         """Returns (last-position logits (B, 1, vocab), {``kv``: the
         decoder's K/V padded with zeros to ``max_seq``, ``memory``}, next
         pos)."""
         x, memory, caches = self._decode_prompt(batch, return_cache=True)
         S = x.shape[1]
-        pad = (0, 0, 0, 0, 0, max(0, (max_seq or S) - S))
-        kv = {n: torch.nn.functional.pad(torch.stack([c[n] for c in caches]),
-                                         pad) for n in ("k", "v")}
+        widths = (0, 0, 0, 0, 0, max(0, (max_seq or S) - S))
+        kv = {n: pad(torch.stack([c[n] for c in caches]), widths)
+              for n in ("k", "v")}
         return (lm_head(self.embed, x[:, -1:, :]),
-                {"kv": kv, "memory": memory}, S)
+                place_cache(self, {"kv": kv, "memory": memory}), S)
 
+    @sharded
     def decode_hidden(self, caches, token, pos):
         """One decoder step up to and including the final norm: the
         (B, 1, d) hidden states an LM head consumes. ``pos`` a scalar or a
@@ -156,6 +167,7 @@ class EncDec(nn.Module):
                          write=write)
         return self.dec_norm(x), caches
 
+    @sharded
     def decode_step(self, caches, token, pos):
         """``lm_head`` of `decode_hidden`: (float32 logits (B, 1, vocab),
         caches)."""
@@ -168,13 +180,12 @@ class EncDec(nn.Module):
         in the config's dtype."""
         cfg = self.cfg
         shape = (self.n_dec, batch, seq_len, cfg.n_kv_heads, cfg.hd)
-        return {"kv": {n: torch.zeros(shape, dtype=dtype or cfg.param_dtype,
-                                      device=self.device)
-                       for n in ("k", "v")},
-                "memory": torch.zeros((batch, cfg.n_frontend_tokens,
-                                       cfg.d_model),
-                                      dtype=cfg.param_dtype,
-                                      device=self.device)}
+        return place_cache(self, {
+            "kv": {n: torch.zeros(shape, dtype=dtype or cfg.param_dtype,
+                                  device=self.device) for n in ("k", "v")},
+            "memory": torch.zeros((batch, cfg.n_frontend_tokens,
+                                   cfg.d_model), dtype=cfg.param_dtype,
+                                  device=self.device)})
 
     @staticmethod
     def cache_insert_slot(pool, req, slot: int):

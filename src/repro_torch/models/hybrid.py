@@ -16,6 +16,11 @@ over the layers (L, B, ...), the pass-through ``x0`` (B, 1, d) and, with
 groups, ``attn.{k, v}`` of (n_groups, B, Smax, Hk, hd). The decode entry
 points write it IN PLACE and return it; a slot at position -1 keeps the
 bits of every line.
+
+The entry points run under `sharding.tp_context` on a model that
+`api.distribute` placed on a mesh; the shared block's attention carries
+`layers.Attention`'s annotations, and the caches made and returned are
+placed by the rules' `cache_spec`.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        _dense_init, cache_write, insert_slot,
                                        lm_head, matmul, pos_vector, remat,
                                        rope_tables)
+from repro_torch.models.sharding import pad, place_cache, sharded
 from repro_torch.models.ssm import SSM, ssm_cache_init
 
 
@@ -125,6 +131,7 @@ class Hybrid(nn.Module):
         pos = torch.arange(S, dtype=torch.int32, device=self.device)
         return rope_tables(pos, self.cfg.hd, self.cfg.rope_theta)
 
+    @sharded
     def forward(self, batch):
         """Returns (float32 logits over the token positions, aux = 0)."""
         x = self.embed(torch.as_tensor(batch["inputs"], device=self.device))
@@ -133,6 +140,7 @@ class Hybrid(nn.Module):
         return (lm_head(self.embed, self.final_norm(x)),
                 torch.zeros((), device=self.device))
 
+    @sharded
     def prefill(self, batch, max_seq: int | None = None):
         """Returns (last-position logits (B, 1, vocab), cache, next pos):
         every layer's final SSD state and conv tail, a zero ``x0`` and
@@ -149,13 +157,15 @@ class Hybrid(nn.Module):
                                     dtype=self.cfg.param_dtype,
                                     device=self.device)}
         if attn_c:
-            pad = (0, 0, 0, 0, 0, max(0, (max_seq or S) - S))
-            caches["attn"] = {n: torch.nn.functional.pad(
-                torch.stack([c[n] for c in attn_c]), pad)
+            widths = (0, 0, 0, 0, 0, max(0, (max_seq or S) - S))
+            caches["attn"] = {n: pad(
+                torch.stack([c[n] for c in attn_c]), widths)
                 for n in ("k", "v")}
         x = self.final_norm(x)
+        caches = place_cache(self, caches)
         return lm_head(self.embed, x[:, -1:, :]), caches, S
 
+    @sharded
     def decode_hidden(self, caches, token, pos):
         """One serving step up to and including the final norm: the
         (B, 1, d) hidden states an LM head consumes. ``pos`` a scalar or a
@@ -181,6 +191,7 @@ class Hybrid(nn.Module):
                                "write": write})
         return self.final_norm(x), caches
 
+    @sharded
     def decode_step(self, caches, token, pos):
         """``lm_head`` of `decode_hidden`: (float32 logits (B, 1, vocab),
         caches)."""
@@ -204,7 +215,7 @@ class Hybrid(nn.Module):
                                           dtype=dtype or cfg.param_dtype,
                                           device=self.device)
                            for n in ("k", "v")}
-        return out
+        return place_cache(self, out)
 
     @staticmethod
     def cache_insert_slot(pool, req, slot: int):

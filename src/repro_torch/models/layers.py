@@ -12,6 +12,13 @@ Masks use ``-1e30``, never ``-inf``: a slot whose every key is masked
 (position -1, an empty serving slot) then gets a uniform softmax and
 finite values, not NaN, which would reach its column of the compressed
 head's product.
+
+Activations carry the reference's logical-axis annotations (`shard`) at
+its own sites: q, k, v after their reshape, the attention and MLP
+outputs, the MLP's hidden, the embedding and the logits. They are the
+identity on a model that was not distributed (`api.distribute`); on a
+distributed one they place each activation as the reference's
+``with_sharding_constraint`` does.
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.sharding import (insert_local, is_dtensor,
+                                         local_heads, local_like,
+                                         local_offset, pad, rewrap, shard,
+                                         split_dim)
 
 NEG = -1e30                 # the reference's masking constant
 
@@ -176,11 +187,42 @@ def _write_cache(cache: torch.Tensor, new: torch.Tensor,
     place at ``w``; a slot that misses reads its row at the clamped
     position and writes it back unchanged, so its line keeps its bits."""
     new = new.to(cache.dtype)
+    if is_dtensor(cache):
+        _write_local(cache, new, w)
+        return
     if w.slots is None:
         cache.index_copy_(1, w.rows, new)
         return
     at = (w.slots, w.rows)
     cache[at] = torch.where(w.hit, new[:, 0], cache[at])
+
+
+def _write_local(cache, new, w: CacheWrite) -> None:
+    """`_write_cache` into a DTensor cache: each rank writes its own block
+    in place. ``new`` comes in the cache's placements but whole along the
+    sequence, and a row is written by the rank whose block of the
+    sequence holds its position (a head-sharded cache: every rank, its
+    own heads; a sequence-sharded one: the rank that owns the row)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+          for p in cache.placements]
+    c = cache.to_local()
+    n = local_like(new, cache, pl)
+    b0, s0 = local_offset(cache, 0), local_offset(cache, 1)
+    Bl, Sl = c.shape[0], c.shape[1]
+    if w.slots is None:
+        if Sl == cache.shape[1]:
+            c.index_copy_(1, w.rows, n)
+            return
+        for j, row in enumerate(w.rows - s0):
+            hit = (row >= 0) & (row < Sl)
+            r = row.clamp(0, Sl - 1)
+            c[:, r] = torch.where(hit, n[:, j], c[:, r])
+        return
+    rows = w.rows[b0:b0 + Bl] - s0
+    hit = w.hit[b0:b0 + Bl] & ((rows >= 0) & (rows < Sl))[:, None, None]
+    at = (torch.arange(Bl, device=c.device), rows.clamp(0, Sl - 1))
+    c[at] = torch.where(hit, n[:, 0], c[at])
 
 
 class Attention(nn.Module):
@@ -219,9 +261,12 @@ class Attention(nn.Module):
         H, Hk, hd = self.H, self.Hk, self.cfg.hd
         B, S, _ = x.shape
         src = x if kv is None else kv
-        q = matmul(x, self.wq).reshape(B, S, H, hd)
-        k = matmul(src, self.wk).reshape(B, src.shape[1], Hk, hd)
-        v = matmul(src, self.wv).reshape(B, src.shape[1], Hk, hd)
+        q = split_dim(matmul(x, self.wq), -1, H, hd)
+        k = split_dim(matmul(src, self.wk), -1, Hk, hd)
+        v = split_dim(matmul(src, self.wv), -1, Hk, hd)
+        q = shard(q, "batch", "seq", "heads", None)
+        k = shard(k, "batch", "seq", "kv_heads", None)
+        v = shard(v, "batch", "seq", "kv_heads", None)
         if kv is None:                   # self-attention: rotary embedding
             q, k = apply_rope(q, rot), apply_rope(k, rot)
         causal = causal and kv is None
@@ -233,37 +278,51 @@ class Attention(nn.Module):
             new_cache = kv_cache
             k, v = kv_cache["k"], kv_cache["v"]
 
-        n_rep = H // Hk
-        Sk = k.shape[1]
-        scale = 1.0 / math.sqrt(hd)
-        if kv_cache is not None:
-            # decode: grouped-GQA attention against the cache, no
-            # head-replicated K/V
-            qg = q.reshape(B, S, Hk, n_rep, hd)
-            logits = torch.einsum("bqgrd,bkgd->bgrqk", _f32(qg),
-                                  _f32(k)) * scale
-            logits = torch.where(write.keys, logits, NEG)
-            probs = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bgrqk,bkgd->bqgrd",
-                               _f32(probs.to(x.dtype)), _f32(v))
-            out = out.to(x.dtype).reshape(B, S, H, hd)
-        elif S > FLASH_THRESHOLD:
-            # long-sequence prefill: blocked online-softmax attention
-            out = _flash_attention(q, _repeat_kv(k, n_rep),
-                                   _repeat_kv(v, n_rep), causal=causal)
+        keys = write.keys if kv_cache is not None else None
+        kw = dict(decode=kv_cache is not None, causal=causal, dtype=x.dtype)
+        local = local_heads(q, k, v)
+        if local is None:
+            out = _attend(q, k, v, keys, **kw)
         else:
-            kf, vf = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-            logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q),
-                                  _f32(kf)) * scale
-            if causal:
-                qi = torch.arange(S, device=x.device)[:, None]
-                ki = torch.arange(Sk, device=x.device)[None, :]
-                logits = torch.where((ki <= qi)[None, None], logits, NEG)
-            probs = torch.softmax(logits, dim=-1)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs,
-                               _f32(vf)).to(x.dtype)
+            # each rank attends with its own heads (and batch rows)
+            if keys is not None and keys.shape[0] > 1:
+                b0 = local_offset(q, 0)
+                keys = keys[b0:b0 + local[0].shape[0]]
+            out = rewrap(_attend(*local, keys, **kw), q)
         out = matmul(out.reshape(B, S, H * hd), self.wo)
-        return out, new_cache
+        return shard(out, "batch", "seq", "d_model"), new_cache
+
+
+def _attend(q, k, v, keys, *, decode: bool, causal: bool, dtype):
+    """Attention of q (B, S, H, hd) over k, v (B, Sk, Hk, hd), GQA: against
+    a decode cache (``decode``: grouped, no head-replicated K/V, the keys
+    ``keys`` attended), blocked with an online softmax past
+    `FLASH_THRESHOLD` queries, else dense (``causal``: each query the keys
+    up to its own position). Returns (B, S, H, hd) in ``dtype``."""
+    B, S, H, hd = q.shape
+    Sk, Hk = k.shape[1], k.shape[2]
+    n_rep = H // Hk
+    scale = 1.0 / math.sqrt(hd)
+    if decode:
+        qg = split_dim(q, 2, Hk, n_rep)
+        logits = torch.einsum("bqgrd,bkgd->bgrqk", _f32(qg),
+                              _f32(k)) * scale
+        logits = torch.where(keys, logits, NEG)
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bgrqk,bkgd->bqgrd",
+                           _f32(probs.to(dtype)), _f32(v))
+        return out.to(dtype).reshape(B, S, H, hd)
+    if S > FLASH_THRESHOLD:
+        return _flash_attention(q, _repeat_kv(k, n_rep),
+                                _repeat_kv(v, n_rep), causal=causal)
+    kf, vf = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kf)) * scale
+    if causal:
+        qi = torch.arange(S, device=q.device)[:, None]
+        ki = torch.arange(Sk, device=q.device)[None, :]
+        logits = torch.where((ki <= qi)[None, None], logits, NEG)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vf)).to(dtype)
 
 
 FLASH_THRESHOLD = 2048   # above this, use blocked attention
@@ -285,9 +344,9 @@ def _flash_attention(q, k, v, *, causal, block_q=None, block_k=None):
     nq, nk = -(-Sq // bq), -(-Sk // bk)
     scale = 1.0 / math.sqrt(hd)
     dev = q.device
-    qb = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * bq - Sq))
-    kb = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, nk * bk - Sk))
-    vb = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, nk * bk - Sk))
+    qb = pad(q, (0, 0, 0, 0, 0, nq * bq - Sq))
+    kb = pad(k, (0, 0, 0, 0, 0, nk * bk - Sk))
+    vb = pad(v, (0, 0, 0, 0, 0, nk * bk - Sk))
     qb = qb.reshape(B, nq, bq, H, hd).permute(1, 0, 3, 2, 4)
     kb = kb.reshape(B, nk, bk, H, hd).permute(1, 0, 3, 2, 4)
     vb = vb.reshape(B, nk, bk, H, hd).permute(1, 0, 3, 2, 4)
@@ -341,7 +400,8 @@ class MLP(nn.Module):
         else:
             h = torch.nn.functional.gelu(_f32(matmul(x, self.wi)),
                                          approximate="tanh").to(x.dtype)
-        return matmul(h, self.wo)
+        h = shard(h, "batch", "seq", "ff")
+        return shard(matmul(h, self.wo), "batch", "seq", "d_model")
 
 
 # --- Embedding / LM head --------------------------------------------------------
@@ -360,7 +420,14 @@ class Embedding(nn.Module):
             generator, (cfg.d_model, cfg.vocab), dt, device)
 
     def forward(self, tokens):
-        return self.tok[tokens]
+        """The rows of ``tok``: ``tok[tokens]``, and on a DTensor table
+        `F.embedding`, which keeps a vocab-sharded table sharded (each
+        rank looks up its own rows) where the indexing would gather it
+        whole. A plain table keeps the indexing: `F.embedding`'s gradient
+        adds up repeated rows in another order."""
+        out = (torch.nn.functional.embedding(tokens, self.tok)
+               if is_dtensor(self.tok) else self.tok[tokens])
+        return shard(out, "batch", "seq", "d_model")
 
     def head_weight(self) -> torch.Tensor:
         """The LM head as (d, vocab): ``head``, or ``tok.T`` when tied."""
@@ -369,7 +436,8 @@ class Embedding(nn.Module):
 
 def lm_head(embedding: Embedding, x: torch.Tensor) -> torch.Tensor:
     """Logits in float32 (the reference's ``preferred_element_type``)."""
-    return _f32(x) @ _f32(embedding.head_weight())
+    logits = _f32(x) @ _f32(embedding.head_weight())
+    return shard(logits, "batch", "seq", "vocab")
 
 
 # --- pooled caches -----------------------------------------------------------
@@ -378,7 +446,11 @@ def insert_slot(pool: torch.Tensor, req: torch.Tensor, slot: int,
                 axis: int) -> None:
     """Write ``req`` (batch size 1 on ``axis``) into batch slot ``slot`` of
     ``pool``, in place and cast to the pool's dtype, at offset 0 on every
-    other axis (`dynamic_update_slice_in_dim`'s semantics)."""
+    other axis (`dynamic_update_slice_in_dim`'s semantics); a DTensor
+    pool is written shard by shard (`sharding.insert_local`)."""
+    if is_dtensor(pool):
+        insert_local(pool, req, slot, axis)
+        return
     at = tuple(slice(0, n) for n in req.shape)
     at = at[:axis] + (slice(slot, slot + req.shape[axis]),) + at[axis + 1:]
     pool[at] = req.to(pool.dtype)

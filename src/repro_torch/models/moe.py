@@ -8,6 +8,11 @@ assignment's rank within its expert comes from one cumsum over the
 Assignments past an expert's capacity are dropped: they all land on the
 dump slot ``E * capacity``, which is discarded, and their gate weight
 becomes 0 (the kept weights are not renormalized).
+
+The reference's annotations sit at its sites: the dispatched ``xe`` and
+the experts' ``ye`` on ("experts", "moe_capacity", "d_model") (a launcher
+maps one of the two to the model axis), the gathered rows batch-major and
+the output on ("batch", "seq", "d_model").
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dense_init, _f32
+from repro_torch.models.sharding import shard
 
 
 class MoE(nn.Module):
@@ -63,10 +69,10 @@ class MoE(nn.Module):
         # --- dispatch: gather tokens into (E, C, d) -------------------------
         slot = torch.where(keep, flat_e * capacity + ranks, E * capacity)
         tok_ids = torch.arange(T * K, device=x.device) // K
-        tok_of_slot = torch.zeros(E * capacity + 1, dtype=torch.long,
-                                  device=x.device)
+        tok_of_slot = slot.new_zeros(E * capacity + 1, dtype=torch.long)
         tok_of_slot[slot] = tok_ids           # dropped ones hit the dump slot
         xe = xt[tok_of_slot[:-1]].reshape(E, capacity, d)
+        xe = shard(xe, "experts", "moe_capacity", "d_model")
 
         # --- expert computation: float32 accumulation ------------------------
         h = torch.nn.functional.silu(
@@ -76,11 +82,15 @@ class MoE(nn.Module):
                              _f32(self.wi)).to(x.dtype)
         ye = torch.einsum("ecf,efd->ecd", _f32(h),
                           _f32(self.wo)).to(x.dtype)
+        ye = shard(ye, "experts", "moe_capacity", "d_model")
 
         # --- combine: gather back and weight --------------------------------
         flat = ye.reshape(E * capacity, d)
         gathered = flat[slot.clamp(0, E * capacity - 1)]
         gathered = torch.where(keep[:, None], gathered, 0)
+        # the combine's rows batch-major (T is B*S flattened)
+        gathered = shard(gathered.reshape(T, K, d), "batch", None, None
+                         ).reshape(T * K, d)
         w = (gate_vals.reshape(-1) * keep).to(x.dtype)
         out = (gathered.reshape(T, K, d)
                * w.reshape(T, K, 1)).sum(dim=1).to(x.dtype)
@@ -89,7 +99,8 @@ class MoE(nn.Module):
         me = probs.mean(dim=0)                                    # (E,)
         # kept assignments per expert, by index_add_: `bincount` would
         # read its maximum back to the host, a sync in every decode step
-        ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-            0, flat_e, _f32(keep)) / max(T * K, 1)
+        # (``new_zeros`` of ``probs``: a DTensor where the routing is one)
+        ce = probs.new_zeros(E).index_add_(0, flat_e, _f32(keep)) \
+            / max(T * K, 1)
         aux = E * torch.sum(me * ce)
-        return out.reshape(B, S, d), aux
+        return shard(out.reshape(B, S, d), "batch", "seq", "d_model"), aux

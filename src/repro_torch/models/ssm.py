@@ -10,6 +10,16 @@ reference's `lax.scan` over chunks is a Python loop here. State per head:
 float32 whatever the config's dtype, as in the reference. A decode step
 writes the conv tail and the state IN PLACE, through ``torch.where`` on the
 slots that are active, so nothing is read back to the host.
+
+The reference's annotations sit at its sites: ``z`` and ``xBC`` after the
+split, ``xs`` and the decays ``a`` on the SSM heads, the output on
+("batch", "seq", "d_model"). ``in_proj``'s spec shards the concatenated
+``[z | xBC | dt]`` projection, so the split slices across shard
+boundaries; DTensor gathers there, as XLA reshards there. The decode
+branch annotates its ``xs`` and ``a`` too (the reference leaves them to
+XLA's propagation), so the state update runs on each rank's heads, the
+heads the state's cache spec gives it; its conv tail and state are written
+shard by shard (`sharding.write_local`).
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dense_init, _f32, matmul, rmsnorm
+from repro_torch.models.sharding import pad, shard, write_local
 
 F = torch.nn.functional
 
@@ -141,6 +152,8 @@ class SSM(nn.Module):
             cfg.ssm_headdim
         wc = cfg.conv_width
         z, xBC, dtr = self._split(matmul(u, self.in_proj))
+        z = shard(z, "batch", "seq", "ff")
+        xBC = shard(xBC, "batch", "seq", None)
         A = -torch.exp(self.A_log)                               # (H,)
         dt_f = softplus(_f32(dtr) + self.dt_bias)                # (B,S,H)
         w, bias = _f32(self.conv_w), _f32(self.conv_b)
@@ -148,21 +161,22 @@ class SSM(nn.Module):
         new_cache = None
         if cache is None:
             # causal depthwise conv over the (x, B, C) channels
-            xp = F.pad(xBC, (0, 0, wc - 1, 0))
+            xp = pad(xBC, (0, 0, wc - 1, 0))
             conv = sum(_f32(xp[:, k:k + S]) * w[k] for k in range(wc)) + bias
             xBC_c = F.silu(conv)
-            xs = xBC_c[..., :din].reshape(B, S, H, P)
+            xs = shard(xBC_c[..., :din].reshape(B, S, H, P),
+                       "batch", "seq", "ssm_heads", None)
             Bm, Cm = xBC_c[..., din:din + N], xBC_c[..., din + N:]
-            a = dt_f * A                                         # (B,S,H)
+            a = shard(dt_f * A, "batch", "seq", "ssm_heads")     # (B,S,H)
             xdt = xs * dt_f[..., None]
             chunk = min(cfg.ssm_chunk, S)
             pad_s = (-S) % chunk
             # pad with x = 0 (no contribution) and a = 0 (decay 1, state
             # kept)
-            y, state = _ssd_chunked(F.pad(xdt, (0, 0, 0, 0, 0, pad_s)),
-                                    F.pad(a, (0, 0, 0, pad_s)),
-                                    F.pad(Bm, (0, 0, 0, pad_s)),
-                                    F.pad(Cm, (0, 0, 0, pad_s)), chunk)
+            y, state = _ssd_chunked(pad(xdt, (0, 0, 0, 0, 0, pad_s)),
+                                    pad(a, (0, 0, 0, pad_s)),
+                                    pad(Bm, (0, 0, 0, pad_s)),
+                                    pad(Cm, (0, 0, 0, pad_s)), chunk)
             y = y[:, :S] + self.D[:, None] * xs
             if return_cache:
                 new_cache = {"conv": xp[:, S:S + wc - 1].to(u.dtype),
@@ -175,9 +189,10 @@ class SSM(nn.Module):
             window = torch.cat([conv_st.to(common), xBC.to(common)], dim=1)
             conv = (_f32(window) * w[None]).sum(dim=1) + bias
             xBC_c = F.silu(conv)                                 # (B, ch)
-            xs = xBC_c[:, :din].reshape(B, H, P)
+            xs = shard(xBC_c[:, :din].reshape(B, H, P),
+                       "batch", "ssm_heads", None)
             Bm, Cm = xBC_c[:, din:din + N], xBC_c[:, din + N:]
-            a = torch.exp(dt_f[:, 0] * A)                        # (B, H)
+            a = shard(torch.exp(dt_f[:, 0] * A), "batch", "ssm_heads")
             upd = torch.einsum("bhp,bn->bhpn", xs * dt_f[:, 0, :, None], Bm)
             state = cache["state"] * a[..., None, None] + upd
             y = torch.einsum("bhpn,bn->bhp", state, Cm)
@@ -186,12 +201,13 @@ class SSM(nn.Module):
                                conv_st)
             state = torch.where(active[:, None, None, None], state,
                                 cache["state"])
-            cache["conv"].copy_(tail)
-            cache["state"].copy_(state)
+            write_local(cache["conv"], tail)
+            write_local(cache["state"], state)
             new_cache = cache
 
         y = y.reshape(B, S, din).to(u.dtype)
         # gated RMSNorm (mamba2): norm(y * silu(z)), the gate cast first
         y = y * F.silu(_f32(z)).to(u.dtype)
         y = rmsnorm(self.norm, y, cfg.norm_eps)
-        return matmul(y, self.out_proj), new_cache
+        return shard(matmul(y, self.out_proj), "batch", "seq", "d_model"), \
+            new_cache

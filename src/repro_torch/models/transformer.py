@@ -7,6 +7,10 @@ reference's stacked layout, ``{k, v}`` of (n_layers, B, Smax, Hk, hd), and
 the decode entry points write it IN PLACE (layer l works on the views
 ``cache["k"][l]``, ``cache["v"][l]``) and return the same dict, where the
 reference returns a new cache.
+
+The entry points run under `sharding.tp_context` on a model that
+`api.distribute` placed on a mesh (`sharding.sharded`); there the caches
+they make and return are placed by the rules' `cache_spec`.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        cache_write, insert_slot, lm_head,
                                        pos_vector, remat, rope_tables)
 from repro_torch.models.moe import MoE
+from repro_torch.models.sharding import pad, place_cache, shard, sharded
 
 
 class Block(nn.Module):
@@ -79,7 +84,8 @@ class Transformer(nn.Module):
         x = self.embed(torch.as_tensor(batch["inputs"], device=self.device))
         if self.cfg.family == "vlm" and "frontend" in batch:
             fe = torch.as_tensor(batch["frontend"], device=self.device)
-            x = torch.cat([fe.to(x.dtype), x], dim=1)
+            fe = shard(fe.to(x.dtype), "batch", "seq", "d_model")
+            x = torch.cat([fe, x], dim=1)
         return x
 
     def _rope(self, positions: torch.Tensor) -> tuple:
@@ -90,6 +96,7 @@ class Transformer(nn.Module):
         return self._rope(torch.arange(S, dtype=torch.int32,
                                        device=self.device))
 
+    @sharded
     def forward_hidden(self, batch):
         """(hidden, aux): the (B, S, d_model) LM-head input over the token
         positions (after the final norm); `forward` is
@@ -105,11 +112,13 @@ class Transformer(nn.Module):
             x = x[:, batch["frontend"].shape[1]:, :]   # text positions only
         return x, aux
 
+    @sharded
     def forward(self, batch):
         """Returns (float32 logits over the token positions, aux)."""
         x, aux = self.forward_hidden(batch)
         return lm_head(self.embed, x), aux
 
+    @sharded
     def prefill(self, batch, max_seq: int | None = None):
         """Returns (last-position logits (B, 1, vocab), cache, next pos);
         the cache is padded with zeros to ``max_seq`` along its sequence
@@ -124,11 +133,13 @@ class Transformer(nn.Module):
             vs.append(c["v"])
         caches = {"k": torch.stack(ks), "v": torch.stack(vs)}
         if max_seq is not None and max_seq > S:
-            caches = {n: torch.nn.functional.pad(
-                c, (0, 0, 0, 0, 0, max_seq - S)) for n, c in caches.items()}
+            caches = {n: pad(c, (0, 0, 0, 0, 0, max_seq - S))
+                      for n, c in caches.items()}
         x = self.final_norm(x)
+        caches = place_cache(self, caches)
         return lm_head(self.embed, x[:, -1:, :]), caches, S
 
+    @sharded
     def decode_hidden(self, caches, token, pos):
         """One serving step up to and including the final norm: the
         (B, 1, d) hidden states an LM head (dense `lm_head` or a
@@ -151,6 +162,7 @@ class Transformer(nn.Module):
                             write=write)
         return self.final_norm(x), caches
 
+    @sharded
     def decode_step(self, caches, token, pos):
         """``lm_head`` of `decode_hidden`: (float32 logits (B, 1, vocab),
         caches)."""
@@ -163,8 +175,9 @@ class Transformer(nn.Module):
         cfg = self.cfg
         shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.hd)
         dtype = dtype or cfg.param_dtype
-        return {n: torch.zeros(shape, dtype=dtype, device=self.device)
-                for n in ("k", "v")}
+        return place_cache(self, {n: torch.zeros(shape, dtype=dtype,
+                                                 device=self.device)
+                                  for n in ("k", "v")})
 
     @staticmethod
     def cache_insert_slot(pool, req, slot: int):

@@ -399,7 +399,8 @@ class FormatSpec:
         return int(self.interleave_width(knobs) or 1)
 
     def shard(self, a, n_shards: int, *, params: DtansParams = PAPER,
-              artifacts: dict | None = None, **knobs):
+              artifacts: dict | None = None, only: int | None = None,
+              **knobs):
         """Row-partition matrix ``a`` into an ``n_shards``-way
         `repro_torch.sparse.shard.ShardPlan` — the registry-generic seam
         (same pattern as `spmm_runner`): boundaries at `shard_unit`
@@ -410,7 +411,10 @@ class FormatSpec:
 
         ``artifacts`` memoizes each shard's expensive constructed
         artifact under ``artifact_key + (n_shards, k)`` — one mapping
-        shared with the oracle / refinement convention."""
+        shared with the oracle / refinement convention.
+
+        ``only`` packs shard ``only`` alone, the others left None with size
+        0: what one rank of a mesh, which runs its own shard, needs."""
         from repro_torch.sparse.shard import ShardPlan, csr_row_block, \
             shard_boundaries
         kn = self._knobs(knobs)
@@ -420,6 +424,10 @@ class FormatSpec:
         shards = []
         sizes = []
         for k in range(n_shards):
+            if only is not None and k != only:
+                shards.append(None)
+                sizes.append(0)
+                continue
             sub = csr_row_block(a, bounds[k], bounds[k + 1])
             key = self.artifact_key(kn) + ("shard", n_shards, k)
             sub_arts = arts.setdefault(key, {})

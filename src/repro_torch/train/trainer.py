@@ -97,7 +97,8 @@ class Trainer:
         gsum = [torch.zeros_like(p, dtype=acc_dt) for p in self.params]
         lsum = torch.zeros((), device=self.device)
         for i in range(n):
-            mb = {k: v[i * b // n:(i + 1) * b // n] for k, v in batch.items()}
+            mb = self.place({k: v[i * b // n:(i + 1) * b // n]
+                             for k, v in batch.items()})
             loss, _ = api.loss_fn(self.model, self.cfg, mb)
             grads = torch.autograd.grad(loss, self.params,
                                         allow_unused=True)
@@ -119,6 +120,12 @@ class Trainer:
         process's own: itself on one device (`DataParallelTrainer`
         averages them over its data replicas)."""
         return grads, loss
+
+    def place(self, mb: dict) -> dict:
+        """A microbatch as this process's model takes it: itself on one
+        device (`TensorParallelTrainer` shards its rows over the data
+        axis)."""
+        return mb
 
     def batch(self, step: int) -> dict:
         """The batch this process trains on at ``step``."""

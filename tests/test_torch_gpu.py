@@ -1538,3 +1538,43 @@ def test_data_parallel_launcher_on_card():
     assert [r["rank"] for r in out] == [0, 1]
     assert out[0]["history"] == out[1]["history"]
     assert all(np.isfinite(out[0]["history"]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_gradient_is_the_indexings_on_card(dtype):
+    """The one-device `layers.Embedding` on the card: its output and its
+    table's gradient, with tokens repeated (a batch of 16 x 512 drawn from
+    4096 of SmolLM-135M's 49152 rows), bitwise those of the indexing
+    ``tok[tokens]``."""
+    from repro_torch.models import layers
+    _need_card()
+    cfg = configs.get("smollm-135m").with_(dtype=dtype)
+    emb = layers.Embedding(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    emb.tok.requires_grad_(True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.randint(0, 4096, (16, 512), generator=g, device="cuda")
+    up = torch.randn(16, 512, cfg.d_model, generator=g,
+                     device="cuda").to(emb.tok.dtype)
+    out = emb(ids)
+    assert torch.equal(out, emb.tok[ids])
+    got, = torch.autograd.grad(out, emb.tok, up)
+    want, = torch.autograd.grad(emb.tok[ids], emb.tok, up)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_tp_decode_step_two_ranks_on_one_card():
+    """Tensor parallelism on the card: a float32 smoke SmolLM placed on a
+    (1, 2) mesh of two gloo ranks of the one card (NCCL refuses two ranks
+    on one GPU); its prefill and decode step within rtol 1e-4 / atol 1e-5
+    of the one-device model's on every rank."""
+    from repro_torch.launch.mesh import spawn
+
+    import torch_tp_ranks
+    _need_card()
+    ranks = spawn(2, torch_tp_ranks.decode_body, "cuda", device_type="cuda",
+                  axes=("data", "model"), shape=(1, 2))
+    for r in ranks:
+        np.testing.assert_allclose(r["tp"], r["one"], rtol=1e-4, atol=1e-5)
