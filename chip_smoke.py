@@ -46,7 +46,9 @@ Phases, each raising on failure (no phase falls back to the CPU):
    kernels (their counters must rise), held against the dense product, the
    fused plain version and, bitwise, the generic kernels
    (``fused=False``); the same matrix as BCSR 4x4 through
-   ``ops.bcsr_spmm``.
+   ``ops.bcsr_spmm``. Its host encode and host decode depend on the seed
+   alone and run in a process of their own from the start, beside phases
+   2-4b.
 4d. decode: ``ops.decode`` of the phase-4 head and the phase-4c matrix,
    columns and value bits equal to `decode_ref` and the real entries
    exactly the host's `decode_matrix`; the kernel's counter must rise.
@@ -169,10 +171,21 @@ Phases, each raising on failure (no phase falls back to the CPU):
    steps in f32 (8 x 512) within 1e-4 of a one-rank ``Trainer``, then 5
    steps of 4j's bf16 configuration within `DP_LOSS_RTOL`; prefill,
    decode-step and train-step times by CUDA events on rank 0 with the
-   collectives' share.
-The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card);
-   its bound must lie below 4j's measured step p50, and the roofline's
-   80 GiB within 5% of the card's memory.
+   collectives' share. Then the optimizer state placed by the specs, f32
+   at a global batch of 6 x 512, AdamW: 3 ZeRO-1 steps on a (3 data, 1
+   model) mesh of the same ranks (each rank's optimizer bytes the
+   dry-run's reckoning, a third of the state; every weight bitwise a
+   ``zero1=False`` run's on that mesh; a checkpoint of whole tensors
+   written), that checkpoint restored on the (1, 3) mesh for 2 more
+   steps, and 3 steps with FSDP forced on (3, 1) (parameter and AdamW
+   bytes a rank the reckoning, the state 3x the parameters); every loss
+   within 1e-4 of a one-rank ``Trainer`` run uninterrupted; step ms and
+   the collectives' share on rank 0 (the last step's collectives over the
+   warm untimed step before it).
+The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card),
+   counted on a fake process group of one rank; its bound must lie below
+   4j's measured step p50, and the roofline's 80 GiB within 5% of the
+   card's memory.
 5. times on the card (CUDA events) per batch size: kernel, plain version,
    the library calls (cuSPARSE CSR ``torch.sparse_csr_tensor @ x``, and
    BSR ``torch.sparse_bsr_tensor @ x`` for the blocked rows where it runs;
@@ -200,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -245,6 +259,7 @@ from repro_torch.launch import dryrun, op_cost, roofline  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import MeshShape, make_debug_mesh, spawn  # noqa: E402
 from repro_torch.launch.sharding import local_shape  # noqa: E402
+from repro_torch.launch.steps import build_cell  # noqa: E402
 from repro_torch.models import api, layers  # noqa: E402
 from repro_torch.models.sharding import full, tp_context  # noqa: E402
 from repro_torch.models.config import ShapeConfig  # noqa: E402
@@ -1033,11 +1048,15 @@ BLOCK_DENSITY = 0.2      # 1 - the head's sparsity 0.8
 WEIGHT_STD = 0.02
 
 
-def phase_blocked() -> dict:
-    """The head's shape pruned in 4x4 tiles (weights of std
-    `WEIGHT_STD`), codebook-quantized as `from_dense` does, encoded as BCSR-dtANS 4x4 and served by a
-    `SparseLinear` through the fused shared-column kernels; the same
-    matrix through ``fused=False`` and as BCSR 4x4."""
+def blocked_host() -> dict:
+    """4c's host work, from `SEED` alone: the head's shape pruned in 4x4
+    tiles (weights of std `WEIGHT_STD`), codebook-quantized as
+    `from_dense` does (``q``), encoded as BCSR-dtANS 4x4 (``mat``) and
+    decoded again by the host decoder (``filled``), which walks the
+    12,288 slices one by one (~100-250 s on the card's host), with both
+    times. `main` runs it in a process of its own from the start, beside
+    phases 2-4b (at module level: the process imports this script by
+    name)."""
     t0 = time.perf_counter()
     tiles = block_sparse(
         VOCAB // BLOCK[0], D_MODEL // BLOCK[1], BLOCK, density=BLOCK_DENSITY,
@@ -1047,6 +1066,21 @@ def phase_blocked() -> dict:
                               tiles.shape), bits=8)
     mat = encode_bcsr_matrix(q, block_shape=BLOCK)
     enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    filled = decode_matrix(mat)
+    return {"q": q, "mat": mat, "filled": filled, "encode_s": enc_s,
+            "host_decode_s": time.perf_counter() - t0}
+
+
+def phase_blocked(host: dict | None = None) -> dict:
+    """The head's shape pruned in 4x4 tiles, encoded as BCSR-dtANS 4x4
+    and decoded on the host (`blocked_host`: ``host`` where `main` ran it
+    beside the earlier phases) and served by a `SparseLinear` through the
+    fused shared-column kernels; the same matrix through ``fused=False``
+    and as BCSR 4x4."""
+    host = host or blocked_host()
+    q, mat, filled = host["q"], host["mat"], host["filled"]
+    enc_s, host_decode_s = host["encode_s"], host["host_decode_s"]
     sl = SparseLinear(mat=mat, packed=pack_matrix(mat), d_in=D_MODEL,
                       d_out=VOCAB, dense_bytes=VOCAB * D_MODEL * 4,
                       baseline_bytes=best_baseline_nbytes(q)[1],
@@ -1054,13 +1088,9 @@ def phase_blocked() -> dict:
     pm = sl.packed
     dm = to_device(pm, "cuda")
     assert pm.shared_cols and pm.lane_width == BLOCK[0]
-    # The host decoder walks the 12,288 slices one by one (~160 s on the
-    # card's host): decode once, for `apply_dense_reference` (the cached
-    # `dense_weight` it would decode itself) and for phase 4d.
-    t0 = time.perf_counter()
-    filled = decode_matrix(mat)
+    # decoded once, for `apply_dense_reference` (the cached
+    # `dense_weight` it would decode itself) and for phase 4d
     sl.dense_weight = torch.from_numpy(filled.to_dense()).to(sl.device)
-    host_decode_s = time.perf_counter() - t0
     pb = comparator_pack(q, "bcsr", BLOCK)
     db = BC.to_device(pb, "cuda")
     bcsr_bytes, cells = _work(q, "bcsr", BLOCK, pb)
@@ -2466,13 +2496,20 @@ TP_DECODE_STEPS = 16
 TP_F32_BATCH, TP_F32_STEPS = 8, 3
 TP_BF16_STEPS = 5     # 4j's configuration: 16 x 512, 2 microbatches, bf16
 TP_LOSS_RTOL = 1e-4   # f32 TP against the one-rank Trainer
+# placed optimizer state (ZeRO-1 on a (3, 1) mesh, its checkpoint restored
+# on (1, 3), FSDP forced): f32, a global batch of 6 x 512 (2 rows a data
+# rank); the one-rank Trainer runs ZERO1 + RESTORE steps uninterrupted.
+# A timed run's first step is cold (DTensor's first dispatch) and its last
+# is timed with its collectives: 3 steps leave one warm untimed step as
+# the collectives' share's denominator
+TP_ZERO1_BATCH = 6
+TP_ZERO1_STEPS, TP_RESTORE_STEPS, TP_FSDP_STEPS = 3, 2, 3
 
 
 def _tp_train_runs() -> tuple:
     """(name, config, global batch, microbatches, steps) of 4n's training:
     f32 8 x 512, then 4j's bf16 configuration."""
-    return (("f32", _train_cfg().with_(dtype="float32"), TP_F32_BATCH, 1,
-             TP_F32_STEPS),
+    return (("f32", _f32_train_cfg(), TP_F32_BATCH, 1, TP_F32_STEPS),
             ("bf16", _train_cfg(), TRAIN_BATCH, 2, TP_BF16_STEPS))
 TP_RTOL, TP_ATOL = 1e-4, 1e-5   # logits; atol of the largest |logit|
 
@@ -2481,10 +2518,12 @@ class _CollectiveTimer(TorchDispatchMode):
     """CUDA events around every collective the ranks dispatch (DTensor's
     functional ones and their waits, `torch.distributed`'s own): the time
     the card's stream spends in them, and the number of collectives issued
-    (`op_cost.collective_kind`; waits not counted). A dispatch mode runs
-    Python for every op of the step, so the step it times runs slower than
-    an untimed one: the collectives' share is taken against untimed steps
-    (`_collective_share`)."""
+    (`op_cost.collective_kind`; waits not counted), DTensor's own inside
+    its dispatch of an op too (`op_cost.has_dtensor`: the op is left to
+    DTensor, whose local ops and collectives come back here). A dispatch
+    mode runs Python for every op of the step, so the step it times runs
+    slower than an untimed one: the collectives' share is taken against
+    untimed steps (`_collective_share`)."""
 
     def __init__(self):
         super().__init__()
@@ -2493,6 +2532,8 @@ class _CollectiveTimer(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if op_cost.has_dtensor(args, kwargs):
+            return NotImplemented
         if func.namespace not in ("_c10d_functional",
                                   "_c10d_functional_autograd", "c10d"):
             return func(*args, **kwargs)
@@ -2596,6 +2637,26 @@ def tp_head_shard(k: int):
         pruned, TP_RANKS, only=k, lane_width=128, shared_table=True)
 
 
+def _tp_steps(t, first: int, n: int, timed: bool = True) -> dict:
+    """``n`` steps of trainer ``t`` from step ``first``: losses, step ms by
+    CUDA events, the last step's collectives timed (``timed``)."""
+    losses, step_ms, coll = [], [], None
+    for step in range(first, first + n):
+        timer = (_CollectiveTimer() if timed and step == first + n - 1
+                 else None)
+        ev = _events()
+        with timer or contextlib.nullcontext():
+            ev[0].record()
+            m = t.train_step(t.batch(step))
+            ev[1].record()
+        losses.append(float(m["loss"]))
+        step_ms.append(_elapsed(ev))
+        if timer is not None:
+            coll = timer.result(step_ms[-1])
+    t.step = first + n
+    return {"loss": losses, "step_ms": step_ms, "timed_step": coll}
+
+
 def _tp_train(mesh) -> dict:
     """`TensorParallelTrainer` steps in f32 (8 x 512) and in 4j's bf16
     configuration on ``mesh``: losses, step ms by CUDA events, the last
@@ -2610,29 +2671,95 @@ def _tp_train(mesh) -> dict:
                              microbatches=micro), pipe, mesh,
             generator=torch.Generator().manual_seed(SEED), device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        losses, step_ms, coll = [], [], None
-        for step in range(steps):
-            timer = _CollectiveTimer() if step == steps - 1 else None
-            ev = _events()
-            with timer or contextlib.nullcontext():
-                ev[0].record()
-                m = t.train_step(t.batch(step))
-                ev[1].record()
-            losses.append(float(m["loss"]))
-            step_ms.append(_elapsed(ev))
-            if timer is not None:
-                coll = timer.result(step_ms[-1])
-        out[name] = {"loss": losses, "step_ms": step_ms, "timed_step": coll,
+        out[name] = {**_tp_steps(t, 0, steps),
                      "peak_bytes": torch.cuda.max_memory_allocated()}
         del t
         torch.cuda.empty_cache()
     return out
 
 
-def tp_rank(mesh, prompts) -> dict:
+def _f32_train_cfg():
+    """4n's f32 runs: `_train_cfg` in float32 (4g's weights' dtype)."""
+    return _train_cfg().with_(dtype="float32")
+
+
+def _tp_zero1(ckpt_dir: str) -> dict:
+    """4n's placed optimizer state, f32 SmolLM-135M at a global batch of
+    `TP_ZERO1_BATCH` x 512, AdamW, from `SEED`: on a (3 data, 1 model)
+    mesh of the ranks, `TP_ZERO1_STEPS` ZeRO-1 steps (the default) and a
+    checkpoint into ``ckpt_dir`` after them, then as many steps with
+    ``zero1=False`` (every weight compared bitwise); that checkpoint
+    restored on the (1, 3) mesh and `TP_RESTORE_STEPS` more steps; then
+    `TP_FSDP_STEPS` steps with FSDP forced on the (3, 1) mesh. Losses,
+    step ms (CUDA events, each run's last step with its collectives
+    timed), this rank's parameter and optimizer-state bytes, checkpoint
+    seconds."""
+    cfg = _f32_train_cfg()
+    data = make_debug_mesh((TP_RANKS, 1), ("data", "model"), "cuda")
+    wide = make_debug_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    # drawn once from the seed (on the host); each run takes a copy
+    drawn = api.build_model(cfg, generator=torch.Generator().manual_seed(
+        SEED), device="cuda")
+
+    def trainer(mesh, **kw):
+        pipe = SyntheticTokens(PipelineConfig(
+            vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+            global_batch=TP_ZERO1_BATCH, seed=SEED))
+        return TensorParallelTrainer(
+            cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR,
+                             ckpt_dir=ckpt_dir), pipe, mesh,
+            model=copy.deepcopy(drawn), **kw)
+
+    def bytes_of(t) -> dict:
+        return {"param_bytes": t.rules.check_distributed(t.model),
+                "opt_bytes": t.state_bytes()}
+
+    out = {}
+    t0 = time.perf_counter()
+    t = trainer(data)
+    out["zero1"] = {**_tp_steps(t, 0, TP_ZERO1_STEPS), **bytes_of(t)}
+    t1 = time.perf_counter()
+    t.checkpoint()
+    t.ckpt.wait()
+    out["zero1"]["checkpoint_s"] = time.perf_counter() - t1
+    weights = {n: full(p).detach() for n, p in t.model.named_parameters()}
+    del t
+    out["zero1"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t = trainer(data, zero1=False)
+    out["unplaced"] = {**_tp_steps(t, 0, TP_ZERO1_STEPS), **bytes_of(t)}
+    out["bitwise"] = sum(not torch.equal(full(p), weights[n])
+                         for n, p in t.model.named_parameters())
+    del t, weights
+    torch.cuda.empty_cache()
+    out["unplaced"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t = trainer(wide)
+    t1 = time.perf_counter()
+    assert t.try_restore() and t.step == TP_ZERO1_STEPS, t.step
+    out["restore"] = {"restore_s": time.perf_counter() - t1,
+                      **_tp_steps(t, t.step, TP_RESTORE_STEPS, timed=False),
+                      **bytes_of(t)}
+    del t
+    torch.cuda.empty_cache()
+    out["restore"]["wall_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    t = trainer(data, fsdp=True)
+    out["fsdp"] = {**_tp_steps(t, 0, TP_FSDP_STEPS), **bytes_of(t)}
+    del t
+    torch.cuda.empty_cache()
+    out["fsdp"]["wall_s"] = time.perf_counter() - t0
+    del drawn
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(mesh, prompts, ckpt_dir: str) -> dict:
     """One rank of phase 4n (at module level: the ranks import this script
     by name). Its own shard of phase 4's head is encoded by a helper
-    process (`tp_head_shard`) while the rank trains (`_tp_train`); then
+    process (`tp_head_shard`) while the rank trains (`_tp_train`, then
+    the placed-state runs `_tp_zero1`, its checkpoint in ``ckpt_dir``);
+    then
     4g's model placed on the (1, 3) mesh serves 4g's requests through the
     sharded head (`_tp_serve`), the kernels' launches counted from 0; one
     more decode step is counted by `op_cost` and one timed with its
@@ -2645,6 +2772,7 @@ def tp_rank(mesh, prompts) -> dict:
         t0 = time.perf_counter()
         shard = helper.submit(tp_head_shard, k)
         out["train"] = _tp_train(mesh)
+        out["zero1"] = _tp_zero1(ckpt_dir)
         t1 = time.perf_counter()
         plan = shard.result()
         out["encode_s"] = time.perf_counter() - t0
@@ -2721,6 +2849,39 @@ def _tp_reference_losses() -> dict:
     return out
 
 
+def _zero1_reference_losses() -> list:
+    """The one-rank `Trainer` on `_tp_zero1`'s batches, uninterrupted:
+    `TP_ZERO1_STEPS` + `TP_RESTORE_STEPS` steps."""
+    cfg = _f32_train_cfg()
+    pipe = SyntheticTokens(PipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TP_ZERO1_BATCH,
+        seed=SEED))
+    t = Trainer(cfg, TrainConfig(optimizer="adamw", lr=TRAIN_LR), pipe,
+                device="cuda", generator=torch.Generator().manual_seed(SEED))
+    out = [float(t.train_step(t.batch(s))["loss"])
+           for s in range(TP_ZERO1_STEPS + TP_RESTORE_STEPS)]
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero1_reckoning() -> dict:
+    """The dry-run's reckoning (`dryrun._memory`, the specs) of a device's
+    parameter and optimizer bytes in `_tp_zero1`'s ZeRO-1 and FSDP runs
+    (a (3, 1) `MeshShape`)."""
+    shape = ShapeConfig("tp_zero1", TRAIN_SEQ, TP_ZERO1_BATCH, "train")
+    out = {}
+    for name, fsdp in (("zero1", False), ("fsdp", True)):
+        cell = build_cell("smollm-135m", shape.name,
+                          MeshShape(("data", "model"), (TP_RANKS, 1)),
+                          cfg=_f32_train_cfg(), shape=shape, dp_only=False,
+                          fsdp=fsdp)
+        mem = dryrun._memory(cell)
+        out[name] = {"param_bytes": mem["param_bytes"],
+                     "opt_bytes": mem["opt_bytes"]}
+    return out
+
+
 def _gap(row: np.ndarray) -> float:
     top = np.sort(row)[-2:]
     return float(top[1] - top[0])
@@ -2739,23 +2900,29 @@ def phase_tp(streams: list | None = None, backend: str = "gloo") -> None:
     `TP_ATOL` of the one-device model's on the same tokens, the head
     bitwise the one-device loop over the three shards; `op_cost`'s
     collectives of one decode step equal to the Megatron count; then
-    `TensorParallelTrainer` losses against the one-rank `Trainer`.
+    `TensorParallelTrainer` losses against the one-rank `Trainer`, and
+    the placed-state runs (`_tp_zero1`, held by `_check_zero1`).
     ``backend="nccl"`` runs the ranks on cards of their own instead
     (`experiments/tensor_parallel/time_tp_step.py`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     prng = np.random.default_rng(SEED + 7)
     prompts = [prng.integers(0, VOCAB, size=n) for n in ENGINE_PROMPTS]
     t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     # the ranks start (imports, their shards' host encodes) while this
     # process trains the one-rank references on the card
-    with ThreadPoolExecutor(1) as pool:
-        group = pool.submit(spawn, TP_RANKS, tp_rank, prompts,
-                            device_type="cuda", backend=backend,
-                            axes=("data", "model"), shape=(1, TP_RANKS),
-                            timeout_s=900.0)
-        want = _tp_reference_losses()
-        ref_s = time.perf_counter() - t0
-        ranks = group.result()
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            group = pool.submit(spawn, TP_RANKS, tp_rank, prompts, ckpt_dir,
+                                device_type="cuda", backend=backend,
+                                axes=("data", "model"), shape=(1, TP_RANKS),
+                                timeout_s=900.0)
+            want = _tp_reference_losses()
+            want_zero1 = _zero1_reference_losses()
+            ref_s = time.perf_counter() - t0
+            ranks = group.result()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     ranks_s = time.perf_counter() - t0
     r0 = ranks[0]
     cfg = configs.get("smollm-135m")
@@ -2906,8 +3073,9 @@ def phase_tp(streams: list | None = None, backend: str = "gloo") -> None:
         f"{[round(v, 4) for v in b16['loss']]}: max rel {max(rel16):.2e} "
         f"(limit {DP_LOSS_RTOL:g}); references {ref_s:.1f} s, ranks "
         f"{ranks_s:.1f} s")
+    zero1 = _check_zero1(ranks, want_zero1)
     RESULTS["tp"] = {
-        "ranks_s": ranks_s, "reference_s": ref_s,
+        "ranks_s": ranks_s, "reference_s": ref_s, "zero1": zero1,
         "param_bytes": r0["param_bytes"],
         "param_bytes_whole": r0["param_bytes_whole"],
         "encode_s": [r["encode_s"] for r in ranks],
@@ -3065,6 +3233,9 @@ def phase_roofline() -> None:
         shape=ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"),
         mesh=MeshShape(("data", "model"), (1, 1)), microbatches=2)
     assert rec["status"] == "ok", rec.get("traceback")
+    # counted on a fake process group of the cell's (1, 1) mesh
+    assert "sharded_error" not in rec, rec.get("sharded_traceback")
+    assert rec["collectives"]["reckoned"] is False
     r = rec["roofline"]
     bound_ms = r["bound_s"] * 1e3
     p50 = RESULTS["train"]["step_spread_ms"]["p50"]
@@ -3072,7 +3243,7 @@ def phase_roofline() -> None:
     mem_off = abs(total - roofline.HBM_PER_CHIP) / roofline.HBM_PER_CHIP
     log(f"[roofline] 4j's cell: {rec['flops_per_device'] / 1e12:.3f} TFLOP, "
         f"{rec['hbm_bytes_per_device'] / 1e9:.1f} GB moved (eager, counted "
-        f"by op_cost): compute {r['compute_s'] * 1e3:.2f} ms, memory "
+        f"by op_cost on a fake process group): compute {r['compute_s'] * 1e3:.2f} ms, memory "
         f"{r['memory_s'] * 1e3:.2f} ms -> bound {bound_ms:.2f} ms "
         f"({r['dominant']}); 4j's step p50 {p50:.1f} ms = "
         f"{p50 / bound_ms:.2f}x the bound; model FLOPs "
@@ -3086,6 +3257,60 @@ def phase_roofline() -> None:
     RESULTS["roofline"] = {"record": rec, "bound_ms": bound_ms,
                            "step_p50_ms": p50, "ratio": p50 / bound_ms,
                            "total_memory": total}
+
+
+def _check_zero1(ranks: list, want: list) -> dict:
+    """4n's placed-state runs (`_tp_zero1`) held: each rank's parameter
+    and optimizer bytes the dry-run's reckoning exactly (FSDP's AdamW state
+    3x its parameters), the ZeRO-1 weights bitwise the ``zero1=False``
+    run's, every loss within `TP_LOSS_RTOL` of the one-rank `Trainer`
+    (``want``, uninterrupted: the restored run against its later steps);
+    logged with step ms p50 and the collectives' share on rank 0."""
+    reck = _zero1_reckoning()
+    for r in ranks:
+        z = r["zero1"]
+        assert z["bitwise"] == 0, (r["coord"], z["bitwise"])
+        for name in ("zero1", "fsdp"):
+            got = {k: z[name][k] for k in ("param_bytes", "opt_bytes")}
+            assert got == reck[name], (r["coord"], name, got, reck[name])
+        assert z["fsdp"]["opt_bytes"] == 3 * z["fsdp"]["param_bytes"]
+        assert z["zero1"]["loss"] == ranks[0]["zero1"]["zero1"]["loss"]
+    z = ranks[0]["zero1"]
+    rel = {}
+    for name, first in (("zero1", 0), ("unplaced", 0),
+                        ("restore", TP_ZERO1_STEPS), ("fsdp", 0)):
+        ref = want[first:first + len(z[name]["loss"])]
+        rel[name] = max(abs(g - w) / abs(w)
+                        for g, w in zip(z[name]["loss"], ref))
+        assert rel[name] <= TP_LOSS_RTOL, (name, z[name]["loss"], ref)
+    shares = {name: _collective_share(z[name]["timed_step"],
+                                      z[name]["step_ms"][1:-1])
+              for name in ("zero1", "unplaced", "fsdp")}
+    ms = {name: z[name]["step_ms"] for name in
+          ("zero1", "unplaced", "restore", "fsdp")}
+    log(f"[tp] ZeRO-1: f32 SmolLM-135M, {TP_ZERO1_BATCH} x {TRAIN_SEQ}, "
+        f"AdamW on a ({TP_RANKS}, 1) mesh: {z['zero1']['opt_bytes']:,} B of "
+        f"optimizer state a rank (zero1=False: "
+        f"{z['unplaced']['opt_bytes']:,}) = the dry-run's reckoning exactly; "
+        f"after {TP_ZERO1_STEPS} steps every weight bitwise the zero1=False "
+        f"run's; checkpoint of whole tensors in "
+        f"{z['zero1']['checkpoint_s']:.1f} s, restored on the (1, "
+        f"{TP_RANKS}) mesh in {z['restore']['restore_s']:.1f} s; FSDP: "
+        f"{z['fsdp']['param_bytes']:,} B of parameters a rank, "
+        f"{z['fsdp']['opt_bytes']:,} B of AdamW state (3x) = the reckoning; "
+        f"losses max rel vs the one-rank Trainer: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (limit {TP_LOSS_RTOL:g})")
+    log(f"[tp] ZeRO-1 step ms on rank 0 (CUDA events): "
+        + "; ".join(f"{k} {[round(v, 1) for v in m]} (the run "
+                    f"{z[k]['wall_s']:.1f} s)" for k, m in ms.items())
+        + "; the last step's collectives: "
+        + ", ".join(f"{k} {z[k]['timed_step']['collectives']} in "
+                    f"{z[k]['timed_step']['collective_ms']:.1f} ms "
+                    f"({shares[k]:.1%} of the warm untimed step)"
+                    for k in shares) + f" | {card()}")
+    return {"reckoning": reck, "rank0": z, "rel": rel, "shares": shares,
+            "want": want}
 
 
 # ---------------------------------------------------------------------------
@@ -3412,16 +3637,24 @@ def main() -> int:
         RESULTS.setdefault("phase_end_s", {})[phase] = t
         log(f"[time] phase {phase} done at {t:.1f} s")
 
-    phase_device()
-    phase_build()
-    done("2")
-    phase_kernels()
-    done("3")
-    sl = phase_main_path()
-    done("4")
-    csr, packs = phase_comparators(sl)
-    done("4b")
-    blk = phase_blocked()
+    phase_device()          # raises without a card, before any process
+    # 4c's host encode and decode, from the seed alone, run beside phases
+    # 2-4b in a process of their own (stopped if a phase fails)
+    host = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        blocked = host.apply_async(blocked_host)
+        phase_build()
+        done("2")
+        phase_kernels()
+        done("3")
+        sl = phase_main_path()
+        done("4")
+        csr, packs = phase_comparators(sl)
+        done("4b")
+        blk = phase_blocked(blocked.get())
+    finally:
+        host.terminate()
+        host.join()
     done("4c")
     phase_decode(sl, csr, blk)
     done("4d")

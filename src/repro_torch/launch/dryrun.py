@@ -7,30 +7,31 @@ port of the JAX package's `launch/dryrun.py`.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
 The reference lowers and compiles each cell on 512 placeholder CPU devices
-and reads XLA's memory analysis and the partitioned HLO. The port's
-sharded step runs on a real `DeviceMesh` (`launch.steps.build_cell` with
-one: DTensor parameters, `api.distribute`), but a dry-run has no process
-group of 256 or 512 ranks; it needs no card and no JAX: it builds the
-model shape-only on the meta device (nothing is allocated), takes the
-mesh as a `MeshShape` (`abstract_production_mesh`), and
+and reads XLA's memory analysis and the partitioned HLO. The port needs
+no card and no JAX: it runs rank 0's share of the cell's sharded step on
+a fake process group of the production mesh (`launch.mesh.fake_mesh`:
+256 or 512 ranks whose collectives move nothing), the model built
+shape-only on the meta device and distributed by the cell's rules, its
+inputs and optimizer state placed by the specs (`launch.steps.
+build_cell`), and
 
-counts (`launch.op_cost`, one device's share of the step run on meta
-tensors: its data shard of the batch, full width):
-  * ``flops_per_device`` and ``hbm_bytes_per_device``: the counted step
-    divided by the model axis where the rules shard heads and ff (every
-    layer's products split over it, Megatron-style); the bytes are those
-    of an eager step, which fuses nothing;
+counts (`launch.op_cost`, DTensor's local ops and collectives of rank 0):
+  * ``flops_per_device`` and ``hbm_bytes_per_device``: the counted step's;
+    the bytes are those of an eager step, which fuses nothing;
+  * ``collectives`` (``"reckoned": false``): every collective rank 0
+    issues, by kind, raw and on-wire bytes;
   * ``activation_bytes``: one microbatch's saved tensors (weights
-    excluded), over the model axis likewise; for prefill and decode, the
-    largest tensor an op makes;
+    excluded), this rank's blocks; for prefill and decode, the largest
+    tensor an op makes;
   * ``dtype_leak``: an op that made a float64 tensor;
 
-reckons from the sharding specs (`launch.sharding`), per device:
+reckons from the sharding specs (`launch.sharding`), per device, on the
+mesh's shape (`MeshShape`, `abstract_production_mesh`):
   * ``memory``: parameter, optimizer, gradient, batch and cache bytes
     under their specs; ``peak_live_bytes`` is their sum with the
     activations, ``fits_hbm`` holds it against the card's 80 GiB;
-  * ``collectives`` (labelled ``reckoned``): the gradient all-reduce over
-    the data axes a leaf is not sharded on; FSDP's two all-gathers a
+  * ``collectives["reckoning"]``, the cross-check: the gradient all-reduce
+    over the data axes a leaf is not sharded on; FSDP's two all-gathers a
     microbatch and its reduce-scatter; ZeRO-1's all-gather of the updated
     weights; the Megatron all-reduces of the activations where the rules
     shard heads and ff (two a transformer layer, three a decoder layer
@@ -39,7 +40,14 @@ reckons from the sharding specs (`launch.sharding`), per device:
     (`launch.roofline`), with ``model_flops_*`` and
     ``useful_flops_ratio``.
 
-The default output is ``experiments/dryrun_torch/``, one JSON a cell.
+A cell whose sharded step fails keeps the figures of one device's
+unsharded share of the step divided by the model axis, and the reckoned
+collectives (``"reckoned": true``), with the failure in
+``sharded_error``.
+
+The default output is ``experiments/dryrun_torch/``, one JSON a cell;
+``experiments/dryrun_counts/summary.py`` tabulates the counted
+collectives against the reckoned.
 """
 
 from __future__ import annotations
@@ -54,7 +62,8 @@ import traceback
 import torch
 
 from repro_torch import configs
-from repro_torch.launch.mesh import abstract_production_mesh, mesh_shape
+from repro_torch.launch.mesh import (abstract_production_mesh, fake_mesh,
+                                     mesh_shape)
 from repro_torch.launch.op_cost import Costs
 from repro_torch.launch.roofline import HBM_PER_CHIP, Roofline, model_flops
 from repro_torch.launch.sharding import local_shape, spec_axes
@@ -89,18 +98,12 @@ def _memory(cell) -> dict:
         mem["grad_bytes"] += _nbytes(local, acc)
         if cell.grad_compress:
             mem["grad_bytes"] += _nbytes(local, 4)       # the residual
-        ospec = rules.opt_spec(specs[k], shp)
-        if cell.knobs["optimizer"] == "adamw":
-            mem["opt_bytes"] += 3 * _nbytes(local_shape(ospec, shp, mesh),
-                                            4)          # master, m, v
-            continue
-        if cell.knobs.get("opt_kwargs", {}).get("master", True):
-            mem["opt_bytes"] += _nbytes(local_shape(ospec, shp, mesh), 4)
-        moments = ([shp[:-1], shp[:-2] + shp[-1:]] if len(shp) >= 2
-                   else [shp])
-        for m in moments:
-            spec = rules.opt_spec((None,) * len(m), m)
-            mem["opt_bytes"] += _nbytes(local_shape(spec, m, mesh), 4)
+        state = ([(k, shp)] * 3 if cell.knobs["optimizer"] == "adamw"
+                 else _adafactor_state(k, shp, cell.knobs.get(
+                     "opt_kwargs", {}).get("master", True)))
+        for leaf, s in state:
+            mem["opt_bytes"] += _nbytes(local_shape(
+                rules.state_spec(leaf, s), s, mesh), 4)
     ways = cell.n_micro if cell.kind == "train" else 1
     if "batch" in cell.inputs:
         mem["batch_bytes"] = ways * sum(
@@ -109,6 +112,13 @@ def _memory(cell) -> dict:
         mem["cache_bytes"] = _cache_bytes(cell)
         mem["batch_bytes"] = cell.inputs["token"].nbytes
     return mem
+
+
+def _adafactor_state(leaf: str, shp: tuple, master: bool) -> list:
+    """(leaf name or None, shape) of each state tensor Adafactor keeps for
+    the stacked leaf ``leaf`` of ``shp``: its master, then its moments."""
+    moments = ([shp[:-1], shp[:-2] + shp[-1:]] if len(shp) >= 2 else [shp])
+    return [(leaf, shp)] * master + [(None, m) for m in moments]
 
 
 def _cache_bytes(cell) -> int:
@@ -211,12 +221,26 @@ def _collectives(cell) -> tuple:
     return costs, terms
 
 
+def _counted(arch, shape_name, mesh, cfg, shape, policy) -> tuple:
+    """(`Costs`, activation bytes) of rank 0's share of the cell's sharded
+    step, run on ``mesh``'s shape as a fake process group
+    (`launch.mesh.fake_mesh`) on meta tensors."""
+    with fake_mesh(mesh.sizes, mesh.axis_names) as dm:
+        cell = build_cell(arch, shape_name, dm, cfg=cfg, shape=shape,
+                          **policy)
+        return cell.run()
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              out_dir: str | None = None, verbose: bool = True,
              cfg=None, shape=None, mesh=None, **policy) -> dict:
     """One cell's record (also written to ``out_dir``). ``cfg``, ``shape``
-    and ``mesh`` override the arch's full config, `SHAPES`' shape and the
-    production layout (the tests run smoke configs on small meshes)."""
+    and ``mesh`` (a `MeshShape`) override the arch's full config,
+    `SHAPES`' shape and the production layout (the tests run smoke
+    configs on small meshes). The sharded step is counted on a fake
+    process group of the mesh's shape (`_counted`); a cell whose sharded
+    step fails keeps the figures reckoned from one device's unsharded
+    share (``"reckoned": true``; the failure in ``sharded_error``)."""
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "policy": {k: v for k, v in policy.items() if v is not None}}
     skip = cell_is_skipped(arch, shape_name)
@@ -228,12 +252,36 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         mesh = mesh or abstract_production_mesh(multi_pod=(mesh_kind ==
                                                             "multi"))
         t0 = time.time()
+        # one device's share, shape-only: the specs' memory and reckoning
         cell = build_cell(arch, shape_name, mesh, cfg=cfg, shape=shape,
                           **policy)
         t1 = time.time()
-        counted, act = cell.run()
+        reckoned, terms = _collectives(cell)
+        reckoning = {"reckoned": True, "weighted": reckoned.coll_wire,
+                     "raw": reckoned.coll_raw,
+                     "counts": reckoned.coll_counts,
+                     "total_weighted": reckoned.collective_bytes,
+                     "total_raw": sum(reckoned.coll_raw.values()),
+                     "terms": terms}
+        try:
+            counted, act = _counted(arch, shape_name, mesh, cfg, shape,
+                                    policy)
+            tp = 1                   # rank 0's share: nothing to divide
+            coll = {"reckoned": False, "weighted": counted.coll_wire,
+                    "raw": counted.coll_raw,
+                    "counts": counted.coll_counts,
+                    "total_weighted": counted.collective_bytes,
+                    "total_raw": sum(counted.coll_raw.values()),
+                    "reckoning": reckoning}
+        except Exception as e:  # noqa: BLE001 — kept, reckoned
+            counted = None
+            rec["sharded_error"] = f"{type(e).__name__}: {e}"
+            rec["sharded_traceback"] = traceback.format_exc()[-4000:]
+        if counted is None:
+            counted, act = cell.run()
+            tp = cell.rules.msize
+            coll = reckoning
         t2 = time.time()
-        tp = cell.rules.msize
         mem = _memory(cell)
         mem["activation_bytes"] = act / tp
         live = sum(mem.values())
@@ -241,12 +289,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         mem["fits_hbm"] = bool(live <= HBM_PER_CHIP)
         flops = counted.flops / tp
         hbm = counted.bytes / tp
-        reckoned, terms = _collectives(cell)
-        coll = {"reckoned": True, "weighted": reckoned.coll_wire,
-                "raw": reckoned.coll_raw, "counts": reckoned.coll_counts,
-                "total_weighted": reckoned.collective_bytes,
-                "total_raw": sum(reckoned.coll_raw.values()),
-                "terms": terms}
         roof = Roofline.from_costs(flops, hbm, coll["total_weighted"])
         mf = model_flops(cell.cfg, cell.shape, cell.kind)
         chips = math.prod(mesh_shape(mesh).values())

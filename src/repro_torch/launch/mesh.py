@@ -14,9 +14,12 @@ inside an initialised process group (`torch.distributed.init_process_
 group`): importing this module touches no process group and no card.
 
 `MeshShape` is a mesh without ranks: its axis names and sizes, for the
-sharding rules and the dry-run of a 256- or 512-chip layout that no
-process group holds (`abstract_production_mesh`), as the reference's
-tests use a ``FakeMesh``. The axis helpers take either kind.
+sharding rules and the dry-run's reckoning of a 256- or 512-chip layout
+(`abstract_production_mesh`), as the reference's tests use a
+``FakeMesh``. The axis helpers take either kind. `fake_mesh` holds such a
+layout as a real `DeviceMesh` over a fake process group, whose
+collectives move nothing: the dry-run runs rank 0's share of a sharded
+step on it.
 
 `spawn` starts ``k`` ranks on one host, each in a process of its own,
 joins them in one process group over a `FileStore` in a temporary
@@ -32,6 +35,7 @@ and stages them through the host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -103,6 +107,38 @@ def abstract_production_mesh(multi_pod: bool = False) -> MeshShape:
     if multi_pod:
         return MeshShape(("pod", "data", "model"), (2, 16, 16))
     return MeshShape(("data", "model"), (16, 16))
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple = (16, 16), axes: tuple = ("data", "model")):
+    """A `DeviceMesh` of ``shape`` (the production layout by default; the
+    multi-pod one is ``(2, 16, 16)`` over ``("pod", "data", "model")``)
+    held by this process as rank 0 of a fake process group of every rank
+    of the shape (torch's testing ``FakeStore`` backend): its collectives
+    return at once and move nothing, so a step runs rank 0's share of a
+    sharded program, as the reference lowers one for 512 placeholder
+    devices. The group is destroyed on exit; a process holds one group at
+    a time, so the single-pod and multi-pod meshes are opened in turn.
+    Its device type is ``"cpu"``; a dry-run builds its tensors on
+    ``meta``."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                         mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()
+
+
+def is_fake(mesh) -> bool:
+    """Whether ``mesh`` is a `DeviceMesh` over a fake process group
+    (`fake_mesh`)."""
+    return isinstance(mesh, DeviceMesh) and \
+        dist.get_backend(mesh.get_group(0)) == "fake"
 
 
 def mesh_shape(mesh) -> dict:

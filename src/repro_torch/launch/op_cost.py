@@ -4,7 +4,10 @@ port's counterpart of the JAX package's `launch/hlo_cost.py`.
 The reference walks the compiled, partitioned HLO of a jitted step. The
 port runs eagerly and has no HLO, so `analyze(fn, *args)` runs ``fn``
 under a `TorchDispatchMode` (on meta tensors for a shape-only model, or on
-real ones) and counts every aten op it dispatches:
+real ones) and counts every aten op it dispatches. An op on DTensors is
+counted as the local ops and collectives DTensor runs for it on this
+rank, not at its global shape; the ops of DTensor's shape propagation
+(on fake tensors) are not counted:
 
   flops       = `torch.utils.flop_counter`'s formula for the op (matrix
                 products, attention, convolutions; 2 per multiply-add);
@@ -132,6 +135,17 @@ def collective_kind(func) -> str | None:
     return None
 
 
+def has_dtensor(args, kwargs=None) -> bool:
+    """Whether a dispatched op takes a DTensor. A dispatch mode that
+    returns ``NotImplemented`` for such an op sees, in its place, the local
+    ops and the collectives DTensor runs for it on this rank (a collective
+    inside DTensor's dispatch of an op is otherwise hidden from the
+    mode)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor)
+               for t in tree_flatten((args, kwargs or {}))[0])
+
+
 class _Counter(TorchDispatchMode):
     def __init__(self, costs: Costs):
         super().__init__()
@@ -142,9 +156,18 @@ class _Counter(TorchDispatchMode):
         self.costs.sites.append((kind, raw, _site()))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
         from torch.utils.flop_counter import flop_registry
         kwargs = kwargs or {}
+        if has_dtensor(args, kwargs):
+            # this rank's share: DTensor runs the op as local ops (and its
+            # collectives), which come back here one by one
+            return NotImplemented
+        flat = tree_flatten((args, kwargs))[0]
         out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor)
+               for t in flat + tree_flatten(out)[0]):
+            return out       # DTensor's shape propagation, on global shapes
         c = self.costs
         c.n_ops += 1
         if func.namespace == "c10d" or func.namespace in _FUNCTIONAL_NS:

@@ -187,6 +187,20 @@ class ShardingRules:
             spec[0] = "data"
         return tuple(spec)
 
+    def state_spec(self, leaf: str | None, shape) -> tuple:
+        """The spec of an optimizer state tensor of (stacked) ``shape``, as
+        the reference's train cell places its state (`launch/steps.py:177-
+        189`): AdamW's and Adafactor's ``master``, ``m`` and ``v`` of the
+        leaf named ``leaf`` take that leaf's `param_spec`, Adafactor's
+        second moments (``vr``, ``vc``, an unfactored ``v``; ``leaf``
+        None) an all-replicated one; then ZeRO-1's `opt_spec`. A stacked
+        leaf's state is one tensor, so its dim 0, which ZeRO-1 splits over
+        the data axis, is the layer axis."""
+        shape = tuple(shape)
+        base = (self.param_spec(leaf, shape) if leaf is not None
+                else (None,) * len(shape))
+        return self.opt_spec(base, shape)
+
     # ----- batch / cache ----------------------------------------------------
     def batch_axis(self, global_batch: int):
         # dp_only: fold the model axis into data parallelism too

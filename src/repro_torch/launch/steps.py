@@ -15,9 +15,15 @@ On a real `DeviceMesh` (the counterpart of the reference's
 mesh's device and placed on the mesh for tensor parallelism
 (`api.distribute` with the cell's rules), and the step's whole inputs
 placed by the rules: a microbatch of the global batch by `batch_spec`,
-the decode cache by `cache_spec`. `Cell.run` then executes that step on
-every rank of the mesh under `sharding.tp_context`, counted the same way,
-DTensor's collectives included.
+the decode cache by `cache_spec`; a train cell places its optimizer
+state by `ShardingRules.state_spec` (ZeRO-1, FSDP) and brings each
+gradient to its parameter's placement before the update, as
+`TensorParallelTrainer` does. `Cell.run` then executes that step on every
+rank of the mesh under `sharding.tp_context`, counted the same way,
+DTensor's collectives included. On a fake process group's mesh
+(`launch.mesh.fake_mesh`) the model and the inputs are shape-only, on the
+meta device: the dry-run counts rank 0's share of the production mesh's
+step.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch import configs
-from repro_torch.launch.mesh import data_axis_size, mesh_shape
+from repro_torch.launch.mesh import data_axis_size, is_fake, mesh_shape
 from repro_torch.launch.op_cost import Costs, analyze
 from repro_torch.launch.sharding import ShardingRules, spec_axes
 from repro_torch.models import api
@@ -58,6 +64,20 @@ TRAIN_KNOBS = {
     "mamba2-130m": dict(optimizer="adamw", microbatches=1),
     "smollm-135m": dict(optimizer="adamw", microbatches=1),
 }
+
+def train_knobs(arch: str) -> dict:
+    """How the arch's train cell trains, from `TRAIN_KNOBS`: its
+    ``optimizer`` and ``opt_kwargs`` (llama3-405b: Adafactor without
+    masters), ``acc_dtype``, ``fsdp`` (None: the rules' size test decides)
+    and ``seq_axis`` (``"model"`` where the knobs set sequence
+    parallelism)."""
+    k = TRAIN_KNOBS[arch]
+    return {"optimizer": k["optimizer"],
+            "opt_kwargs": dict(k.get("opt_kwargs", {})),
+            "acc_dtype": k.get("acc_dtype", "float32"),
+            "fsdp": k.get("fsdp"),
+            "seq_axis": "model" if k.get("seq_parallel") else None}
+
 
 # Tiny archs: pure DP — a 16-way TP axis would idle on 9-head / 1536-ff
 # dims and replicate attention score memory.
@@ -126,8 +146,15 @@ def _batch_ways(rules: ShardingRules, global_batch: int) -> int:
     return n
 
 
+def _storage(t: torch.Tensor):
+    """The storage of ``t``, of this rank's block for a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return (t._local_tensor if isinstance(t, DTensor) else t
+            ).untyped_storage()
+
+
 def _storage_key(t: torch.Tensor):
-    return t.untyped_storage()._cdata
+    return _storage(t)._cdata
 
 
 @dataclasses.dataclass
@@ -197,7 +224,7 @@ class Cell:
         def pack(t):
             key = _storage_key(t)
             if key not in skip:
-                saved[key] = t.untyped_storage().nbytes()
+                saved[key] = _storage(t).nbytes()
             return t
 
         def micro():
@@ -211,13 +238,21 @@ class Cell:
         grads = [torch.zeros_like(p, dtype=acc) if g is None else g.to(acc)
                  for p, g in zip(params, grads)]
         grads = like(leaves, [g.to(torch.float32) for g in grads])
-        opt = make_optimizer(self.knobs["optimizer"], lr=1e-4,
-                             **self.knobs.get("opt_kwargs", {}))
+        kw = dict(self.knobs.get("opt_kwargs", {}))
+        sharded = isinstance(self.rules.mesh, DeviceMesh)
+        if sharded and self.rules.zero1:
+            kw["place"] = lambda t, leaf: self.rules.place(
+                t, self.rules.state_spec(leaf, t.shape))
+        opt = make_optimizer(self.knobs["optimizer"], lr=1e-4, **kw)
         state = opt.init(leaves)
 
         def update(grads):
             if self.grad_compress:
                 grads, _ = compress(grads, init_error_state(leaves))
+            if sharded:      # as `TensorParallelTrainer.reduce`
+                grads = like(leaves, [
+                    g.redistribute(p.device_mesh, p.placements)
+                    for g, p in zip(leaves_of(grads), params)])
             opt.update(grads, state, leaves)
 
         _, up = analyze(update, grads)
@@ -242,23 +277,25 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
         # tiny archs: pure DP for train/prefill; decode keeps TP so the
         # 32k KV cache can be seq-sharded over the model axis
         dp_only = arch in DP_ONLY_ARCHS and shape.kind != "decode"
+    knobs = train_knobs(arch)
     if fsdp is None:
-        fsdp = TRAIN_KNOBS[arch].get("fsdp")
+        fsdp = knobs["fsdp"]
     rules = ShardingRules(cfg, mesh, fsdp=fsdp, zero1=zero1,
                           seq_shard_cache=seq_shard_cache, dp_only=dp_only)
-    if seq_axis is None and shape.kind != "decode" \
-            and TRAIN_KNOBS[arch].get("seq_parallel"):
-        seq_axis = "model"
+    if seq_axis is None and shape.kind != "decode":
+        seq_axis = knobs["seq_axis"]
     # E that doesn't divide the model axis shards the dispatch capacity
     # instead of the experts (granite-moe: E=40 on a 16-way axis)
     logical = api.logical_rules_for(cfg, rules,
                                     global_batch=shape.global_batch,
                                     seq_axis=seq_axis)
     real = isinstance(mesh, DeviceMesh)
+    fake = is_fake(mesh)
     if real:
-        model = api.build_model(cfg,
-                                generator=torch.Generator().manual_seed(0),
-                                device=mesh.device_type)
+        # on a fake group: shape-only, nothing allocated
+        model = api.build_model(
+            cfg, generator=None if fake else torch.Generator().manual_seed(0),
+            device="meta" if fake else mesh.device_type)
         api.distribute(model, cfg, mesh, fsdp=fsdp, zero1=zero1,
                        seq_shard_cache=seq_shard_cache, dp_only=dp_only,
                        seq_axis=seq_axis, global_batch=shape.global_batch)
@@ -272,6 +309,8 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
     def inputs(batch: dict) -> dict:
         if not real:
             return batch
+        if fake:
+            return rules.distribute_batch(batch)
         g = torch.Generator().manual_seed(0)
         out = {}
         for k, v in batch.items():
@@ -300,6 +339,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, fsdp=None, zero1=True,
                     **common)
     cache = model.make_decode_cache(per, shape.seq_len)
     token = torch.zeros((per, 1), dtype=torch.int32,
-                        device=mesh.device_type if real else "meta")
+                        device=mesh.device_type if real and not fake
+                        else "meta")
     return Cell(kind="decode", inputs={"cache": cache, "token": token,
                                        "pos": shape.seq_len - 1}, **common)

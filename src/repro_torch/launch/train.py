@@ -20,9 +20,14 @@ are K cards, and over gloo otherwise (on the CPU, or several ranks on one
 card: NCCL refuses two ranks on one GPU).
 
 ``--ranks K --model-ranks M`` trains tensor-parallel
-(`train.tensor_parallel`) on a ``(K / M, M)`` (data, model) mesh: the
-model's weights placed by the sharding rules, each microbatch split over
-the data axis:
+(`train.tensor_parallel`) on a ``(K / M, M)`` (data, model) mesh with the
+arch's train knobs (`launch.steps.train_knobs`: its optimizer and the
+optimizer's settings unless ``--optimizer`` names another, its
+accumulation dtype, ZeRO-1, and FSDP or sequence parallelism where the
+knobs set them): the model's weights and
+optimizer state placed by the sharding rules, each microbatch split over
+the data axis. Its checkpoints hold whole tensors, so ``--restore``
+resumes on any ``K`` and ``M``, or on one device:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --smoke --steps 3 --ranks 4 --model-ranks 2 --device cpu
@@ -39,6 +44,7 @@ from repro_torch import configs
 from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
 from repro_torch.kernels.pack import check_device
 from repro_torch.launch.mesh import spawn
+from repro_torch.launch.steps import train_knobs
 from repro_torch.train.data_parallel import DataParallelTrainer
 from repro_torch.train.tensor_parallel import TensorParallelTrainer
 from repro_torch.train.trainer import TrainConfig, Trainer
@@ -53,8 +59,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--optimizer", default="adamw",
-                    choices=["adamw", "adafactor"])
+    ap.add_argument("--optimizer", default=None,
+                    choices=["adamw", "adafactor"],
+                    help="default adamw; tensor-parallel: the arch's knobs'")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--ckpt-dir", default="")
@@ -71,7 +78,11 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _setup(args) -> tuple:
+def _setup(args, knobs: dict | None = None) -> tuple:
+    """(config, pipeline, `TrainConfig`) of ``args``; ``knobs`` (a
+    tensor-parallel run's `train_knobs`) give the optimizer where
+    ``--optimizer`` does not, and the accumulation dtype."""
+    knobs = knobs or {}
     cfg = (configs.get_smoke(args.arch) if args.smoke
            else configs.get(args.arch))
     pipe = SyntheticTokens(PipelineConfig(
@@ -79,8 +90,10 @@ def _setup(args) -> tuple:
         seed=0, frontend_tokens=(cfg.n_frontend_tokens
                                  if cfg.family in ("vlm", "encdec") else 0),
         d_model=cfg.d_model))
-    tcfg = TrainConfig(optimizer=args.optimizer, lr=args.lr,
-                       microbatches=args.microbatches,
+    tcfg = TrainConfig(optimizer=(args.optimizer
+                                  or knobs.get("optimizer", "adamw")),
+                       lr=args.lr, microbatches=args.microbatches,
+                       acc_dtype=knobs.get("acc_dtype", "float32"),
                        grad_compress=args.grad_compress,
                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir)
     return cfg, pipe, tcfg
@@ -111,12 +124,18 @@ def _tp_rank(mesh, argv) -> dict:
     """One rank of ``--ranks K --model-ranks M``; the mesh's first rank
     logs."""
     args = _parser().parse_args(argv)
-    cfg, pipe, tcfg = _setup(args)
-    t = TensorParallelTrainer(cfg, tcfg, pipe, mesh, device=args.device)
+    knobs = train_knobs(args.arch)
+    cfg, pipe, tcfg = _setup(args, knobs)
+    t = TensorParallelTrainer(
+        cfg, tcfg, pipe, mesh, device=args.device, fsdp=knobs["fsdp"],
+        seq_axis=knobs["seq_axis"],
+        opt_kwargs=(knobs["opt_kwargs"]
+                    if tcfg.optimizer == knobs["optimizer"] else {}))
     first = not any(mesh.get_coordinate())
     _train(t, args, log=first)
     return {"coord": tuple(mesh.get_coordinate()), "step": t.step,
-            "history": t.history}
+            "history": t.history, "optimizer": tcfg.optimizer,
+            "fsdp": t.rules.fsdp, "seq": t.model.logical["seq"]}
 
 
 def main(argv=None):

@@ -33,8 +33,9 @@ from torch import nn
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.sharding import (insert_local, is_dtensor,
                                          local_heads, local_like,
-                                         local_offset, pad, rewrap, shard,
-                                         split_dim)
+                                         local_offset, merge_dims, pad,
+                                         rewrap, shard, split_dim,
+                                         whole_along)
 
 NEG = -1e30                 # the reference's masking constant
 
@@ -289,7 +290,7 @@ class Attention(nn.Module):
                 b0 = local_offset(q, 0)
                 keys = keys[b0:b0 + local[0].shape[0]]
             out = rewrap(_attend(*local, keys, **kw), q)
-        out = matmul(out.reshape(B, S, H * hd), self.wo)
+        out = matmul(merge_dims(out, 2), self.wo)
         return shard(out, "batch", "seq", "d_model"), new_cache
 
 
@@ -423,9 +424,12 @@ class Embedding(nn.Module):
         """The rows of ``tok``: ``tok[tokens]``, and on a DTensor table
         `F.embedding`, which keeps a vocab-sharded table sharded (each
         rank looks up its own rows) where the indexing would gather it
-        whole. A plain table keeps the indexing: `F.embedding`'s gradient
-        adds up repeated rows in another order."""
-        out = (torch.nn.functional.embedding(tokens, self.tok)
+        whole. A table whose d_model is sharded too (FSDP over ``"data"``)
+        is gathered along it first; its vocab stays sharded. A plain table
+        keeps the indexing: `F.embedding`'s gradient adds up repeated rows
+        in another order."""
+        out = (torch.nn.functional.embedding(tokens,
+                                             whole_along(self.tok, 1))
                if is_dtensor(self.tok) else self.tok[tokens])
         return shard(out, "batch", "seq", "d_model")
 

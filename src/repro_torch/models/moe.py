@@ -25,7 +25,7 @@ from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dense_init, _f32
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import merge_dims, shard, split_dim
 
 
 class MoE(nn.Module):
@@ -51,7 +51,7 @@ class MoE(nn.Module):
         B, S, d = x.shape
         E, K = cfg.n_experts, cfg.top_k
         T = B * S
-        xt = x.reshape(T, d)
+        xt = merge_dims(x, 0)
 
         probs = torch.softmax(_f32(xt) @ self.router, dim=-1)     # (T, E)
         gate_vals, gate_idx = torch.topk(probs, K, dim=-1)        # (T, K)
@@ -103,4 +103,5 @@ class MoE(nn.Module):
         ce = probs.new_zeros(E).index_add_(0, flat_e, _f32(keep)) \
             / max(T * K, 1)
         aux = E * torch.sum(me * ce)
-        return shard(out.reshape(B, S, d), "batch", "seq", "d_model"), aux
+        return shard(split_dim(out, 0, B, S), "batch", "seq", "d_model"), \
+            aux

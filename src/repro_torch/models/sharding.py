@@ -151,6 +151,43 @@ def split_dim(x, dim: int, n: int, size: int):
     return x.reshape(*x.shape[:dim], n, size, *x.shape[dim + 1:])
 
 
+def merge_dims(x, dim: int):
+    """``x`` with dims ``dim`` and ``dim + 1`` merged into one (the heads
+    of an attention output into its width). A DTensor's gradient is split
+    back through `split_dim`, which makes the merged dim whole first where
+    its shards do not split into whole heads (DTensor's own view backward
+    refuses: a GQA config's heads on a wide model axis)."""
+    dim %= x.ndim
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:dim], -1, *x.shape[dim + 2:])
+    return _Merge.apply(x, dim)
+
+
+class _Merge(torch.autograd.Function):
+    """`merge_dims` of a DTensor: the reshape, and `split_dim` back."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.n, ctx.size = dim, x.shape[dim], x.shape[dim + 1]
+        return x.reshape(*x.shape[:dim], -1, *x.shape[dim + 2:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_dim(g, ctx.dim, ctx.n, ctx.size), None
+
+
+def whole_along(x, dim: int):
+    """DTensor ``x`` made whole along ``dim``: every mesh dim that shards
+    it there replicated, its other placements kept (FSDP's all-gather of a
+    weight before its use, which the reference's partitioner inserts)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim % x.ndim
+          else p for p in x.placements]
+    if tuple(pl) == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
+
+
 def pad(x, widths: tuple):
     """``F.pad(x, widths)`` with zeros. A DTensor is padded shard by shard:
     its local block, the padded dims whole on every rank (made so first

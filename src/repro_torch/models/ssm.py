@@ -29,7 +29,7 @@ from torch import nn
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import _dense_init, _f32, matmul, rmsnorm
-from repro_torch.models.sharding import pad, shard, write_local
+from repro_torch.models.sharding import merge_dims, pad, shard, write_local
 
 F = torch.nn.functional
 
@@ -205,7 +205,7 @@ class SSM(nn.Module):
             write_local(cache["state"], state)
             new_cache = cache
 
-        y = y.reshape(B, S, din).to(u.dtype)
+        y = merge_dims(y, 2).to(u.dtype)
         # gated RMSNorm (mamba2): norm(y * silu(z)), the gate cast first
         y = y * F.silu(_f32(z)).to(u.dtype)
         y = rmsnorm(self.norm, y, cfg.norm_eps)

@@ -11,8 +11,20 @@ the parameters' device (its ``step`` too, so nothing is read back to the
 host); its masters are float32 copies that never alias a float32
 parameter.
 
-AdamW is elementwise, so it runs per tensor: its state lists one master
-and one pair of moments per tensor, in `tree.leaves_of`'s order.
+AdamW is elementwise; its state lists one master and one pair of moments
+per reference leaf (`api.reference_leaves`), a stacked leaf's as one
+stacked tensor, as the reference holds them. `update` stacks each
+gradient as its leaf's state, updates the state and copies the new
+weights into the leaf's tensors (`tree.write_leaf`).
+
+Placed state (``place``, a tensor-parallel trainer's ZeRO-1): each state
+tensor is placed by ``place(t, leaf)`` (`ShardingRules.state_spec`:
+ZeRO-1 splits dim 0, the layer axis of a stacked leaf, over the data
+axis). `update` then brings each gradient to its state's placement (from
+a replicated one, a local slice), updates this rank's block of the state,
+and writes the weights back in the parameters' placements
+(`tree.write_leaf`: ZeRO-1's all-gather). The arithmetic is element for
+element that of unplaced state, so the weights are bitwise the same.
 """
 
 from __future__ import annotations
@@ -22,7 +34,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.optim.tree import leaves_of
+from repro_torch.optim.tree import (as_local, placed_like, stack_local,
+                                    write_leaf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,15 +51,26 @@ def f32_copy(t: torch.Tensor) -> torch.Tensor:
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-          weight_decay: float = 0.1) -> Optimizer:
+          weight_decay: float = 0.1, place: Callable | None = None
+          ) -> Optimizer:
+    """``place(t, leaf)``: the state placed (see the module's doc); None
+    leaves it on the parameters' device, unplaced."""
     def init(leaves):
-        ps = leaves_of(leaves)
-        return {
-            "step": torch.zeros((), dtype=torch.int32, device=ps[0].device),
-            "master": [f32_copy(p) for p in ps],
-            "m": [torch.zeros_like(p, dtype=torch.float32) for p in ps],
-            "v": [torch.zeros_like(p, dtype=torch.float32) for p in ps],
-        }
+        ws = [f32_copy(stack_local(p)) for p in leaves.values()]
+        if place is not None:
+            ws = [place(w, k) for w, k in zip(ws, leaves)]
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=ws[0].device),
+                "master": ws,
+                "m": [torch.zeros_like(w) for w in ws],
+                "v": [torch.zeros_like(w) for w in ws]}
+
+    def step_(g, m, v, w, c1, c2):
+        g = g.to(torch.float32)
+        m.mul_(b1).add_((1.0 - b1) * g)
+        v.mul_(b2).add_((1.0 - b2) * g * g)
+        u = (m / c1) / (torch.sqrt(v / c2) + eps)
+        w.sub_(lr * (u + weight_decay * w))
 
     def update(grads, state, leaves):
         step = state["step"] + 1
@@ -54,15 +78,12 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c1 = 1.0 - b1 ** t
         c2 = 1.0 - b2 ** t
         with torch.no_grad():
-            for p, g, m, v, w in zip(leaves_of(leaves), leaves_of(grads),
+            for p, g, m, v, w in zip(leaves.values(), grads.values(),
                                      state["m"], state["v"],
                                      state["master"]):
-                g = g.to(torch.float32)
-                m.mul_(b1).add_((1.0 - b1) * g)
-                v.mul_(b2).add_((1.0 - b2) * g * g)
-                u = (m / c1) / (torch.sqrt(v / c2) + eps)
-                w.sub_(lr * (u + weight_decay * w))
-                p.copy_(w)
+                g = placed_like(stack_local(g), w)
+                step_(*map(as_local, (g, m, v, w)), c1, c2)
+                write_leaf(p, w)
         return {**state, "step": step}
 
     return Optimizer(init=init, update=update)

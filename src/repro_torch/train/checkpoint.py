@@ -43,12 +43,14 @@ def flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def _unflatten_like(tree, flat: dict, prefix: str = ""):
+def unflatten_like(tree, flat: dict, prefix: str = ""):
+    """``flat`` (leaves by dotted key name, as `flatten` gives them) in the
+    structure of ``tree``."""
     if isinstance(tree, dict):
-        return {k: _unflatten_like(v, flat, f"{prefix}{k}.")
+        return {k: unflatten_like(v, flat, f"{prefix}{k}.")
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_unflatten_like(v, flat, f"{prefix}{i}.")
+        return [unflatten_like(v, flat, f"{prefix}{i}.")
                 for i, v in enumerate(tree)]
     return flat[prefix[:-1]]
 
@@ -194,5 +196,5 @@ def restore_latest(ckpt_dir: str, tree_like, host: int = 0):
         except (OSError, ValueError, KeyError, EOFError,
                 zipfile.BadZipFile):
             continue  # torn/corrupt: try the previous one
-        return step, _unflatten_like(tree_like, flat)
+        return step, unflatten_like(tree_like, flat)
     return None, None

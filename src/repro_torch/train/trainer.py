@@ -48,11 +48,12 @@ class Trainer:
     `launch.train`). The model is ``model`` if given (the tests pass one
     carrying the reference's weights), else `api.build_model` of ``cfg``
     drawn from ``generator`` (default: seeded 0) on ``device``. Its
-    parameters are unfrozen here."""
+    parameters are unfrozen here. ``opt_kwargs`` go to the optimizer
+    (`optim.make_optimizer`)."""
 
     def __init__(self, cfg: ArchConfig, tcfg: TrainConfig, pipeline, *,
                  model=None, generator: torch.Generator | None = None,
-                 device="cuda"):
+                 device="cuda", opt_kwargs: dict | None = None):
         self.cfg, self.tcfg, self.pipeline = cfg, tcfg, pipeline
         if model is None:
             gen = (generator if generator is not None
@@ -63,7 +64,8 @@ class Trainer:
         self.device = next(model.parameters()).device
         self.leaves = api.reference_leaves(model, cfg)
         self.params = leaves_of(self.leaves)
-        self.opt = make_optimizer(tcfg.optimizer, lr=tcfg.lr)
+        self.opt = make_optimizer(tcfg.optimizer, lr=tcfg.lr,
+                                  **(opt_kwargs or {}))
         self.opt_state = self.opt.init(self.leaves)
         self.err = (init_error_state(self.leaves)
                     if tcfg.grad_compress else {})
@@ -132,6 +134,12 @@ class Trainer:
         return self.pipeline.batch(step)
 
     # --- fault tolerance --------------------------------------------------
+    def checkpoint(self) -> None:
+        """An asynchronous save of `state` at this step, where this process
+        writes checkpoints."""
+        if self.writes_ckpt:
+            self.ckpt.save_async(self.step, self.state())
+
     def try_restore(self) -> bool:
         """Load the newest valid checkpoint into the live tensors
         (parameters, optimizer state with its step, masters and moments,
@@ -168,9 +176,8 @@ class Trainer:
                 self.straggler_steps.append(self.step)
             self._ema = 0.9 * self._ema + 0.1 * dt
             self.step += 1
-            if self.ckpt and self.writes_ckpt and \
-                    self.step % self.tcfg.ckpt_every == 0:
-                self.ckpt.save_async(self.step, self.state())
+            if self.ckpt and self.step % self.tcfg.ckpt_every == 0:
+                self.checkpoint()
             if log_every and self.step % log_every == 0:
                 print(f"step {self.step:5d} loss {loss:.4f} "
                       f"({dt*1e3:.0f} ms)")

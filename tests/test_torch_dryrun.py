@@ -8,10 +8,17 @@
   `hlo_cost.analyze` counts the same functions (its stack a `lax.scan`)
   within its own test's 5%.
 * Every smoke config's cells, at reduced shapes (as the reference's
-  `tests/test_dryrun.py` cuts them), on `MeshShape` (4, 2) and (16, 16)
-  come out ``ok`` or ``skipped`` with a valid ``dominant`` term and no
+  `tests/test_dryrun.py` cuts them), on fake process groups of (4, 2)
+  and (16, 16) come out ``ok`` or ``skipped``, their sharded steps
+  counted (``"reckoned": false``), with a valid ``dominant`` term and no
   dtype leak, and their per-device parameter bytes equal those that the
   reference's specs give its parameter tree on the same mesh shape.
+* The sharded step counted on a fake process group (in subprocesses, so
+  no pytest worker holds a process group): the smoke cells' collectives
+  equal a 4-rank gloo group's; a ``dp_only`` train cell counts its
+  gradient all-reduce; a train cell whose heads do not divide the model
+  axis runs sharded; full-width smollm-135m decode_32k runs on the
+  production (16, 16) group; a failed sharded step keeps the reckoning.
 """
 
 import functools
@@ -141,16 +148,20 @@ def _ref_param_bytes(arch, mesh_dims, kind) -> int:
 
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
-def test_smoke_cells_run_on_a_mesh_shape(arch, mesh):
+def test_smoke_cells_run_on_a_mesh_shape(arch, mesh, fake_group):
+    """`run_cell` of each smoke cell on a fake group of the mesh's shape
+    (`_SWEEP`, run by the ``fake_group`` fixture): counted, not reckoned."""
     dims = MESHES[mesh]
+    sweep = fake_group[2][mesh]
     for name, shape in SMOKE_SHAPES.items():
-        rec = run_cell(arch, name, mesh, None, verbose=False,
-                       cfg=configs.get_smoke(arch), shape=shape,
-                       mesh=MeshShape(("data", "model"), dims))
+        rec = sweep[f"{arch} {name}"]
         assert rec["status"] in ("ok", "skipped"), rec.get("traceback")
         if rec["status"] == "skipped":
             assert cell_is_skipped(arch, name)
             continue
+        assert "sharded_error" not in rec, (name,
+                                            rec.get("sharded_traceback"))
+        assert rec["collectives"]["reckoned"] is False, name
         assert rec["roofline"]["dominant"] in ("compute", "memory",
                                                "collective")
         assert not rec["dtype_leak"], rec["f64_ops"]
@@ -158,3 +169,185 @@ def test_smoke_cells_run_on_a_mesh_shape(arch, mesh):
         assert rec["memory"]["param_bytes"] == \
             _ref_param_bytes(arch, dims, shape.kind), name
         assert rec["memory"]["fits_hbm"]
+
+
+# --- the sharded step counted on a fake process group --------------------------
+
+# each run in a process of its own, so that no pytest worker holds a
+# process group. `_SWEEP`: every smoke cell on a fake group of one of
+# `MESHES` (its name, dims and `SMOKE_SHAPES` as JSON in argv[1]).
+_SWEEP = """
+import json, sys
+from repro_torch import configs
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models.config import ShapeConfig
+
+mesh, dims, shapes = json.loads(sys.argv[1])
+out = {}
+for arch in configs.ARCH_IDS:
+    for name, (seq, batch, kind) in shapes.items():
+        out[f"{arch} {name}"] = run_cell(
+            arch, name, mesh, None, verbose=False,
+            cfg=configs.get_smoke(arch),
+            shape=ShapeConfig(name, seq, batch, kind),
+            mesh=MeshShape(("data", "model"), tuple(dims)))
+print(json.dumps(out))
+"""
+
+# `_FAKE_GROUP`: rank 0's share of each of `torch_tp_ranks.CELLS` on a fake
+# (2, 2) group, and the full-width smollm-135m decode_32k cell on the
+# production (16, 16) one
+_FAKE_GROUP = """
+import json, sys
+sys.path.insert(0, "tests")
+from torch_tp_ranks import CELLS
+from repro_torch import configs
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import MeshShape
+from repro_torch.models.config import ShapeConfig
+
+out = {}
+for arch, kind, dp_only in CELLS + (("mamba2-130m", "train", None),):
+    shape = ShapeConfig(f"tp_{kind}", 16, 4, kind)
+    out[f"{arch} {kind} {dp_only}"] = run_cell(
+        arch, shape.name, "2x2", None, verbose=False,
+        cfg=configs.get_smoke(arch), shape=shape,
+        mesh=MeshShape(("data", "model"), (2, 2)), dp_only=dp_only)
+out["full"] = run_cell("smollm-135m", "decode_32k", "single", None,
+                       verbose=False)
+# 4 heads on an 8-way model axis
+shape = ShapeConfig("tp_train", 16, 4, "train")
+out["uneven"] = run_cell("granite-moe-3b-a800m", shape.name, "2x8", None,
+                         verbose=False,
+                         cfg=configs.get_smoke("granite-moe-3b-a800m"),
+                         shape=shape,
+                         mesh=MeshShape(("data", "model"), (2, 8)))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def fake_group():
+    """The fake group's records (`_FAKE_GROUP`, in a subprocess), the same
+    cells' counts on a 4-rank gloo group (`torch_tp_ranks.run_cells`) and
+    the smoke cells' records by mesh (`_SWEEP`, a subprocess a mesh), all
+    run at once."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import mesh as M
+    import torch_tp_ranks as R
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        ["src"] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    shapes = {n: (s.seq_len, s.global_batch, s.kind)
+              for n, s in SMOKE_SHAPES.items()}
+    scripts = {None: [_FAKE_GROUP]} | {
+        m: [_SWEEP, json.dumps([m, dims, shapes])]
+        for m, dims in MESHES.items()}
+
+    def run(args):
+        proc = subprocess.run([sys.executable, "-c", *args], env=env,
+                              capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    with ThreadPoolExecutor(1 + len(scripts)) as pool:
+        gloo = pool.submit(M.spawn, 4, R.run_cells, device_type="cpu",
+                           shape=(2, 2), axes=("data", "model"),
+                           timeout_s=300.0)
+        runs = {k: pool.submit(run, a) for k, a in scripts.items()}
+        sweep = {m: runs[m].result() for m in MESHES}
+        return runs[None].result(), gloo.result()[0], sweep
+
+
+def test_fake_group_counts_the_gloo_groups_collectives(fake_group):
+    """`run_cell` counts the smoke cells' sharded steps (smollm train,
+    prefill, decode; the FSDP train cells of yi-9b, granite-moe and
+    zamba2, which failed in the embedding's lookup before) on a
+    fake (2, 2) group: ``"reckoned": false``, and every collective count
+    equal to the same cells' on a 4-rank gloo group (decode and prefill 5
+    all-reduces, as `test_cells_run_sharded_on_a_real_mesh`)."""
+    from torch_tp_ranks import CELLS
+    records, gloo, _ = fake_group
+    for arch, kind, dp_only in CELLS:
+        rec = records[f"{arch} {kind} {dp_only}"]
+        assert rec["status"] == "ok" and "sharded_error" not in rec, rec
+        coll = rec["collectives"]
+        assert coll["reckoned"] is False
+        assert coll["counts"] == gloo[f"{arch} {kind}"], (arch, kind)
+        assert coll["reckoning"]["reckoned"] is True
+    assert records["smollm-135m decode False"]["collectives"]["counts"][
+        "all-reduce"] == 5
+
+
+def test_a_dp_only_train_cell_counts_its_gradient_all_reduce(fake_group):
+    """mamba2-130m trains data-parallel only: its gradients come back as
+    partial sums over both mesh axes (the batch is split over both), and
+    the step brings each to its replicated parameter's placement, two
+    all-reduces a gradient tensor; before, the optimizer took the partial
+    sums as they were and nothing was counted."""
+    records, _, _ = fake_group
+    rec = records["mamba2-130m train None"]
+    assert rec["status"] == "ok" and "sharded_error" not in rec, rec
+    cfg = configs.get_smoke("mamba2-130m")
+    from repro_torch.models import api
+    n = sum(1 for _ in api.build_model(
+        cfg, generator=None, device="meta").parameters())
+    assert rec["collectives"]["counts"]["all-reduce"] >= 2 * n
+
+
+def test_heads_that_do_not_divide_the_model_axis_train_sharded(
+        fake_group):
+    """A train cell whose 4 heads do not divide the 8-way model axis runs
+    its sharded step (its backward failed in DTensor's view before
+    attention merged its heads by `merge_dims`)."""
+    records, _, _ = fake_group
+    rec = records["uneven"]
+    assert rec["status"] == "ok" and "sharded_error" not in rec, \
+        rec.get("sharded_error")
+    assert rec["collectives"]["reckoned"] is False
+
+
+def test_a_production_cell_runs_on_a_fake_group(fake_group):
+    """Full-width smollm-135m decode_32k on the production (16, 16) fake
+    group, on meta tensors: counted, 2 all-reduces a layer and the
+    vocab-parallel embedding's, per-device flops below one device's whole
+    step."""
+    records, _, _ = fake_group
+    rec = records["full"]
+    assert rec["status"] == "ok" and "sharded_error" not in rec, rec
+    assert rec["chips"] == 256 and rec["collectives"]["reckoned"] is False
+    cfg = configs.get("smollm-135m")
+    assert rec["collectives"]["counts"]["all-reduce"] == 2 * cfg.n_layers + 1
+    assert 0 < rec["flops_per_device"] < rec["model_flops_global"]
+
+
+def test_a_failed_sharded_step_keeps_the_reckoning(monkeypatch):
+    """Where the sharded step fails on the fake group, the record keeps
+    the figures reckoned from one device's share, says so, and carries
+    the failure (here a stand-in for a fault; no process group opens)."""
+    from repro_torch.launch import dryrun
+
+    def fail(*args, **kwargs):
+        raise RuntimeError("sharded step failed")
+    monkeypatch.setattr(dryrun, "_counted", fail)
+    shape = SMOKE_SHAPES["decode_32k"]
+    kw = dict(cfg=configs.get_smoke("smollm-135m"), shape=shape,
+              mesh=MeshShape(("data", "model"), (4, 2)), verbose=False)
+    rec = run_cell("smollm-135m", "decode_32k", "4x2", None, **kw)
+    assert rec["status"] == "ok"
+    assert rec["sharded_error"] == "RuntimeError: sharded step failed"
+    assert rec["collectives"]["reckoned"] is True
+    # one device's unsharded share, divided by the 2-way model axis
+    from repro_torch.launch.steps import build_cell
+    cell = build_cell("smollm-135m", "decode_32k", kw["mesh"],
+                      cfg=kw["cfg"], shape=shape)
+    costs, _ = cell.run()
+    assert rec["flops_per_device"] == costs.flops / 2
+    assert rec["hbm_bytes_per_device"] == costs.bytes / 2
+    reckoned, _ = dryrun._collectives(cell)
+    assert rec["collectives"]["counts"] == dict(reckoned.coll_counts)

@@ -31,11 +31,22 @@ the port's own one-device model.
     once) on the (2, 2) mesh give losses within 1e-4 of the reference's
     `Trainer`, and the first batch's gradients are within rtol 1e-4 /
     atol 1e-5 x the leaf's largest |g| of ``jax.grad``.
-(e) The launcher trains on 4 ranks with ``--model-ranks 2``.
+(e) The launcher trains on 4 ranks with ``--model-ranks 2`` by the arch's
+    knobs, and its checkpoint restores on a (1, 2) mesh and on one device.
+(f) Placed optimizer state (`ShardingRules.state_spec`): ZeRO-1 with AdamW
+    and Adafactor, and FSDP by the knobs of yi-9b and granite-moe, give
+    weights bitwise those of ``zero1=False`` on the same mesh, each rank's
+    parameter and state bytes the dry-run's `_memory` exactly, and losses
+    within 1e-4 of the reference's `Trainer`, as does sequence-parallel
+    training (smollm with ``seq_axis="model"``, granite-34b by its
+    knobs). A checkpoint written on (2, 2) restores on (2, 2) bitwise the
+    uninterrupted run, on (1, 4), (4, 1) and one device within 1e-4, and a
+    one-device checkpoint on (2, 2). An FSDP table looks its rows up.
 
 Also: `op_cost` counts one all-reduce of the output's bytes for a column-
 then row-parallel product on the 2 ranks of the model axis; `build_cell`
-on the real mesh runs its train, prefill and decode steps;
+on the real mesh runs its train, prefill and decode steps, and the FSDP
+train cells;
 `launch.gloo_route` gives the native collectives' bits; a plain embedding
 table keeps its indexing.
 
@@ -201,18 +212,58 @@ def _model_cases() -> dict:
     return cases
 
 
+# FSDP by their train knobs
+FSDP_ARCHS = ("yi-9b", "granite-moe-3b-a800m")
+# each train case's (arch, optimizer) of the reference's `Trainer`
+TRAIN_REFS = {"adamw": ("smollm-135m", "adamw"),
+              "adafactor": ("smollm-135m", "adafactor"),
+              "adamw-unplaced": ("smollm-135m", "adamw"),
+              "adafactor-unplaced": ("smollm-135m", "adafactor"),
+              "smollm-seq-parallel": ("smollm-135m", "adamw"),
+              "granite-34b": ("granite-34b", "adafactor"),
+              "granite-34b-wide": ("granite-34b", "adafactor"),
+              **{a: (a, "adamw") for a in FSDP_ARCHS},
+              **{f"{a}-unplaced": (a, "adamw") for a in FSDP_ARCHS}}
+
+
 def _train_cases() -> dict:
-    p = _np_params("smollm-135m")
-    common = dict(arch="smollm-135m", params=p, pipe=PIPE, lr=LR, steps=3)
-    return {"adamw": dict(optimizer="adamw", grads=True, **common),
-            "adafactor": dict(optimizer="adafactor", **common)}
+    """The `TensorParallelTrainer` runs on the (2, 2) mesh: each with
+    ZeRO-1, FSDP and sequence parallelism by the arch's knobs
+    (`train_knobs`, as the launcher sets them), the ``-unplaced`` ones
+    with ``zero1=False``, and smollm sequence-parallel."""
+    from repro_torch.launch.steps import train_knobs
+    out = {}
+    for name, (arch, optimizer) in TRAIN_REFS.items():
+        knobs = train_knobs(arch)
+        case = dict(arch=arch, params=_np_params(arch), pipe=PIPE, lr=LR,
+                    steps=3, optimizer=optimizer,
+                    trainer=dict(fsdp=knobs["fsdp"],
+                                 seq_axis=knobs["seq_axis"],
+                                 zero1=not name.endswith("-unplaced")))
+        if optimizer == knobs["optimizer"]:
+            case["trainer"]["opt_kwargs"] = knobs["opt_kwargs"]
+        out[name] = case
+    out["adamw"]["grads"] = True
+    out["smollm-seq-parallel"]["trainer"]["seq_axis"] = "model"
+    # 6 heads on the (1, 4) mesh's 4-way model axis: the attention's heads
+    # are made whole, and its gradient split back through `split_dim`
+    out["granite-34b-wide"]["mesh"] = "1x4"
+    return out
+
+
+def _checkpoint_case(dirs) -> dict:
+    return dict(arch="smollm-135m", params=_np_params("smollm-135m"),
+                pipe=PIPE, lr=LR, dirs=dirs)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def group():
+def group(tmp_path_factory):
     """The 4-rank group, started with the module's first test and run in
     a thread, so the reference's side of the tests runs meanwhile."""
-    tasks = {"models": _model_cases(), "train": _train_cases()}
+    dirs = [str(tmp_path_factory.mktemp(n)) for n in ("tp_ckpt",
+                                                      "one_ckpt")]
+    tasks = {"models": _model_cases(), "train": _train_cases(),
+             "checkpoints": _checkpoint_case(dirs)}
     with ThreadPoolExecutor(1) as pool:
         yield pool.submit(M.spawn, 4, R.group_body, tasks,
                           device_type="cpu", shape=(2, 2),
@@ -237,7 +288,11 @@ def expected():
             out[case["arch"]] = (_reference_outputs(case),
                                  _port_outputs(case))
         out[name] = out[case["arch"]]
-    out["train"] = {o: _reference_trainer(o) for o in ("adamw", "adafactor")}
+    refs = {}
+    for name, key in TRAIN_REFS.items():
+        if key not in refs:
+            refs[key] = _reference_trainer(*key)
+    out["train"] = {name: refs[key] for name, key in TRAIN_REFS.items()}
     out["grads"] = _reference_grads()
     return out
 
@@ -320,18 +375,55 @@ def test_decode_sites_equal_the_references(arch, expected):
 
 # --- (e) the launcher (run while the group works) ------------------------------
 
-def test_launcher_trains_tensor_parallel(capfd):
-    out = launch_train.main(["--arch", "smollm-135m", "--smoke", "--steps",
-                             "2", "--batch", "4", "--seq", "16", "--ranks",
-                             "4", "--model-ranks", "2", "--device", "cpu"])
+LAUNCH = ["--arch", "smollm-135m", "--smoke", "--batch", "4", "--seq", "16",
+          "--device", "cpu", "--ckpt-every", "2"]
+
+
+@pytest.fixture(scope="module")
+def launch_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("launch_ckpt"))
+
+
+def _launch_4x2(launch_dir):
+    return launch_train.main(LAUNCH + ["--steps", "2", "--ranks", "4",
+                                       "--model-ranks", "2", "--ckpt-dir",
+                                       launch_dir])
+
+
+def test_launcher_trains_tensor_parallel(capfd, launch_dir):
+    out = _launch_4x2(launch_dir)
     assert sorted(r["coord"] for r in out) == [(0, 0), (0, 1), (1, 0),
                                                (1, 1)]
     losses = {tuple(r["history"]) for r in out}
     assert len(losses) == 1 and all(np.isfinite(next(iter(losses))))
     assert "done: 2 steps" in capfd.readouterr().out
+    # the arch's knobs: AdamW with ZeRO-1, no FSDP, no sequence parallelism
+    assert {(r["optimizer"], r["fsdp"], r["seq"]) for r in out} == \
+        {("adamw", False, None)}
     with pytest.raises(ValueError, match="does not divide"):
         launch_train.main(["--arch", "smollm-135m", "--smoke", "--ranks",
                            "4", "--model-ranks", "3", "--device", "cpu"])
+
+
+def test_launcher_restores_on_other_ranks(capfd, launch_dir):
+    """``--restore`` of the 4-rank (2, 2) run's step-2 checkpoint on a
+    (1, 2) mesh of 2 ranks and on one device: each resumes at step 2."""
+    from repro_torch.train.checkpoint import list_steps
+    if 2 not in list_steps(launch_dir):
+        _launch_4x2(launch_dir)
+    capfd.readouterr()
+    out = launch_train.main(LAUNCH + ["--steps", "3", "--ranks", "2",
+                                      "--model-ranks", "2", "--ckpt-dir",
+                                      launch_dir, "--restore"])
+    assert [r["step"] for r in out] == [3, 3]
+    assert all(len(r["history"]) == 1 for r in out)
+    assert "restored from step 2" in capfd.readouterr().out
+    one = launch_train.main(LAUNCH + ["--steps", "3", "--ckpt-dir",
+                                      launch_dir, "--restore"])
+    assert one.step == 3 and len(one.history) == 1
+    assert one.history[0] == pytest.approx(out[0]["history"][0],
+                                           rel=LOSS_RTOL)
+    assert "restored from step 2" in capfd.readouterr().out
 
 
 # --- (b) forward, prefill, decode on the mesh ----------------------------------
@@ -439,12 +531,12 @@ def test_a_plain_table_keeps_the_indexing():
 
 # --- (d) training ----------------------------------------------------------------
 
-def _reference_trainer(optimizer):
-    jcfg = jax_smoke("smollm-135m")
+def _reference_trainer(arch, optimizer):
+    jcfg = jax_smoke(arch)
     jt = JTrainer(jcfg, JTrainConfig(optimizer=optimizer, lr=LR),
                   JSyntheticTokens(JPipelineConfig(**PIPE)))
     # fresh arrays: the reference's jitted step donates its buffers
-    jt.params = jax.tree.map(jnp.asarray, _np_params("smollm-135m"))
+    jt.params = jax.tree.map(jnp.asarray, _np_params(arch))
     jt.opt_state = jt.opt.init(jt.params)
     losses = []
     for step in range(3):
@@ -472,6 +564,111 @@ def test_tp_training_matches_the_reference_trainer(expected, ranks,
     for r in ranks:
         got = r["train"][optimizer]["loss"]
         assert got == pytest.approx(want, rel=LOSS_RTOL), (got, want)
+
+
+# --- (f) ZeRO-1, FSDP, sequence parallelism, checkpoints ------------------------
+
+PLACED = ["adamw", "adafactor", *FSDP_ARCHS]
+
+
+@pytest.mark.parametrize("name", PLACED)
+def test_placed_state_gives_the_unplaced_weights_bitwise(ranks, name):
+    """ZeRO-1 (smollm, AdamW and Adafactor) and FSDP with its state in the
+    specs' placements (yi-9b, granite-moe): after 3 steps every weight is
+    bitwise that of the same mesh's ``zero1=False`` run."""
+    for r in ranks:
+        got, want = r["train"][name], r["train"][f"{name}-unplaced"]
+        assert set(got["weights"]) == set(want["weights"])
+        for k, w in want["weights"].items():
+            assert np.array_equal(got["weights"][k], w), (name, k)
+
+
+def _dry_run_memory(name) -> dict:
+    """The dry-run's reckoning (`dryrun._memory`) of a train case's
+    parameter and optimizer bytes a device on a (2, 2) mesh, under the
+    rules the trainer places by."""
+    from repro_torch.launch.dryrun import _memory
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.config import ShapeConfig
+    arch, optimizer = TRAIN_REFS[name]
+    cell = build_cell(arch, "tp_train", MeshShape(("data", "model"), (2, 2)),
+                      cfg=configs.get_smoke(arch),
+                      shape=ShapeConfig("tp_train", PIPE["seq_len"],
+                                        PIPE["global_batch"], "train"),
+                      dp_only=False)
+    cell.knobs = {"optimizer": optimizer}
+    return _memory(cell)
+
+
+@pytest.mark.parametrize("name", PLACED + ["granite-34b"])
+def test_each_ranks_state_bytes_are_the_dry_runs(ranks, name):
+    """Each rank's bytes of optimizer state and of parameters equal the
+    dry-run's ``opt_bytes`` and ``param_bytes`` for the mesh, exactly; the
+    unplaced state holds more."""
+    mem = _dry_run_memory(name)
+    for r in ranks:
+        got = r["train"][name]
+        assert got["opt_bytes"] == mem["opt_bytes"], (name, got["opt_bytes"])
+        assert got["param_bytes"] == mem["param_bytes"], name
+        if f"{name}-unplaced" in r["train"] and name not in FSDP_ARCHS:
+            assert r["train"][f"{name}-unplaced"]["opt_bytes"] > \
+                mem["opt_bytes"], name
+
+
+TRAINED = [n for n in TRAIN_REFS if n not in ("adamw", "adafactor")]
+
+
+@pytest.mark.parametrize("name", TRAINED)
+def test_placed_and_sequence_parallel_losses_match_the_reference(
+        expected, ranks, name):
+    """FSDP (yi-9b, granite-moe by their knobs), ZeRO-1 against
+    ``zero1=False``, and sequence-parallel training (smollm with
+    ``seq_axis="model"``, granite-34b by its knobs: Adafactor, sequence
+    parallel; also on the (1, 4) mesh, where its 6 heads do not divide
+    the model axis, which failed in the backward before): losses within
+    1e-4 of the reference's `Trainer`."""
+    want = expected["train"][name]
+    for r in ranks:
+        got = r["train"][name]["loss"]
+        assert got == pytest.approx(want, rel=LOSS_RTOL), (name, got, want)
+    if name in ("smollm-seq-parallel", "granite-34b", "granite-34b-wide"):
+        assert all(r["train"][name]["seq"] == "model" for r in ranks)
+
+
+@pytest.mark.parametrize("where", ["2x2", "1x4", "4x1", "one", "from_one"])
+def test_a_checkpoint_restores_across_meshes(ranks, where):
+    """A checkpoint written on the (2, 2) mesh at step 2, restored on the
+    same mesh, on (1, 4), on (4, 1) and on one device, and a one-device
+    checkpoint restored on (2, 2): 2 more steps each. On the same mesh the
+    resumed run is bitwise the uninterrupted one (losses and weights);
+    elsewhere within 1e-4."""
+    for r in ranks:
+        ck = r["checkpoints"]
+        want_loss, _, want_w = ck["uninterrupted"]
+        want_loss = want_loss[2:]          # the steps after the restore
+        loss, step, weights = ck[where]
+        assert step == 2
+        if where == "2x2":
+            assert loss == want_loss
+            for k, w in want_w.items():
+                assert np.array_equal(weights[k], w), k
+            continue
+        assert loss == pytest.approx(want_loss, rel=LOSS_RTOL)
+        for k, w in want_w.items():
+            np.testing.assert_allclose(weights[k], w, rtol=1e-4,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=f"{where} {k}")
+
+
+def test_an_fsdp_table_looks_up_its_rows(ranks):
+    """The FSDP table (vocab over "model", d_model over "data") is gathered
+    along d_model before its lookup: the rows are the one-device table's
+    (this failed in `F.embedding` before)."""
+    for r in ranks:
+        lk = r["fsdp_lookup"]
+        assert lk["placements"] == "(Shard(dim=1), Shard(dim=0))", lk
+        assert np.array_equal(lk["got"], lk["want"])
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -512,9 +709,13 @@ def test_cells_run_sharded_on_a_real_mesh(ranks):
     step of 2 layers: 2 a layer + the embedding's)."""
     for r in ranks:
         cells = r["cells"]
-        assert cells["decode"]["all-reduce"] == 5, cells
-        assert cells["prefill"]["all-reduce"] == 5, cells
-        assert cells["train"]["all-reduce"] > 5, cells
+        assert cells["smollm-135m decode"]["all-reduce"] == 5, cells
+        assert cells["smollm-135m prefill"]["all-reduce"] == 5, cells
+        assert cells["smollm-135m train"]["all-reduce"] > 5, cells
+        # FSDP's weight all-gathers and gradient reduce-scatters
+        for arch in FSDP_ARCHS + ("zamba2-7b",):
+            c = cells[f"{arch} train"]
+            assert c["all-gather"] > 0 and c["reduce-scatter"] > 0, c
 
 
 def test_gloo_route_gives_the_native_collectives_bits(ranks):

@@ -110,13 +110,17 @@ def run_model(mesh, case: dict) -> dict:
 
 def run_training(mesh, case: dict) -> dict:
     """``case["steps"]`` `TensorParallelTrainer` steps of the smoke config
-    on the reference's weights: each step's loss and gnorm, and the first
-    batch's gradients (before any update) as the reference's tree."""
+    on the reference's weights (the trainer's keywords ``case["trainer"]``:
+    ``zero1``, ``fsdp``, ``seq_axis``): each step's loss and gnorm, the
+    final weights whole, this rank's bytes of parameters and optimizer
+    state, and where ``case["grads"]`` the first batch's gradients (before
+    any update) as the reference's tree."""
     cfg = configs.get_smoke(case["arch"])
     model = convert.model_from_jax_params(cfg, case["params"], device="cpu")
     t = TensorParallelTrainer(
         cfg, TrainConfig(optimizer=case["optimizer"], lr=case["lr"]),
-        SyntheticTokens(PipelineConfig(**case["pipe"])), mesh, model=model)
+        SyntheticTokens(PipelineConfig(**case["pipe"])), mesh, model=model,
+        **case.get("trainer", {}))
     out = {}
     if case.get("grads"):
         with tp_context(t.model.logical):
@@ -133,22 +137,104 @@ def run_training(mesh, case: dict) -> dict:
         m = t.train_step(t.pipeline.batch(step))
         out["loss"].append(float(m["loss"]))
         out["gnorm"].append(float(m["gnorm"]))
+    out["weights"] = _weights(t)
+    out["opt_bytes"] = t.state_bytes()
+    out["param_bytes"] = t.rules.check_distributed(t.model)
+    out["seq"] = t.model.logical["seq"]
     return out
+
+
+def _weights(t) -> dict:
+    return {n: _np(p) for n, p in t.model.named_parameters()}
+
+
+def run_checkpoints(mesh, case: dict) -> dict:
+    """Checkpoints across meshes, AdamW on the smoke config: a
+    `TensorParallelTrainer` on the (2, 2) mesh writes one at step 2 into
+    ``case["dirs"][0]``; the uninterrupted run's 4 losses and weights; that
+    checkpoint restored on the (2, 2), (1, 4) and (4, 1) meshes and on one
+    device (`Trainer`), 2 more steps each; and the reverse: a one-device
+    `Trainer`'s checkpoint at step 2 (the first rank writes it into
+    ``case["dirs"][1]``) restored on the (2, 2) mesh. Each run: (losses
+    after the restore, the step restored, the final weights)."""
+    import torch.distributed as dist
+    from repro_torch.train.trainer import Trainer
+    cfg = configs.get_smoke(case["arch"])
+
+    def trainer(m, ckpt="", every=100):
+        model = convert.model_from_jax_params(cfg, case["params"],
+                                              device="cpu")
+        tc = TrainConfig(optimizer="adamw", lr=case["lr"], ckpt_dir=ckpt,
+                         ckpt_every=every)
+        pipe = SyntheticTokens(PipelineConfig(**case["pipe"]))
+        if m is None:
+            return Trainer(cfg, tc, pipe, model=model, device="cpu")
+        return TensorParallelTrainer(cfg, tc, pipe, m, model=model)
+
+    def resumed(m, ckpt) -> tuple:
+        t = trainer(m, ckpt)
+        assert t.try_restore()
+        step = t.step
+        t.run(4, log_every=0)
+        return t.history, step, {n: full(p).detach().numpy().copy()
+                                 for n, p in t.model.named_parameters()}
+
+    tp_dir, one_dir = case["dirs"]
+    trainer(mesh, tp_dir, 2).run(2, log_every=0)
+    b = trainer(mesh)
+    b.run(4, log_every=0)
+    out = {"uninterrupted": (b.history, 0, _weights(b))}
+    meshes = {"2x2": mesh,
+              "1x4": make_debug_mesh((1, 4), ("data", "model"), "cpu"),
+              "4x1": make_debug_mesh((4, 1), ("data", "model"), "cpu")}
+    for name, m in meshes.items():
+        out[name] = resumed(m, tp_dir)
+    out["one"] = resumed(None, tp_dir)
+    if not any(mesh.get_coordinate()):
+        trainer(None, one_dir, 2).run(2, log_every=0)
+    dist.barrier()
+    out["from_one"] = resumed(mesh, one_dir)
+    return out
+
+
+# the real-mesh cells: (arch, kind, dp_only); the FSDP archs' train cells
+# take FSDP from their knobs
+CELLS = (("smollm-135m", "train", False), ("smollm-135m", "prefill", False),
+         ("smollm-135m", "decode", False), ("yi-9b", "train", None),
+         ("granite-moe-3b-a800m", "train", None),
+         ("zamba2-7b", "train", None))
 
 
 def run_cells(mesh) -> dict:
-    """`build_cell` of the smoke SmolLM on the real mesh, each kind run:
-    its counted collectives."""
-    cfg = configs.get_smoke("smollm-135m")
+    """`build_cell` of each of `CELLS` (smoke configs) on the real mesh,
+    run: its counted collectives, by ``arch kind``."""
     out = {}
-    for kind in ("train", "prefill", "decode"):
+    for arch, kind, dp_only in CELLS:
         shape = ShapeConfig(name=f"tp_{kind}", kind=kind, seq_len=16,
                             global_batch=4)
-        cell = build_cell("smollm-135m", shape.name, mesh, cfg=cfg,
-                          shape=shape, dp_only=False)
+        cell = build_cell(arch, shape.name, mesh,
+                          cfg=configs.get_smoke(arch), shape=shape,
+                          dp_only=dp_only)
         costs, _ = cell.run()
-        out[kind] = dict(costs.coll_counts)
+        out[f"{arch} {kind}"] = dict(costs.coll_counts)
     return out
+
+
+def fsdp_lookup(mesh) -> dict:
+    """The smoke yi-9b's embedding placed with FSDP (its table ``(model,
+    data)``): its lookup of a batch placed on the data axis, whole, beside
+    the one-device table's indexing, and the table's placements."""
+    cfg = configs.get_smoke("yi-9b")
+    model = api.build_model(cfg, generator=torch.Generator().manual_seed(0),
+                            device="cpu")
+    whole = model.embed.tok.detach().clone()
+    api.distribute(model, cfg, mesh, fsdp=True, global_batch=4)
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, cfg.vocab, (4, 8), generator=g)
+    with tp_context(model.logical):
+        got = model.embed(model.tp_rules.distribute_batch({"i": ids})["i"])
+    return {"got": _np(got), "want": whole[ids].numpy(),
+            "placements": str(tuple(model.embed.tok.placements))}
 
 
 def row_parallel(mesh) -> dict:
@@ -169,7 +255,7 @@ def row_parallel(mesh) -> dict:
 def group_body(mesh, tasks: dict) -> dict:
     """Every task of the 4-rank group: ``models`` (`run_model`, each on
     the (2, 2) mesh or, where ``case["mesh"] == "1x4"``, on a (1, 4) mesh
-    built here), ``train`` (`run_training` on the (2, 2) mesh), the
+    built here), ``train`` (`run_training`, on the same meshes), the
     cells, the row-parallel count and `route_body` on a 1-D mesh of the
     4 ranks."""
     wide = make_debug_mesh((1, 4), ("data", "model"), "cpu")
@@ -179,8 +265,11 @@ def group_body(mesh, tasks: dict) -> dict:
         out["models"][name] = run_model(
             wide if case.get("mesh") == "1x4" else mesh, case)
     for name, case in tasks["train"].items():
-        out["train"][name] = run_training(mesh, case)
+        out["train"][name] = run_training(
+            wide if case.get("mesh") == "1x4" else mesh, case)
+    out["checkpoints"] = run_checkpoints(mesh, tasks["checkpoints"])
     out["cells"] = run_cells(mesh)
+    out["fsdp_lookup"] = fsdp_lookup(mesh)
     out["row_parallel"] = row_parallel(mesh)
     # last: it routes this process's functional collectives from here on
     out["route"] = route_body(make_debug_mesh((4,), ("all",), "cpu"))
