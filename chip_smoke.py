@@ -6,7 +6,8 @@
 Phases, each raising on failure (no phase falls back to the CPU):
 
 1. device: the card's name, count and power limit; no CUDA card -> exit 1.
-2. build: compiles ``kernels/csrc/*.cu`` with nvcc from the checkout.
+2. build: compiles ``kernels/csrc/*.cu`` with nvcc from the checkout, the
+   dtANS sources once per parameter set of phase 4o.
 3. kernels against their plain torch versions on the card, on seeded
    matrices (f64 and f32, shared and split tables, escape-heavy values, lane
    widths 8..128, empty rows): SpMV and SpMM at B in {3, 64}; a ragged
@@ -91,7 +92,9 @@ Phases, each raising on failure (no phase falls back to the CPU):
    50280, tied; attention-free; float32 where the config says bfloat16,
    TF32 off), weights from a generator seeded `SEED`, nothing cut. Its
    head compressed by ``Engine.compress_lm_head`` at ``from_dense``'s
-   defaults (a host encode of ~7.7 M nonzeros) serves `SSM_PROMPTS`
+   defaults (a host encode of ~7.7 M nonzeros, made on the host beside
+   phases 2-4c from the same seeded weights, checked by a digest of the
+   head) serves `SSM_PROMPTS`
    (4g's, the last 301 tokens long, so its prefill runs two chunks of 256,
    the second padded; ``max_seq=320``)
    through the same three engines and checks as 4g (`_serve_and_check`:
@@ -104,7 +107,8 @@ Phases, each raising on failure (no phase falls back to the CPU):
    their largest |logit|, argmax equal) and timed.
 4i. the row-sharded head: phase 4's weight built by
    ``SparseLinear.from_dense(n_shards=4)`` (its four shards of 96 slices
-   encoded on the host; the whole head is not, the layer never needs it).
+   encoded on the host beside phases 2-4c, then uploaded; the whole head
+   is not, the layer never needs it).
    The per-shard loop serves B =
    1, 4, 64 and 512 bitwise phase 4's layer, 4 launches a pass, and
    phase 4g's requests through a pooled engine (4 launches a step) with
@@ -147,7 +151,8 @@ Phases, each raising on failure (no phase falls back to the CPU):
    loss, and half of them with ``grad_compress``; step p50 by CUDA events
    with the all-reduces' share.
 4l. the CG solve: ``examples/cg_solver_torch.py``'s CG on
-   ``stencil_2d(512)`` in float64 (262,144 unknowns) to a relative residual
+   ``stencil_2d(512)`` in float64 (262,144 unknowns; encoded beside phases
+   2-4c) to a relative residual
    of 1e-10 through B1 (``dtans_spmv``: iterations + 1 launches), and the
    same CG through cuSPARSE CSR: both errors against ``x_true`` under kappa
    x tol, the iteration counts within 2%; ms an iteration; one SpMV of each
@@ -182,6 +187,22 @@ Phases, each raising on failure (no phase falls back to the CPU):
    within 1e-4 of a one-rank ``Trainer`` run uninterrupted; step ms and
    the collectives' share on rank 0 (the last step's collectives over the
    warm untimed step before it).
+4o. parameter sets: the dtANS kernels compiled for each set of
+   `PARAM_SETS` (PAPER, TOY and seven that each move one constant: K =
+   2^8 and 2^16, whose 1.5 MB of tables stay in global memory, 16- and
+   8-bit words, M = 2^4 and 2^16 with its 16-byte slots, l = 48, o = 1
+   and 2). (a) Each set's encodes of tests/test_torch_params.py's
+   matrices (f32 on one table, f64 on two) and of a band of 109,970
+   nonzeros (f32, f64) go through ``ops.spmv`` (B1), ``ops.spmm`` at B =
+   4 and 64 (B2) and ``ops.decode`` (B3), bitwise the plain versions and
+   within `RTOL` of the float64 product, the launches counted per set;
+   the band's f32 kernels are timed beside their plain versions,
+   cuSPARSE CSR and the bound. (b) Phase 4's head encoded at `HEAD_SET`
+   (K16) goes the same way at B = 1, 4, 64, and each kernel is timed in
+   turns with phase 4's PAPER head (PAPER, K16, K16, PAPER), beside its
+   plain version, cuSPARSE CSR, the bound (the set's own table bytes) and
+   both heads' bytes. Every encode runs from the start in a process of
+   its own beside phases 2-4b (`params_host`).
 The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card),
    counted on a fake process group of one rank; its bound must lie below
    4j's measured step p50, and the roofline's 80 GiB within 5% of the
@@ -198,9 +219,11 @@ The roofline check: ``launch.dryrun.run_cell`` on 4j's cell (one card),
    time of earlier runs beside; decode is timed the same way. Phase 2 logs
    the registers and spills of every SELL / RGCSR / BCSR SpMM and SpMV
    instantiation and of the decode kernel's (f32 / f64, each block
-   size).
+   size), PAPER's dtANS ptxas lines, and each other set's most registers
+   and spilled bytes.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
+Prints a ``{"kernels": [...]}`` line (each dtANS kernel once more per
+parameter set, ``name[SET]``), the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. ``--json PATH`` also
 writes every number it measured to PATH. Phases 4j-4n and the roofline
 check (after 4j) need nothing of the earlier ones: ``python -c "import
@@ -217,10 +240,12 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import math
 import multiprocessing
+import os
 import re
 import shutil
 import statistics
@@ -245,6 +270,7 @@ from repro_torch import configs, obs  # noqa: E402
 from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
+from repro_torch.core.params import DtansParams  # noqa: E402
 from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix  # noqa: E402
 from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens  # noqa: E402
 from repro_torch.kernels import _build, ops, shard_ops, tiling  # noqa: E402
@@ -377,7 +403,11 @@ def phase_device() -> None:
 # 2. build
 # ---------------------------------------------------------------------------
 
-def phase_build() -> None:
+def phase_build() -> _build.Build:
+    """Every library PAPER runs, one ``nvcc`` each, all started together;
+    logs their ptxas lines. Then starts the dtANS sources' builds for the
+    other sets of `PARAM_SETS` (phase 4o's), niced, beside phases 3-4n;
+    returns that build (`phase_set_build` waits for it)."""
     t0 = time.perf_counter()
     libs = _build.build_all()
     secs = time.perf_counter() - t0
@@ -400,6 +430,36 @@ def phase_build() -> None:
     if static > tiling.STATIC_SMEM_BYTES:
         raise AssertionError("tiling.STATIC_SMEM_BYTES is below the "
                              "kernel's static shared memory")
+    RESULTS["set_build_started_s"] = time.perf_counter() - t0
+    return _build.start_build(
+        _build.PARAM_SOURCES,
+        tuple(p for n, p in PARAM_SETS.items() if n != "PAPER"), nice=19)
+
+
+def phase_set_build(build: _build.Build) -> None:
+    """Waits for the sets' build of `phase_build` (raising if a compile
+    failed), then logs each set's most registers and spilled bytes over
+    its kernels, and its static shared memory."""
+    t0 = time.perf_counter()
+    libs = build.wait()
+    log(f"[build] {len(libs)} set libraries ready ({time.perf_counter() - t0:.1f} s "
+        f"waited): {sorted(libs)}")
+    sets = RESULTS["set_registers"] = {}
+    for name, p in PARAM_SETS.items():
+        for stem in _build.PARAM_SOURCES:
+            text = _build.log_path(stem, p).read_text()
+            regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
+            spill = [int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+            sets[f"{stem}[{name}]"] = {"most_registers": max(regs),
+                                       "spill_bytes": sum(spill),
+                                       "kernels": len(regs)}
+        static = K.static_smem_bytes(p)
+        assert static <= tiling.STATIC_SMEM_BYTES, (name, static)
+    log("[build] per set (most registers / spill stores+loads over its "
+        "kernels): " + "; ".join(f"{k} {v['most_registers']} / "
+                                f"{v['spill_bytes']} B"
+                                for k, v in sets.items()))
 
 
 _WARP_KERNEL = re.compile(r"spmm_warp_kernelI([fd]).*?ELi(\d+)ELi(\d+)"
@@ -1770,16 +1830,34 @@ SSM_MAX_SEQ = 320
 SSM_LONG_REL = 1e-3   # chunked vs token-by-token, of the largest |logit|
 
 
-def _mamba2():
+def _mamba2(device="cuda"):
     """mamba2-130m at full width in float32 (nothing cut), weights from a
-    generator seeded `SEED`."""
+    generator seeded `SEED` (drawn on the host, so the same on any
+    device)."""
     cfg = configs.get("mamba2-130m").with_(dtype="float32")
     assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
             cfg.ssm_headdim, cfg.ssm_state, cfg.conv_width, cfg.ssm_chunk,
             cfg.vocab, cfg.tie_embeddings, cfg.attn_every) == \
         (24, 768, 1536, 24, 64, 128, 4, 256, 50280, True, 0), cfg
     return api.build_model(
-        cfg, generator=torch.Generator().manual_seed(SEED), device="cuda")
+        cfg, generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def ssm_head_host() -> dict:
+    """4h's host work, from `SEED` alone: mamba2-130m built on the host
+    (`_mamba2`) and its tied head compressed by `Engine.compress_lm_head`
+    there, with a digest of the head's weights. `main` runs it in a process
+    of its own beside phases 2-4c; `phase_engine_ssm` checks the digest
+    against the card's model and uploads the layer."""
+    model = _mamba2("cpu")
+    t0 = time.perf_counter()
+    head = Engine.compress_lm_head(model, device="cpu")
+    return {"head": head, "encode_s": time.perf_counter() - t0,
+            "digest": _digest(model.embed.head_weight())}
 
 
 def _long_prefill(model, prompt: np.ndarray) -> dict:
@@ -1818,12 +1896,13 @@ def _long_prefill(model, prompt: np.ndarray) -> dict:
             "prefill_ms": statistics.median(ms), "prefill_runs_ms": ms}
 
 
-def phase_engine_ssm() -> None:
+def phase_engine_ssm(host: dict | None = None) -> None:
     """mamba2-130m at full width (attention-free) serves `SSM_PROMPTS`
     through the port's `Engine` with its tied head compressed by
     `Engine.compress_lm_head` at `from_dense`'s defaults
-    (`_serve_and_check`); its longest prompt's chunked prefill is held
-    against the recurrence (`_long_prefill`)."""
+    (`_serve_and_check`; ``host``: the head `ssm_head_host` compressed
+    beside the earlier phases); its longest prompt's chunked prefill is
+    held against the recurrence (`_long_prefill`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     model = _mamba2()
@@ -1836,16 +1915,24 @@ def phase_engine_ssm() -> None:
         f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, tied), "
         f"{api.param_count(model):,} parameters, built in {build_s:.1f} s; "
         f"dtype float32 in place of the config's bfloat16")
-    t0 = time.perf_counter()
-    head = Engine.compress_lm_head(model)
-    encode_s = time.perf_counter() - t0
+    if host is None:
+        t0 = time.perf_counter()
+        head = Engine.compress_lm_head(model)
+        encode_s = time.perf_counter() - t0
+    else:
+        assert host["digest"] == _digest(model.embed.head_weight()), \
+            "the host's mamba2-130m head differs from the card's"
+        head = dataclasses.replace(host["head"], device=model.device)
+        to_device(head.packed, model.device)
+        encode_s = host["encode_s"]
     dense_mb = cfg.vocab * cfg.d_model * 4 / 1e6
     log(f"[ssm] head W^T {cfg.vocab}x{cfg.d_model} f32 "
         f"({dense_mb:.1f} MB dense, {_l2_note(cfg.vocab * cfg.d_model * 4)})"
         f" -> nnz {head.mat.nnz:,}, {head.compressed_bytes:,} B "
         f"({head.compression_vs_dense:.2f}x vs dense, "
         f"{_l2_note(head.compressed_bytes)}); compress_lm_head "
-        f"{encode_s:.1f} s on the host")
+        f"{encode_s:.1f} s on the host"
+        + ("" if host is None else " (beside phases 2-4c)"))
     prng = np.random.default_rng(SEED + 7)
     prompts = [prng.integers(0, cfg.vocab, size=n) for n in SSM_PROMPTS]
     run = _serve_and_check("ssm", model, head, prompts, SSM_MAX_SEQ)
@@ -1911,22 +1998,44 @@ def _check_ranks(tag: str, ranks: list, jobs: list) -> dict:
     return bitwise
 
 
-def phase_shard(sl: SparseLinear, model, prompts: list, streams: list
-                ) -> None:
+def shard_host() -> dict:
+    """4i's host work, from `SEED` alone: phase 4's weights built into a
+    `HEAD_SHARDS`-shard layer by ``SparseLinear.from_dense`` on the host
+    (its shards encoded, uploaded to the host), timed. `main` runs it
+    beside phases 2-4c; `phase_shard` uploads the plan to the card."""
+    rng = np.random.default_rng(SEED)
+    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+    t0 = time.perf_counter()
+    sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
+                                 lane_width=128, shared_table=True,
+                                 n_shards=HEAD_SHARDS, device="cpu")
+    sh._encode_whole = None     # phase 4i never encodes the whole head
+    return {"sh": sh, "encode_s": time.perf_counter() - t0}
+
+
+def phase_shard(sl: SparseLinear, model, prompts: list, streams: list,
+                host: dict | None = None) -> None:
     """Phase 4's head built by ``SparseLinear.from_dense(n_shards=4)``: the
     per-shard loop serves the phase-4 batch sizes bitwise phase 4's layer
     (one launch a shard a pass) and phase 4g's requests through the pooled
     engine (4g's token streams; the step captured in a CUDA graph); then
     the same plan on 4 gloo ranks on this one card, each uploading its own
     shard, bitwise the loop path; then every registered format's plan of a
-    phase-3 matrix on 2 and 4 ranks against its single-device runner."""
-    rng = np.random.default_rng(SEED)
-    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
-    t0 = time.perf_counter()
-    sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
-                                 lane_width=128, shared_table=True,
-                                 n_shards=HEAD_SHARDS, device="cuda")
-    enc_s = time.perf_counter() - t0
+    phase-3 matrix on 2 and 4 ranks against its single-device runner.
+    ``host``: the layer `shard_host` built beside the earlier phases."""
+    if host is None:
+        rng = np.random.default_rng(SEED)
+        w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
+                                     lane_width=128, shared_table=True,
+                                     n_shards=HEAD_SHARDS, device="cuda")
+        enc_s = time.perf_counter() - t0
+    else:
+        sh = dataclasses.replace(host["sh"], device=model.device)
+        shard_ops.upload(sh.plan, sh.device)
+        enc_s = host["encode_s"]
     plan = sh.plan
     slices = [p.n_slices for p in plan.shards]
     assert sh.mat is None, "the sharded layer encoded the whole head"
@@ -1936,7 +2045,8 @@ def phase_shard(sl: SparseLinear, model, prompts: list, streams: list
         f"shards of {plan.shard_rows} rows ({slices} slices of 128), "
         f"{plan.shard_nbytes} B ({plan.total_nbytes} B in all, "
         f"{sl.compressed_bytes} B unsharded); from_dense {enc_s:.1f} s on "
-        f"the host (the shards encoded, not the whole head)")
+        f"the host (the shards encoded, not the whole head"
+        + (")" if host is None else "; beside phases 2-4c)"))
 
     # the main path of this slice: the loop, through the layer and the
     # engine, counts from 0
@@ -3101,7 +3211,16 @@ def phase_tp(streams: list | None = None, backend: str = "gloo") -> None:
 CG_SIDE, CG_TOL, CG_MAXITER = 512, 1e-10, 20000
 
 
-def phase_cg() -> None:
+def cg_host() -> dict:
+    """4l's host work, from nothing but `CG_SIDE`: the system encoded as
+    CSR-dtANS (lane width 128), timed. `main` runs it beside phases
+    2-4c."""
+    t0 = time.perf_counter()
+    mat = encode_matrix(stencil_2d(CG_SIDE), lane_width=128)
+    return {"mat": mat, "encode_s": time.perf_counter() - t0}
+
+
+def phase_cg(host: dict | None = None) -> None:
     """Phase 4l: CG on ``stencil_2d(CG_SIDE)`` in float64 (262,144
     unknowns) to a relative residual of `CG_TOL`, its SpMV B1 (one launch
     an iteration and one for the first residual), then the same CG with
@@ -3109,13 +3228,18 @@ def phase_cg() -> None:
     error against ``x_true`` is held under kappa x tol (a residual r
     allows an error up to kappa r), their iteration counts within 2% of
     each other; B1 bitwise its plain version on the system; B1 and
-    cuSPARSE CSR timed as phase 5 times a B=1 pass, with the bound."""
+    cuSPARSE CSR timed as phase 5 times a B=1 pass, with the bound.
+    ``host``: the system `cg_host` encoded beside the earlier phases."""
     a = stencil_2d(CG_SIDE)
     n = a.shape[0]
     t0 = time.perf_counter()
-    mat = encode_matrix(a, lane_width=128)
+    if host is None:
+        mat = encode_matrix(a, lane_width=128)
+    else:
+        mat = host["mat"]
+        assert (mat.nnz, mat.shape) == (a.nnz, a.shape)
     pm = pack_matrix(mat)
-    enc_s = time.perf_counter() - t0
+    enc_s = time.perf_counter() - t0 if host is None else host["encode_s"]
     rng = np.random.default_rng(SEED)
     x_true = rng.standard_normal(n)
     rows = np.repeat(np.arange(n), np.diff(a.indptr))
@@ -3314,6 +3438,311 @@ def _check_zero1(ranks: list, want: list) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# 4o. parameter sets
+# ---------------------------------------------------------------------------
+
+#: The parameter sets of tests/test_torch_params.py, (w_bits, k_bits, l,
+#: o, f, m_bits): PAPER, the reference's TOY, and seven that each move one
+#: of the dtANS kernels' constants (K = 2^8 and 2^16, the latter's tables
+#: in global memory; 16- and 8-bit words; M = 2^4 and 2^16, a 16-byte
+#: slot; l = 48; o = 1 and 2).
+PARAM_SETS = {name: DtansParams(*t) for name, t in (
+    ("PAPER", (32, 12, 8, 3, 2, 8)), ("TOY", (2, 3, 2, 3, 2, 2)),
+    ("K8", (32, 8, 4, 1, 1, 8)), ("K16", (32, 16, 4, 2, 1, 8)),
+    ("W16", (16, 12, 4, 3, 2, 8)), ("W8", (8, 12, 2, 3, 2, 8)),
+    ("M4", (32, 12, 8, 3, 1, 4)), ("L48", (32, 2, 48, 3, 3, 2)),
+    ("M16", (32, 16, 6, 3, 3, 16)))}
+#: The set farthest from PAPER: the head is encoded at it in 4o(b).
+HEAD_SET = "K16"
+#: 4o(a)'s banded matrix: 10,000 rows of 11 entries, 109,970 nonzeros.
+SET_BANDED_N, SET_BANDED_BW = 10000, 5
+
+
+def _banded_csr(n: int, bw: int, dtype, seed: int) -> CSR:
+    """An n x n band of half-width ``bw``, seeded normal values, built as
+    CSR directly."""
+    rows = np.repeat(np.arange(n), 2 * bw + 1)
+    cols = rows + np.tile(np.arange(-bw, bw + 1), n)
+    keep = (cols >= 0) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    vals = np.random.default_rng(seed).standard_normal(cols.size).astype(
+        dtype)
+    indptr = np.r_[0, np.cumsum(np.bincount(rows, minlength=n))]
+    return CSR(indptr.astype(np.int64), cols.astype(np.int64), vals, (n, n))
+
+
+def _set_matrices(name: str) -> list:
+    """4o(a)'s matrices at set ``name``: (label, CSR, lane width, shared
+    table). tests/test_torch_params.py's (60 x 50, 30% dense, seed 7 +
+    len(name); f32 on one table, f64 on two) and the band, f32 and f64."""
+    out = []
+    for dtype, tag in ((np.float32, "f32"), (np.float64, "f64")):
+        rng = np.random.default_rng(7 + len(name))
+        d = rng.standard_normal((60, 50)).astype(dtype)
+        d[rng.random((60, 50)) >= 0.3] = 0
+        out.append((f"test-{tag}", CSR.from_dense(d), 16, tag == "f32"))
+    for dtype, tag in ((np.float32, "f32"), (np.float64, "f64")):
+        out.append((f"banded-{tag}", _banded_csr(
+            SET_BANDED_N, SET_BANDED_BW, dtype, SEED + 5), 128,
+            tag == "f32"))
+    return out
+
+
+def params_host() -> dict:
+    """4o's host work, from `SEED` alone: every set's encode of 4o(a)'s
+    matrices, and the phase-4 head (the same weights, pruned and quantized
+    as ``from_dense`` does) encoded at `HEAD_SET`. `main` runs it in a
+    process of its own from the start, beside phases 2-4b."""
+    t0 = time.perf_counter()
+    mats = {(name, label): (a, lw, encode_matrix(
+        a, params=p, lane_width=lw, shared_table=sh))
+        for name, p in PARAM_SETS.items()
+        for label, a, lw, sh in _set_matrices(name)}
+    sets_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
+    pruned = codebook_quantize(magnitude_prune(w.T, 0.8), bits=8)
+    head = encode_matrix(pruned, params=PARAM_SETS[HEAD_SET],
+                         lane_width=128, shared_table=True)
+    return {"mats": mats, "sets_encode_s": sets_s, "head": head,
+            "head_csr": pruned,
+            "head_encode_s": time.perf_counter() - t0}
+
+
+def _csr_product(a: CSR, X: np.ndarray) -> torch.Tensor:
+    """A X in float64 on the host (X (n,) or (n, B)), on the card."""
+    X2 = X.reshape(X.shape[0], -1).astype(np.float64)
+    prod = a.values.astype(np.float64)[:, None] * X2[a.indices]
+    out = np.zeros((a.shape[0], X2.shape[1]))
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    np.add.at(out, rows, prod)
+    return torch.as_tensor(out.reshape((a.shape[0],) + X.shape[1:]),
+                           device="cuda")
+
+
+def _drive_set(name: str, items: list, rng) -> dict:
+    """Set ``name``'s matrices through ``ops.spmv`` (B1), ``ops.spmm`` at
+    B = 4 and 64 (B2) and ``ops.decode`` (B3) on the card, each bitwise
+    its plain version and within `RTOL` of the float64 product; the
+    launch counters set to 0 before and read after."""
+    torch.cuda.synchronize()
+    K.reset_launches()
+    DD.reset_launches()
+    worst, outs = 0.0, []
+    for label, a, lw, mat in items:
+        pm = ops.get_packed(mat)
+        n = a.shape[1]
+        tdt = torch.float64 if a.values.dtype == np.float64 else \
+            torch.float32
+        xs = [rng.standard_normal(n)] + [rng.standard_normal((n, B))
+                                         for B in (4, 64)]
+        ys = [ops.spmv(mat, torch.as_tensor(xs[0], dtype=tdt,
+                                            device="cuda"))]
+        ys += [ops.spmm(mat, torch.as_tensor(x, dtype=tdt, device="cuda"))
+               for x in xs[1:]]
+        outs.append((label, a, pm, xs, ys, ops.decode(mat)))
+    torch.cuda.synchronize()
+    counts = {**K.launches, **DD.launches}
+    for label, a, pm, xs, ys, (cols, vals) in outs:
+        dm = to_device(pm, "cuda")
+        m = a.shape[0]
+        for x, y in zip(xs, ys):
+            xt = torch.as_tensor(x, dtype=dm.dtype, device="cuda")
+            plain = (K.dtans_spmv_plain(dm, xt) if x.ndim == 1 else
+                     K.dtans_spmm_plain(dm, xt)).reshape((-1,) + x.shape[1:])
+            plain = plain[:m]
+            assert torch.equal(_bits(y.contiguous()),
+                               _bits(plain.contiguous())), \
+                f"[sets] {name} {label} B={x.shape[1:]}: kernel != plain"
+            worst = max(worst, (y - plain).abs().max().item())
+            err, ok = _err(y.double(), _csr_product(a, x), dm.dtype)
+            assert ok, f"[sets] {name} {label}: |y - A x| = {err}"
+        want_c, want_v = DD.dtans_decode_plain(dm)
+        assert torch.equal(cols, want_c) and torch.equal(
+            _bits(vals), _bits(want_v)), f"[sets] {name} {label}: decode"
+    assert counts["dtans_spmv"] >= len(items) and counts["dtans_decode"] \
+        >= len(items) and counts["dtans_spmm"] >= 2 * len(items), counts
+    return {"launches": counts, "max_abs_err": worst}
+
+
+def phase_params(host: dict) -> None:
+    """4o(a): every set of `PARAM_SETS` through B1, B2 and B3 on the card
+    (`_drive_set`), the band's kernels timed beside their plain versions,
+    cuSPARSE CSR and the bound; `params_host` encoded them."""
+    rng = np.random.default_rng(SEED + 6)
+    rows = {}
+    for name, p in PARAM_SETS.items():
+        items = [(label, a, lw, mat) for (n_, label), (a, lw, mat)
+                 in host["mats"].items() if n_ == name]
+        run = _drive_set(name, items, rng)
+        label, a, lw, mat = next(i for i in items if i[0] == "banded-f32")
+        pm = ops.get_packed(mat)
+        dm = to_device(pm, "cuda")
+        n = a.shape[1]
+        _, lib = library_call(a)
+        x1 = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32,
+                             device="cuda")
+        X = torch.as_tensor(rng.standard_normal((n, 64)),
+                            dtype=torch.float32, device="cuda")
+        t1 = device_ms(lambda: K.dtans_spmv(dm, x1))
+        t3 = device_ms(lambda: DD.dtans_decode(dm))
+        timed = {
+            "dtans_spmv": (t1["ms"], time_ms(
+                lambda: K.dtans_spmv_plain(dm, x1), 2, 1), device_ms(
+                    lambda: lib(x1[:, None]), library=True)["ms"],
+                dtans_bound(mat, pm, n, a.shape[0], 1)),
+            "dtans_spmm": (time_ms(lambda: K.dtans_spmm(dm, X), 20), time_ms(
+                lambda: K.dtans_spmm_plain(dm, X), 2, 1),
+                time_ms(lambda: lib(X), 20),
+                dtans_bound(mat, pm, n, a.shape[0], 64)),
+            "dtans_decode": (t3["ms"], time_ms(
+                lambda: DD.dtans_decode_plain(dm), 2, 1), None,
+                set_decode_bound(mat, pm))}
+        rows[name] = {"params": dataclasses.asdict(p),
+                      "tables_in_smem": tiling.tables_in_smem(p),
+                      "slot_bytes": tiling.slot_bytes(p),
+                      "banded": {"nnz": int(a.nnz), "bytes": mat.nbytes,
+                                 "device_bytes": dm.nbytes,
+                                 "max_nseg": pm.max_nseg},
+                      "launches": run["launches"],
+                      "max_abs_err": run["max_abs_err"],
+                      "times": {k: {"ms": v[0], "plain_ms": v[1],
+                                    "library_ms": v[2], "bound_ms": v[3][0],
+                                    "bound_by": v[3][1], "bytes": v[3][2]}
+                                for k, v in timed.items()}}
+        tl = " | ".join(f"{k} {v[0]:.4f} ms (plain {v[1]:.1f}, library "
+                        f"{'-' if v[2] is None else f'{v[2]:.4f}'}, bound "
+                        f"{v[3][0]:.5f} {v[3][1]})" for k, v in timed.items())
+        log(f"[sets] {name} {tuple(dataclasses.astuple(p))}: tables "
+            f"{'shared' if tiling.tables_in_smem(p) else 'global'} memory, "
+            f"{tiling.slot_bytes(p)} B a slot; {len(items)} matrices "
+            f"bitwise plain and within rtol of A x; launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }; banded "
+            f"f32 ({a.nnz} nnz, {mat.nbytes} B): {tl} | {card()}")
+    RESULTS["param_sets"] = rows
+    log(f"[sets] host encodes {host['sets_encode_s']:.1f} s (beside phases "
+        f"2-4b)")
+
+
+def set_decode_bound(mat, pm) -> tuple[float, str, int, int]:
+    """`decode_bound` of any encoded matrix."""
+    _, _, read, _ = dtans_bound(mat, pm, 0, 0, 0)
+    written = pm.n_slices * pm.lane_width * pm.max_nseg * (pm.params.l // 2) \
+        * (4 + pm.dtype.itemsize)
+    return (*_roofline(read + written, 0, pm.dtype.itemsize),
+            read + written, 0)
+
+
+HEAD_SET_BATCHES = (1, 4, 64)
+
+
+def phase_params_head(sl: SparseLinear, csr: CSR, host: dict) -> None:
+    """4o(b): phase 4's head encoded at `HEAD_SET` (`params_host`), through
+    B1, B2 at B = 4 and 64 and B3 on the card, bitwise its plain versions
+    and within rtol of the float64 product; then each kernel timed beside
+    phase 4's PAPER head in turns (PAPER, K16, K16, PAPER), with its plain
+    version, cuSPARSE CSR and the bound."""
+    mat = host["head"]
+    assert mat.nnz == sl.mat.nnz and np.array_equal(
+        host["head_csr"].indices, csr.indices)
+    pm = ops.get_packed(mat)
+    dm = to_device(pm, "cuda")
+    dm0 = to_device(sl.packed, "cuda")
+    rng = np.random.default_rng(SEED + 7)
+    xs = {B: torch.as_tensor(rng.standard_normal((D_MODEL, B)),
+                             dtype=torch.float32, device="cuda")
+          for B in HEAD_SET_BATCHES}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    DD.reset_launches()
+    ys = {B: (ops.spmv(mat, x[:, 0].contiguous()) if B == 1 else
+              ops.spmm(mat, x)) for B, x in xs.items()}
+    cols, vals = ops.decode(mat)
+    torch.cuda.synchronize()
+    counts = {**K.launches, **DD.launches}
+    assert counts["dtans_spmv"] >= 1 and counts["dtans_spmm"] >= 2 and \
+        counts["dtans_decode"] >= 1, counts
+    worst = 0.0
+    for B, y in ys.items():
+        x = xs[B]
+        plain = (K.dtans_spmv_plain(dm, x[:, 0].contiguous()) if B == 1 else
+                 K.dtans_spmm_plain(dm, x)).reshape(-1, B)[:VOCAB]
+        y = y.reshape(VOCAB, B)
+        assert torch.equal(_bits(y.contiguous()), _bits(plain.contiguous())), \
+            f"[head-set] B={B}: kernel != plain"
+        worst = max(worst, (y - plain).abs().max().item())
+        err, ok = _err(y.double(), _csr_product(csr, x.cpu().numpy()),
+                       torch.float32)
+        assert ok, f"[head-set] B={B}: |y - A x| = {err}"
+    want_c, want_v = DD.dtans_decode_plain(dm)
+    assert torch.equal(cols, want_c) and torch.equal(_bits(vals),
+                                                     _bits(want_v))
+    _, lib = library_call(csr)
+    res = {"set": HEAD_SET, "params": dataclasses.asdict(pm.params),
+           "compressed_bytes": mat.nbytes,
+           "paper_compressed_bytes": sl.mat.nbytes,
+           "device_bytes": dm.nbytes, "paper_device_bytes": dm0.nbytes,
+           "table_bytes": int(dm.tables.nbytes),
+           "paper_table_bytes": int(dm0.tables.nbytes),
+           "max_nseg": pm.max_nseg, "paper_max_nseg": sl.packed.max_nseg,
+           "stream_words": int(mat.stream.size),
+           "escapes": int(mat.esc_count_by_domain.sum()),
+           "max_table_base": int(pm.tab_base.max()),
+           "encode_s": host["head_encode_s"], "launches": counts,
+           "max_abs_err": worst, "rows": []}
+    log(f"[head-set] the head at {HEAD_SET} {dataclasses.astuple(pm.params)}"
+        f": {mat.nbytes} B compressed (PAPER {sl.mat.nbytes} B, "
+        f"{mat.nbytes / sl.mat.nbytes:.3f}x), {dm.nbytes} B on the card "
+        f"(PAPER {dm0.nbytes}), tables {dm.tables.nbytes} B in global "
+        f"memory (PAPER {dm0.tables.nbytes} B staged), max_nseg "
+        f"{pm.max_nseg} (PAPER {sl.packed.max_nseg}); host encode "
+        f"{host['head_encode_s']:.1f} s beside phases 2-4b; bitwise plain, "
+        f"within rtol of A x; launches {counts}")
+    for kern, B in (("dtans_spmv", 1), ("dtans_spmm", 4),
+                    ("dtans_spmm", 64), ("dtans_decode", 0)):
+        x = xs.get(B)
+        x1 = None if x is None else x[:, 0].contiguous()
+
+        def run(d, kern=kern, x=x, x1=x1):
+            if kern == "dtans_spmv":
+                return lambda: K.dtans_spmv(d, x1)
+            if kern == "dtans_spmm":
+                return lambda: K.dtans_spmm(d, x)
+            return lambda: DD.dtans_decode(d)
+
+        def timed(d):
+            if kern == "dtans_spmm":
+                return time_ms(run(d), 20)
+            return device_ms(run(d))["ms"]
+        t0a, t1a, t1b, t0b = (timed(dm0), timed(dm), timed(dm), timed(dm0))
+        if kern == "dtans_spmv":
+            plain = time_ms(lambda: K.dtans_spmv_plain(dm, x1), 2, 1)
+            lib_ms = device_ms(lambda: lib(x[:, :1]), library=True)["ms"]
+            b = dtans_bound(mat, pm, D_MODEL, VOCAB, 1)
+        elif kern == "dtans_spmm":
+            plain = time_ms(lambda: K.dtans_spmm_plain(dm, x), 2, 1)
+            lib_ms = time_ms(lambda: lib(x), 20)
+            b = dtans_bound(mat, pm, D_MODEL, VOCAB, B)
+        else:
+            plain = time_ms(lambda: DD.dtans_decode_plain(dm), 2, 1)
+            lib_ms, b = None, set_decode_bound(mat, pm)
+        row = {"kernel": kern, "B": B, "ms": (t1a + t1b) / 2,
+               "runs": [t1a, t1b], "paper_ms": (t0a + t0b) / 2,
+               "paper_runs": [t0a, t0b], "plain_ms": plain,
+               "library_ms": lib_ms, "library": None if lib_ms is None
+               else "cuSPARSE CSR", "bound_ms": b[0], "bound_by": b[1],
+               "bytes": b[2], "flops": b[3]}
+        res["rows"].append(row)
+        log(f"[head-set] {kern:12s} B={B:2d}: {HEAD_SET} {row['ms']:.4f} ms "
+            f"({t1a:.4f}, {t1b:.4f}) | PAPER {row['paper_ms']:.4f} ms "
+            f"({t0a:.4f}, {t0b:.4f}) | plain {plain:.1f} ms | cuSPARSE CSR "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'} | bound "
+            f"{b[0]:.5f} ms ({b[1]}, {b[2]} B) | {card()}")
+    RESULTS["param_head"] = res
+
+
+# ---------------------------------------------------------------------------
 # 5. times
 # ---------------------------------------------------------------------------
 
@@ -3421,14 +3850,15 @@ def dtans_bound(mat, pm, n_in: int, n_out: int,
     """Least time for one dtANS pass of ``mat`` (packed as ``pm``) at
     batch B: the larger of the bytes the function must move (compressed
     stream and escape words actually present, one per-lane count array,
-    coding tables at 12 bytes a slot, x, y; each once) over the HBM rate,
+    coding tables at the set's bytes a slot (12 at PAPER), x, y; each
+    once) over the HBM rate,
     and its multiply-adds (2 nnz B) over the rate of its float type. The
     kernels also read ``ns``, but it is ``2 * nnz`` and not needed."""
     item = pm.dtype.itemsize
     nbytes = (int(mat.stream.size) * 4
               + sum(int(e.size) for e in mat.esc_streams) * 8
               + pm.nnz.nbytes
-              + pm.tab_symbol.size * 12
+              + pm.tab_symbol.size * tiling.slot_bytes(pm.params)
               + n_in * B * item + n_out * B * item)
     flops = 2 * mat.nnz * B
     return (*_roofline(nbytes, flops, item), nbytes, flops)
@@ -3456,12 +3886,7 @@ def decode_bound(sl: SparseLinear) -> tuple[float, str, int, int]:
     """Least time for one decode: the compressed bytes `bound` counts
     without x and y, plus the (S, L, max_nnz) columns and values written
     once; no arithmetic is counted."""
-    pm = sl.packed
-    _, _, read, _ = bound(sl, 0)
-    written = pm.n_slices * pm.lane_width * pm.max_nseg * (pm.params.l // 2) \
-        * (4 + pm.dtype.itemsize)
-    return (*_roofline(read + written, 0, pm.dtype.itemsize),
-            read + written, 0)
+    return set_decode_bound(sl.mat, sl.packed)
 
 
 def library_call(csr: CSR, block_shape=None):
@@ -3638,49 +4063,71 @@ def main() -> int:
         log(f"[time] phase {phase} done at {t:.1f} s")
 
     phase_device()          # raises without a card, before any process
-    # 4c's host encode and decode, from the seed alone, run beside phases
-    # 2-4b in a process of their own (stopped if a phase fails)
-    host = multiprocessing.get_context("spawn").Pool(1)
+    # 4c's host encode and decode, 4o's encodes, 4h's head, 4i's shards and
+    # 4l's system, from the seed alone, run beside phases 2-4c in three
+    # processes of their own, niced (stopped if a phase fails)
+    host = multiprocessing.get_context("spawn").Pool(
+        3, initializer=os.nice, initargs=(10,))   # the main phases first
+    set_build = None        # the other sets' libraries, built beside 3-4n
     try:
-        blocked = host.apply_async(blocked_host)
-        phase_build()
-        done("2")
-        phase_kernels()
-        done("3")
-        sl = phase_main_path()
-        done("4")
-        csr, packs = phase_comparators(sl)
-        done("4b")
-        blk = phase_blocked(blocked.get())
+        try:
+            blocked = host.apply_async(blocked_host)
+            sets_host = host.apply_async(params_host)
+            ssm_host = host.apply_async(ssm_head_host)
+            shards_host = host.apply_async(shard_host)
+            cg_sys = host.apply_async(cg_host)
+            set_build = phase_build()
+            done("2")
+            phase_kernels()
+            done("3")
+            sl = phase_main_path()
+            done("4")
+            csr, packs = phase_comparators(sl)
+            done("4b")
+            blk = phase_blocked(blocked.get())
+            sets_host = sets_host.get()
+            ssm_host = ssm_host.get()
+            shards_host = shards_host.get()
+            cg_sys = cg_sys.get()
+        finally:
+            host.terminate()
+            host.join()
+        done("4c")
+        phase_decode(sl, csr, blk)
+        done("4d")
+        phase_autotuned(sl)
+        done("4e")
+        phase_registry()
+        done("4f")
+        model, prompts, streams = phase_engine(sl)
+        done("4g")
+        phase_engine_ssm(ssm_host)
+        del ssm_host
+        done("4h")
+        phase_shard(sl, model, prompts, streams, shards_host)
+        del shards_host
+        done("4i")
+        del model
+        phase_train()
+        done("4j")
+        phase_dp()
+        done("4k")
+        phase_cg(cg_sys)
+        done("4l")
+        phase_quickstart()
+        done("4m")
+        phase_tp(streams)
+        done("4n")
+        phase_roofline()
+        done("roofline")
+        phase_set_build(set_build)
     finally:
-        host.terminate()
-        host.join()
-    done("4c")
-    phase_decode(sl, csr, blk)
-    done("4d")
-    phase_autotuned(sl)
-    done("4e")
-    phase_registry()
-    done("4f")
-    model, prompts, streams = phase_engine(sl)
-    done("4g")
-    phase_engine_ssm()
-    done("4h")
-    phase_shard(sl, model, prompts, streams)
-    done("4i")
-    del model
-    phase_train()
-    done("4j")
-    phase_dp()
-    done("4k")
-    phase_cg()
-    done("4l")
-    phase_quickstart()
-    done("4m")
-    phase_tp(streams)
-    done("4n")
-    phase_roofline()
-    done("roofline")
+        if set_build is not None:
+            set_build.kill()   # none left after a wait; else stops them
+    phase_params(sets_host)
+    done("4o(a)")
+    phase_params_head(sl, csr, sets_host)
+    done("4o(b)")
     times = phase_times(sl, csr, packs, blk)
     done("5")
     # rows of the kernels line: SpMV at B=1, SpMM at B=64; the comparators
@@ -3719,6 +4166,32 @@ def main() -> int:
             "launches_cg": RESULTS["launches_cg"][name],
             "launches_quickstart": RESULTS["launches_quickstart"][name],
             "launches_tp": RESULTS["launches_tp"][name]})
+    # each set's instantiation: the head at HEAD_SET (4o(b)); the others
+    # on 4o(a)'s band, f32
+    head = RESULTS["param_head"]
+    for name, row in RESULTS["param_sets"].items():
+        if name == "PAPER":
+            continue
+        for kern, (B, t) in {
+                "dtans_spmv": (1, row["times"]["dtans_spmv"]),
+                "dtans_spmm": (64, row["times"]["dtans_spmm"]),
+                "dtans_decode": (0, row["times"]["dtans_decode"])}.items():
+            launches, err, pack = row["launches"], row["max_abs_err"], \
+                f"banded {SET_BANDED_N} f32"
+            if name == HEAD_SET:
+                t = next(r for r in head["rows"] if r["kernel"] == kern
+                         and r["B"] == B)
+                launches, err, pack = head["launches"], head["max_abs_err"], \
+                    "dtans L=128 head"
+            kernels.append({
+                "name": f"{kern}[{name}]", "route": "cuda",
+                "source": SOURCE[kern], "replaces": REPLACES[kern],
+                "params": row["params"], "launches": launches[kern],
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"],
+                "library": None if t["library_ms"] is None
+                else "cuSPARSE CSR", "B": B, "pack": pack})
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.perf_counter() - t_start
     log(f"[done] all phases in {RESULTS['total_s']:.1f} s")

@@ -8,6 +8,12 @@ listed in ``.gitignore``. A missing ``nvcc`` or a failed build raises; the
 compiler's output (``-Xptxas -v``: registers, shared memory and spills per
 kernel) is kept in ``build/<stem>.log``.
 
+The dtANS sources (`PARAM_SOURCES`) are compiled once per parameter set
+(`DtansParams`): the set goes to ``nvcc`` as ``-D`` defines (`defines`),
+which the hash covers, so each set has its own library,
+``build/lib<stem>-<set>-<hash>.so`` (`lib_name`; `PAPER`'s keeps the bare
+stem as its name and log), built at first use.
+
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -20,14 +26,47 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from repro_torch.core.params import PAPER, DtansParams
+from repro_torch.kernels import tiling
+
 CSRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
 SOURCES = ("dtans_spmv", "dtans_decode", "sell_spmv", "rgcsr_spmv",
            "bcsr_spmv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: Sources compiled once per parameter set.
+PARAM_SOURCES = ("dtans_spmv", "dtans_decode")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def set_tag(params: DtansParams) -> str:
+    """A parameter set's short name: ``w32k12l8o3f2m8`` at `PAPER`."""
+    p = params
+    return f"w{p.w_bits}k{p.k_bits}l{p.l}o{p.o}f{p.f}m{p.m_bits}"
+
+
+def defines(params: DtansParams) -> tuple[str, ...]:
+    """The ``-D`` flags that compile ``csrc/dtans_decode.cuh`` for a set,
+    with its table placement (`tiling.tables_in_smem`)."""
+    p = params
+    return (f"-DDTANS_W_BITS={p.w_bits}", f"-DDTANS_K_BITS={p.k_bits}",
+            f"-DDTANS_L={p.l}", f"-DDTANS_O={p.o}", f"-DDTANS_F={p.f}",
+            f"-DDTANS_M_BITS={p.m_bits}",
+            f"-DDTANS_TABLES_SMEM={int(tiling.tables_in_smem(p))}")
+
+
+def _flags(stem: str, params: DtansParams) -> tuple[str, ...]:
+    return NVCC_FLAGS + (defines(params) if stem in PARAM_SOURCES else ())
+
+
+def lib_name(stem: str, params: DtansParams = PAPER) -> str:
+    """The name of a source's library for a set: the stem for `PAPER` and
+    for the sources that take no set, else ``<stem>-<set_tag>``."""
+    if stem not in PARAM_SOURCES or params == PAPER:
+        return stem
+    return f"{stem}-{set_tag(params)}"
 
 
 def nvcc() -> str:
@@ -43,52 +82,90 @@ def nvcc() -> str:
     return path
 
 
-def library_path(stem: str) -> Path:
+def library_path(stem: str, params: DtansParams = PAPER) -> Path:
     h = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(stem, params)).encode())
     key = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}-{key}.so"
+    return BUILD_DIR / f"lib{lib_name(stem, params)}-{key}.so"
 
 
-def log_path(stem: str) -> Path:
-    return BUILD_DIR / f"{stem}.log"
+def log_path(stem: str, params: DtansParams = PAPER) -> Path:
+    return BUILD_DIR / f"{lib_name(stem, params)}.log"
 
 
-def build_all(stems=SOURCES) -> dict[str, Path]:
-    """Compile every source whose library is missing, one ``nvcc`` per
-    source, all started together. Returns stem -> library path."""
+class Build:
+    """Libraries being compiled (`start_build`): ``wait`` for them, or
+    ``kill`` the compilers still running."""
+
+    def __init__(self, targets: dict, jobs: list):
+        self.targets, self.jobs = targets, jobs
+
+    def wait(self) -> dict[str, Path]:
+        """Waits for every compiler; raises with the logs of those that
+        failed. Returns `lib_name` -> library path."""
+        failed = []
+        for name, stem, params, proc, tmp, out in self.jobs:
+            if proc.wait() != 0:
+                failed.append(f"{name} (exit {proc.returncode}):\n"
+                              f"{log_path(stem, params).read_text()}")
+            else:
+                os.replace(tmp, out)   # atomic against a concurrent build
+        self.jobs = []
+        if failed:
+            raise RuntimeError("CUDA build failed: " + "\n".join(failed))
+        return {name: library_path(*target)
+                for name, target in self.targets.items()}
+
+    def kill(self) -> None:
+        for job in self.jobs:
+            proc = job[3]
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.jobs = []
+
+
+def start_build(stems=SOURCES, param_sets=(PAPER,), nice: int = 0) -> Build:
+    """Starts compiling every library whose file is missing: each source,
+    and each of `PARAM_SOURCES` once for every set in ``param_sets``; one
+    ``nvcc`` a library, all at once, at niceness ``nice`` (a build that
+    runs beside other work yields the cores to it). Returns without
+    waiting."""
     BUILD_DIR.mkdir(exist_ok=True)
-    jobs = []
+    targets = {}
     for stem in stems:
-        out = library_path(stem)
+        for params in (param_sets if stem in PARAM_SOURCES else (PAPER,)):
+            targets[lib_name(stem, params)] = (stem, params)
+    jobs = []
+    for name, (stem, params) in targets.items():
+        out = library_path(stem, params)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        with open(log_path(stem), "w") as log:
+        with open(log_path(stem, params), "w") as log:
             proc = subprocess.Popen(
-                [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                [nvcc(), *_flags(stem, params), "-o", str(tmp),
                  str(CSRC_DIR / f"{stem}.cu")],
-                stdout=log, stderr=subprocess.STDOUT)
-        jobs.append((stem, proc, tmp, out))
-    failed = []
-    for stem, proc, tmp, out in jobs:
-        if proc.wait() != 0:
-            failed.append(f"{stem} (exit {proc.returncode}):\n"
-                          f"{log_path(stem).read_text()}")
-        else:
-            os.replace(tmp, out)   # atomic against a concurrent build
-    if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
-    return {stem: library_path(stem) for stem in stems}
+                stdout=log, stderr=subprocess.STDOUT,
+                preexec_fn=(lambda: os.nice(nice)) if nice else None)
+        jobs.append((name, stem, params, proc, tmp, out))
+    return Build(targets, jobs)
 
 
-def load(stem: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<stem>.cu``, building it first if
-    needed; loaded once per process."""
-    lib = _loaded.get(stem)
+def build_all(stems=SOURCES, param_sets=(PAPER,)) -> dict[str, Path]:
+    """`start_build`, then waits: returns `lib_name` -> library path;
+    raises if a compile fails."""
+    return start_build(stems, param_sets).wait()
+
+
+def load(stem: str, params: DtansParams = PAPER) -> ctypes.CDLL:
+    """The built library of ``csrc/<stem>.cu`` for a parameter set,
+    building it first if needed; loaded once per process."""
+    name = lib_name(stem, params)
+    lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all((stem,))[stem]))
-        _loaded[stem] = lib
+        lib = ctypes.CDLL(str(build_all((stem,), (params,))[name]))
+        _loaded[name] = lib
     return lib

@@ -44,6 +44,15 @@
 // tiles of 4 and 8 segments, plain stores) are timed by
 // experiments/decode_geometry/ (PERF.md).
 //
+// That is PAPER's layout, four entries (16 bytes of columns) a segment. A
+// parameter set whose segments hold H != 4 entries stages entries, not
+// segments: the same tile of TILE_ENTRIES = 8 entries a row (32 bytes of
+// columns), each segment's entries appended as they come and the tile
+// written out whenever it fills and at the unit's last segment, lanes
+// taking consecutive entries of consecutive rows (scalar streaming
+// stores: a row's run of entries need not start on 16 bytes). Its rows
+// are swizzled by entry, as PAPER's are by piece.
+//
 // Plain C interface (loaded with ctypes): the entry returns
 // cudaGetLastError() after its launch.
 
@@ -53,13 +62,14 @@ namespace {
 
 // Segments a warp stages before it writes them out: the least that
 // writes whole sectors of a row's columns (kernels/tiling.py::
-// DECODE_STAGE).
+// DECODE_STAGE). Other sets stage TILE_ENTRIES entries a row.
 constexpr int STAGE = 2;
+constexpr int TILE_ENTRIES = STAGE * 4;
 
-// A warp's staging tile: 32 rows x STAGE segments of columns (16 bytes a
-// segment) and of values (16 or 32 bytes a segment).
+// A warp's staging tile: 32 rows x TILE_ENTRIES entries of columns (16
+// bytes a PAPER segment) and of values (16 or 32 bytes a PAPER segment).
 __host__ __device__ inline long long stage_bytes(int itemsize) {
-  return 32ll * STAGE * H * (4 + itemsize);
+  return 32ll * TILE_ENTRIES * (4 + itemsize);
 }
 
 __host__ __device__ inline long long decode_smem_need(int T, int uw, int upb,
@@ -107,10 +117,99 @@ __device__ __forceinline__ void fill(int4* out, long long pitch,
   }
 }
 
+// The slot of entry e of row r in an entry tile (sets with H != 4): row
+// r's entries XOR (r / 4) % 8, so that a warp writing one entry of each of
+// its 32 rows hits 32 banks (4-byte entries).
+__device__ __forceinline__ int eslot(int r, int e) {
+  return r * TILE_ENTRIES + (e ^ ((r >> 2) & (TILE_ENTRIES - 1)));
+}
+
+// Writes entries [0, kc) of the entry tile's 32 rows to `out`, rows `pitch`
+// entries apart from entry `first` on (as `flush`).
+template <typename B>
+__device__ __forceinline__ void flush_entries(const B* tile, B* out,
+                                              long long pitch,
+                                              long long first, int kc,
+                                              int row) {
+  const int wl = threadIdx.x & 31;
+  for (int c = wl; c < 32 * kc; c += 32) {
+    const int r = c / kc;
+    const int e = c - r * kc;
+    const int g = __shfl_sync(FULL, row, r);
+    if (g >= 0) __stcs(out + g * pitch + first + e, tile[eslot(r, e)]);
+  }
+}
+
+// Writes `v` to entries [first, first + kc) of every row (as `fill`).
+template <typename B>
+__device__ __forceinline__ void fill_entries(B* out, long long pitch,
+                                             long long first, int kc,
+                                             int row, B v) {
+  const int wl = threadIdx.x & 31;
+  for (int c = wl; c < 32 * kc; c += 32) {
+    const int r = c / kc;
+    const int g = __shfl_sync(FULL, row, r);
+    if (g >= 0) __stcs(out + g * pitch + first + (c - r * kc), v);
+  }
+}
+
 // The output row of the thread's lane in unit u (the row index into
 // (S * L, max_nseg * H)), -1 past L or S.
 __device__ __forceinline__ int out_row(const Args& a, const Group& g) {
   return g.in ? (int)(g.s * a.L + g.lane) : -1;
+}
+
+// The decode of a set whose segments hold H != 4 entries, through the
+// entry tile (`tile` at the warp's staging tile).
+template <typename V>
+__device__ __forceinline__ void decode_entries(const Args& a, const Geom& gm,
+                                               const Tables& tb,
+                                               const UnitSmem& us, long long u,
+                                               int wi, int bar,
+                                               unsigned char* tile,
+                                               int* cols_out, void* vals_out) {
+  using B = typename std::conditional<sizeof(V) == 4, unsigned,
+                                      unsigned long long>::type;
+  const int wl = threadIdx.x & 31;
+  int* tcol = reinterpret_cast<int*>(tile);
+  B* tval = reinterpret_cast<B*>(tcol + 32 * TILE_ENTRIES);
+  B* vout = static_cast<B*>(vals_out);
+  const long long pitch = (long long)a.max_nseg * H;  // entries a row
+  Group g = make_group(a, gm, us, u, wi, bar);
+  Lane st;
+  const int nseg = init_lane(a, g, st);
+  const int row = out_row(a, g);
+  int fill = 0;          // entries in the tile (unit-uniform)
+  long long first = 0;   // the tile's first entry in a row
+  for (int j = 0; j < nseg; ++j) {
+    Seg sg;
+    decode_segment(a, tb, g, st, j, sg);
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const bool ok = (sg.valid >> i) & 1u;
+      tcol[eslot(wl, fill)] = ok ? sg.col[i] : -1;
+      tval[eslot(wl, fill)] = ok ? (B)sg.vb[i] : (B)0;
+      if (++fill == TILE_ENTRIES) {
+        __syncwarp(FULL);
+        flush_entries(tcol, cols_out, pitch, first, fill, row);
+        flush_entries(tval, vout, pitch, first, fill, row);
+        __syncwarp(FULL);
+        first += fill;
+        fill = 0;
+      }
+    }
+  }
+  if (fill > 0) {
+    __syncwarp(FULL);
+    flush_entries(tcol, cols_out, pitch, first, fill, row);
+    flush_entries(tval, vout, pitch, first, fill, row);
+    __syncwarp(FULL);
+  }
+  if (nseg < a.max_nseg) {
+    const long long e0 = (long long)nseg * H;
+    fill_entries(cols_out, pitch, e0, (int)(pitch - e0), row, -1);
+    fill_entries(vout, pitch, e0, (int)(pitch - e0), row, (B)0);
+  }
 }
 
 template <typename V, int MAXT>
@@ -133,50 +232,56 @@ dtans_decode_kernel(Args a, Geom gm, int4* __restrict__ cols_out,
   const long long vpitch = (long long)a.max_nseg * NV;
   for (long long u = (long long)blockIdx.x * gm.upb + gi; u < gm.units;
        u += (long long)gridDim.x * gm.upb) {
-    Group g = make_group(a, gm, us, u, warp - gi * gm.uw, 1 + gi);
-    Lane st;
-    const int nseg = init_lane(a, g, st);
-    const int row = out_row(a, g);
-    for (int j = 0; j < nseg; ++j) {
-      Seg sg;
-      decode_segment(a, tb, g, st, j, sg);
-      const int p = j & (STAGE - 1);
-      int4 c;
-      c.x = (sg.valid & 1u) ? sg.col[0] : -1;
-      c.y = (sg.valid & 2u) ? sg.col[1] : -1;
-      c.z = (sg.valid & 4u) ? sg.col[2] : -1;
-      c.w = (sg.valid & 8u) ? sg.col[3] : -1;
-      tcol[slot<STAGE>(wl, p)] = c;
-      unsigned long long vb[H];  // value bits, 0 (+0) where invalid
+    if constexpr (H != 4) {
+      decode_entries<V>(a, gm, tb, us, u, warp - gi * gm.uw, 1 + gi,
+                        reinterpret_cast<unsigned char*>(tcol),
+                        reinterpret_cast<int*>(cols_out), vals_out);
+    } else {
+      Group g = make_group(a, gm, us, u, warp - gi * gm.uw, 1 + gi);
+      Lane st;
+      const int nseg = init_lane(a, g, st);
+      const int row = out_row(a, g);
+      for (int j = 0; j < nseg; ++j) {
+        Seg sg;
+        decode_segment(a, tb, g, st, j, sg);
+        const int p = j & (STAGE - 1);
+        int4 c;
+        c.x = (sg.valid & 1u) ? sg.col[0] : -1;
+        c.y = (sg.valid & 2u) ? sg.col[1] : -1;
+        c.z = (sg.valid & 4u) ? sg.col[2] : -1;
+        c.w = (sg.valid & 8u) ? sg.col[3] : -1;
+        tcol[slot<STAGE>(wl, p)] = c;
+        unsigned long long vb[H];  // value bits, 0 (+0) where invalid
 #pragma unroll
-      for (int i = 0; i < H; ++i)
-        vb[i] = ((sg.valid >> i) & 1u) ? sg.vb[i] : 0ull;
-      if constexpr (NV == 1) {
-        tval[slot<STAGE>(wl, p)] =
-            make_int4((int)(unsigned)vb[0], (int)(unsigned)vb[1],
-                      (int)(unsigned)vb[2], (int)(unsigned)vb[3]);
-      } else {
+        for (int i = 0; i < H; ++i)
+          vb[i] = ((sg.valid >> i) & 1u) ? sg.vb[i] : 0ull;
+        if constexpr (NV == 1) {
+          tval[slot<STAGE>(wl, p)] =
+              make_int4((int)(unsigned)vb[0], (int)(unsigned)vb[1],
+                        (int)(unsigned)vb[2], (int)(unsigned)vb[3]);
+        } else {
 #pragma unroll
-        for (int h = 0; h < NV; ++h)
-          tval[slot<STAGE * NV>(wl, p * NV + h)] = make_int4(
-              (int)(unsigned)vb[2 * h], (int)(unsigned)(vb[2 * h] >> 32),
-              (int)(unsigned)vb[2 * h + 1],
-              (int)(unsigned)(vb[2 * h + 1] >> 32));
+          for (int h = 0; h < NV; ++h)
+            tval[slot<STAGE * NV>(wl, p * NV + h)] = make_int4(
+                (int)(unsigned)vb[2 * h], (int)(unsigned)(vb[2 * h] >> 32),
+                (int)(unsigned)vb[2 * h + 1],
+                (int)(unsigned)(vb[2 * h + 1] >> 32));
+        }
+        if (p == STAGE - 1 || j == nseg - 1) {
+          __syncwarp(FULL);
+          const int j0 = j - p;
+          flush<STAGE>(tcol, cols_out, cpitch, j0, p + 1, row);
+          flush<STAGE * NV>(tval, vals_out, vpitch, (long long)j0 * NV,
+                            (p + 1) * NV, row);
+          __syncwarp(FULL);
+        }
       }
-      if (p == STAGE - 1 || j == nseg - 1) {
-        __syncwarp(FULL);
-        const int j0 = j - p;
-        flush<STAGE>(tcol, cols_out, cpitch, j0, p + 1, row);
-        flush<STAGE * NV>(tval, vals_out, vpitch, (long long)j0 * NV,
-                       (p + 1) * NV, row);
-        __syncwarp(FULL);
+      if (nseg < a.max_nseg) {
+        fill(cols_out, cpitch, nseg, a.max_nseg - nseg, row,
+             make_int4(-1, -1, -1, -1));
+        fill(vals_out, vpitch, (long long)nseg * NV,
+             (a.max_nseg - nseg) * NV, row, make_int4(0, 0, 0, 0));
       }
-    }
-    if (nseg < a.max_nseg) {
-      fill(cols_out, cpitch, nseg, a.max_nseg - nseg, row,
-           make_int4(-1, -1, -1, -1));
-      fill(vals_out, vpitch, (long long)nseg * NV, (a.max_nseg - nseg) * NV,
-           row, make_int4(0, 0, 0, 0));
     }
   }
 }
@@ -220,7 +325,7 @@ long long dtans_decode_smem_need(int T, int uw, int upb, int itemsize) {
 int dtans_decode_launch(int f64, const void* stream, long long wmax,
                         const void* esc, long long emax, const void* ns,
                         const void* nnz, const void* tables, int T,
-                        int pattern_bits, int S, int L, int max_nseg,
+                        long long pattern_bits, int S, int L, int max_nseg,
                         int group, int uw, int spu, long long units, int upb,
                         int cw, int blocks, int threads, long long smem,
                         void* cols, void* vals, void* cuda_stream) {

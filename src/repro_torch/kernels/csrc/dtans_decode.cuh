@@ -19,11 +19,21 @@
 // The geometry (group size, warps per unit, units per block) is computed
 // in Python (kernels/tiling.py::geometry) and passed in.
 //
+// The parameter set (core/params.py::DtansParams) is compiled in: the
+// build (kernels/_build.py) passes it as -D defines, one library a set,
+// and without them the header is PAPER's. Every size is a constant of the
+// set, so each set's code is compiled for it alone (PAPER's registers and
+// spills are those of a header that knew no other set).
+//
 // Per segment:
-//   * the 8 table lookups are issued before any of them is used; the
-//     coding tables are staged once per block in shared memory, 12 bytes a
-//     slot: the u64 symbol, then one u32 of digit | base << 8 |
-//     is_esc << 17 (kernels/pack.py::pack_tables);
+//   * the LS table lookups are issued before any of them is used; a slot is
+//     the u64 symbol, then the meta word of digit | base << MB |
+//     is_esc << (2 MB + 1): one u32 where those 2 MB + 2 bits fit (12
+//     bytes a slot; PAPER), one u64 where not (16 bytes; MB = 16)
+//     (kernels/pack.py::pack_tables). The tables are staged once per
+//     block in shared memory where the set's plan puts them there
+//     (TABLES_SMEM, kernels/tiling.py::tables_in_smem), else every lookup
+//     reads them from global memory through the read-only path;
 //   * escapes are ranked only when some lane of the unit escapes (one
 //     __any_sync, or the exchanged total): the rank of position k, lane l
 //     in table t's stream is esc_cur[t] + the group's escapes at positions
@@ -31,13 +41,17 @@
 //     order of the reference's per-position scan;
 //   * the refill's stream words are prefetched: a segment's only claims
 //     are its refill at the end, so when segment j starts the refill's
-//     cursor is known, and the window [cursor, cursor + 3 G) of the
+//     cursor is known, and the window [cursor, cursor + O G) of the
 //     slice's stream row goes to shared memory with cp.async; the refill
 //     then reads the window, not a dependent global load;
-//   * the state is three 32-bit limbs (d, r) multiplied with __umulhi. A
-//     digit group's radix racc can be exactly 2^32 (a table base of 256,
-//     4 digits a group): that multiply is a shift by one limb. With a
-//     32-bit word, limb_ge_w and limb_shr are limb moves.
+//   * the state is three 32-bit limbs (d, r) multiplied with __umulhi.
+//     Digits fold in groups of DG = max(1, 32 / MB) (the last group
+//     shorter where DG does not divide LS), so a group's radix racc is at
+//     most 2^32; it can be exactly 2^32 (PAPER: a table base of 256, 4
+//     digits a group): that multiply is a shift by one limb. With a 32-bit
+//     word, limb_ge_w and limb_shr are limb moves; with a narrower one
+//     they shift across the limbs, as the reference's _limb_ge_w and
+//     _limb_shr do. A stream word holds WB bits in a uint32.
 // Every thread of a unit must call init_lane and decode_segment the same
 // number of times: they hold warp votes (and, wide, the group's barrier).
 // Threads past L, or in a group past the last slice, take part with
@@ -48,22 +62,64 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-// The paper's production parameters (core/params.py::PAPER); the Python
-// wrapper refuses any other set.
-constexpr int WB = 32;   // log2(W): stream word bits
-constexpr int KB = 12;   // log2(K): table slot bits
-constexpr int LS = 8;    // symbols per segment
-constexpr int O = 3;     // words per segment
-constexpr int F = 2;     // conditional loads per segment
-constexpr int MB = 8;    // log2(M): multiplicity cap bits
+// The parameter set, PAPER's (core/params.py::PAPER) unless the build
+// defines another; DTANS_TABLES_SMEM is kernels/tiling.py::tables_in_smem.
+#ifndef DTANS_W_BITS
+#define DTANS_W_BITS 32
+#define DTANS_K_BITS 12
+#define DTANS_L 8
+#define DTANS_O 3
+#define DTANS_F 2
+#define DTANS_M_BITS 8
+#define DTANS_TABLES_SMEM 1
+#endif
+constexpr int WB = DTANS_W_BITS;  // log2(W): stream word bits
+constexpr int KB = DTANS_K_BITS;  // log2(K): table slot bits
+constexpr int LS = DTANS_L;       // symbols per segment
+constexpr int O = DTANS_O;        // words per segment
+constexpr int F = DTANS_F;        // conditional loads per segment
+constexpr int MB = DTANS_M_BITS;  // log2(M): multiplicity cap bits
+constexpr bool TABLES_SMEM = DTANS_TABLES_SMEM != 0;
 constexpr int H = LS / 2;                       // nonzeros per segment
 constexpr int DG = (32 / MB) > 0 ? (32 / MB) : 1;  // digits per fold group
 constexpr int KSLOTS = 1 << KB;
-constexpr uint32_t KM1 = (1u << KB) - 1u;
+constexpr uint32_t KM1 = (uint32_t)((1ull << KB) - 1ull);
+constexpr uint32_t WM1 = (uint32_t)((1ull << WB) - 1ull);
 constexpr unsigned FULL = 0xFFFFFFFFu;
-static_assert(WB == 32, "limb moves below assume 32-bit stream words");
+// A slot: the u64 symbol and MW 32-bit words of digit | base << MB |
+// is_esc << ESC_SHIFT (kernels/pack.py::pack_tables).
+constexpr int MW = (2 * MB + 2 <= 32) ? 1 : 2;
+constexpr int SLOT_BYTES = 8 + 4 * MW;
+constexpr int ESC_SHIFT = 2 * MB + 1;
+// A wide group's exchange: 16-bit fields in u64 words, the O claims and
+// the escape count (CW words) or the LS positions' escape counts (EW).
+constexpr int CW = (O + 1 + 3) / 4;
+constexpr int EW = (LS + 3) / 4;
+constexpr int XW = CW > EW ? CW : EW;
+static_assert(WB >= 1 && WB <= 32, "stream words hold at most 32 bits");
+static_assert(KB >= 1 && KB <= 24 && MB >= 1 && MB <= KB,
+              "tables of at most 2^24 slots; digits and bases fit a u32");
+static_assert(LS % 2 == 0 && H <= 32, "segments of (delta, value) pairs");
+static_assert(F >= 1 && F <= O, "0 < f <= o");
+
+using Meta = typename std::conditional<MW == 1, uint32_t,
+                                      unsigned long long>::type;
+using EscMask = typename std::conditional<(LS > 32), unsigned long long,
+                                         unsigned>::type;
+// Bit k: the table of segment position k (an int up to 32 positions).
+using Pattern = typename std::conditional<(LS > 32), unsigned long long,
+                                         int>::type;
+__device__ __forceinline__ int popc_mask(EscMask m) {
+  if constexpr (LS > 32) {
+    return __popcll(m);
+  } else {
+    return __popc(m);
+  }
+}
 
 struct Args {
   const uint32_t* stream;            // (S, wmax)
@@ -72,9 +128,9 @@ struct Args {
   long long emax;
   const int* ns;                     // (S, L)
   const int* nnz;                    // (S, L)
-  const int* tables;                 // (T, 3 K): K u64 symbols, K u32 meta
+  const int* tables;                 // (T, (2 + MW) K): K u64 symbols, K metas
   int T;
-  int pattern_bits;                  // bit k = table of segment position k
+  Pattern pattern_bits;              // bit k = table of segment position k
   int S;
   int L;
   int max_nseg;
@@ -96,14 +152,15 @@ struct Geom {
 __host__ __device__ inline long long align16(long long v) {
   return (v + 15) & ~15ll;
 }
+// Shared memory of the tables: none where they stay in global memory.
 __host__ __device__ inline long long tables_bytes(int T) {
-  return align16((long long)T * KSLOTS * 12);
+  return TABLES_SMEM ? align16((long long)T * KSLOTS * SLOT_BYTES) : 0ll;
 }
 __host__ __device__ inline long long window_bytes(int uw) {
   return align16(2ll * O * uw * 32 * 4);
 }
 __host__ __device__ inline long long exchange_bytes(int uw) {
-  return align16(2ll * uw * 2 * 8) + align16(2ll * uw * 4);
+  return align16(2ll * uw * XW * 8) + align16(2ll * uw * 4);
 }
 __host__ __device__ inline long long unit_bytes(int uw) {
   return window_bytes(uw) + exchange_bytes(uw);
@@ -111,7 +168,7 @@ __host__ __device__ inline long long unit_bytes(int uw) {
 
 struct UnitSmem {
   uint32_t* win;              // [2][O * uw * 32]
-  unsigned long long* xa;     // [2][uw][2]
+  unsigned long long* xa;     // [2][uw][XW]
   int* xm;                    // [2][uw]
 };
 
@@ -120,28 +177,66 @@ __device__ __forceinline__ UnitSmem unit_smem(unsigned char* base, int uw) {
   u.win = reinterpret_cast<uint32_t*>(base);
   u.xa = reinterpret_cast<unsigned long long*>(base + window_bytes(uw));
   u.xm = reinterpret_cast<int*>(base + window_bytes(uw) +
-                                align16(2ll * uw * 2 * 8));
+                                align16(2ll * uw * XW * 8));
   return u;
 }
 
+// A table is KSLOTS u64 symbols, then KSLOTS metas: TSYM u64s or TMETA
+// metas from one table's start to the next's.
+constexpr int TSYM = KSLOTS * SLOT_BYTES / 8;
+constexpr int TMETA = KSLOTS * SLOT_BYTES / (int)sizeof(Meta);
+
 struct Tables {
-  const unsigned long long* sym;  // table t at sym + t * 3K / 2 (u64s)
-  const uint32_t* meta;           // table t at meta + t * 3K (u32s)
+  const unsigned long long* sym;  // table t at sym + t * TSYM
+  const Meta* meta;               // table t at meta + t * TMETA
 };
 
-// Copies the packed tables verbatim into the front of shared memory, then
-// syncs the block. Every thread of the block must call it.
+// Where the set's plan stages them (TABLES_SMEM), copies the packed tables
+// verbatim into the front of shared memory, then syncs the block; else
+// points at them in global memory. Every thread of the block must call it.
 __device__ __forceinline__ Tables stage_tables(const Args& a,
                                                unsigned char* smem) {
-  const int4* src = reinterpret_cast<const int4*>(a.tables);
-  int4* dst = reinterpret_cast<int4*>(smem);
-  const int n16 = a.T * KSLOTS * 12 / 16;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) dst[i] = __ldg(src + i);
-  __syncthreads();
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(a.tables);
+  if constexpr (TABLES_SMEM) {
+    if constexpr (KSLOTS * SLOT_BYTES % 16 == 0) {
+      const int4* src = reinterpret_cast<const int4*>(a.tables);
+      int4* dst = reinterpret_cast<int4*>(smem);
+      const int n16 = a.T * KSLOTS * SLOT_BYTES / 16;
+      for (int i = threadIdx.x; i < n16; i += blockDim.x)
+        dst[i] = __ldg(src + i);
+    } else {
+      int* dst = reinterpret_cast<int*>(smem);
+      const int n4 = a.T * KSLOTS * SLOT_BYTES / 4;
+      for (int i = threadIdx.x; i < n4; i += blockDim.x)
+        dst[i] = __ldg(a.tables + i);
+    }
+    __syncthreads();
+    base = smem;
+  }
   Tables tb;
-  tb.sym = reinterpret_cast<const unsigned long long*>(smem);
-  tb.meta = reinterpret_cast<const uint32_t*>(smem) + 2 * KSLOTS;
+  tb.sym = reinterpret_cast<const unsigned long long*>(base);
+  tb.meta = reinterpret_cast<const Meta*>(base + KSLOTS * 8);
   return tb;
+}
+
+// Slot `slot` of table t: from shared memory, or from global memory
+// through the read-only path.
+__device__ __forceinline__ unsigned long long table_sym(const Tables& tb,
+                                                        int t,
+                                                        uint32_t slot) {
+  if constexpr (TABLES_SMEM) {
+    return tb.sym[t * TSYM + slot];
+  } else {
+    return __ldg(tb.sym + t * TSYM + slot);
+  }
+}
+__device__ __forceinline__ Meta table_meta(const Tables& tb, int t,
+                                           uint32_t slot) {
+  if constexpr (TABLES_SMEM) {
+    return tb.meta[t * TMETA + slot];
+  } else {
+    return __ldg(tb.meta + t * TMETA + slot);
+  }
 }
 
 // ---- barriers and async copies -------------------------------------------
@@ -229,12 +324,12 @@ __device__ __forceinline__ void exchange(Group& g,
                                          unsigned long long* pre,
                                          unsigned long long* tot,
                                          int mine_max, int* mx) {
-  unsigned long long* slot = g.xa + (g.xc & 1) * g.uw * 2;
+  unsigned long long* slot = g.xa + (g.xc & 1) * g.uw * XW;
   int* mslot = g.xm + (g.xc & 1) * g.uw;
   ++g.xc;
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-    for (int w = 0; w < NW; ++w) slot[g.wi * 2 + w] = mine[w];
+    for (int w = 0; w < NW; ++w) slot[g.wi * XW + w] = mine[w];
     mslot[g.wi] = mine_max;
   }
   bar_sync(g.bar, g.uw * 32);
@@ -244,7 +339,7 @@ __device__ __forceinline__ void exchange(Group& g,
   for (int k = 0; k < g.uw; ++k) {
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
-      const unsigned long long v = slot[k * 2 + w];
+      const unsigned long long v = slot[k * XW + w];
       tot[w] += v;
       if (k < g.wi) pre[w] += v;
     }
@@ -255,6 +350,10 @@ __device__ __forceinline__ void exchange(Group& g,
 
 __device__ __forceinline__ int field(unsigned long long v, int k) {
   return (int)((v >> (16 * k)) & 0xFFFFull);
+}
+// Field k of a run of words (4 fields a word).
+__device__ __forceinline__ int fields(const unsigned long long* v, int k) {
+  return field(v[k >> 2], k & 3);
 }
 
 struct Claims {
@@ -287,23 +386,27 @@ __device__ __forceinline__ Claims claim(Group& g, const bool take[O],
     *nseg_max = __reduce_max_sync(FULL, (unsigned)nsegs);
     return c;
   }
-  unsigned long long mine = 0ull;
+  // fields 0 .. O - 1: the claims; field O: the escape count
+  unsigned long long mine[CW];
+#pragma unroll
+  for (int w = 0; w < CW; ++w) mine[w] = 0ull;
 #pragma unroll
   for (int k = 0; k < O; ++k)
-    mine |= (unsigned long long)__popc(b[k]) << (16 * k);
-  mine |= (unsigned long long)__reduce_add_sync(FULL, (unsigned)esc_count)
-          << 48;
-  unsigned long long pre, tot;
-  exchange<1>(g, &mine, &pre, &tot,
-           (int)__reduce_max_sync(FULL, (unsigned)nsegs), nseg_max);
+    mine[k >> 2] |= (unsigned long long)__popc(b[k]) << (16 * (k & 3));
+  mine[O >> 2] |=
+      (unsigned long long)__reduce_add_sync(FULL, (unsigned)esc_count)
+      << (16 * (O & 3));
+  unsigned long long pre[CW], tot[CW];
+  exchange<CW>(g, mine, pre, tot,
+               (int)__reduce_max_sync(FULL, (unsigned)nsegs), nseg_max);
   int acc = 0;
 #pragma unroll
   for (int k = 0; k < O; ++k) {
-    c.off[k] = acc + field(pre, k) + __popc(b[k] & lt);
-    acc += field(tot, k);
+    c.off[k] = acc + fields(pre, k) + __popc(b[k] & lt);
+    acc += fields(tot, k);
   }
   c.total = acc;
-  *esc_any = field(tot, 3) > 0;
+  *esc_any = fields(tot, O) > 0;
   return c;
 }
 
@@ -332,14 +435,28 @@ __device__ __forceinline__ void limb_mul_add(uint32_t d[3],
   d[0] = lo0;
 }
 
+// r >= W (kernels/common.py::_limb_ge_w).
 __device__ __forceinline__ bool limb_ge_w(const uint32_t r[3]) {
-  return (r[1] | r[2]) != 0u;
+  if constexpr (WB == 32) {
+    return (r[1] | r[2]) != 0u;
+  } else {
+    return (r[1] | r[2] | (r[0] >> (WB % 32))) != 0u;
+  }
 }
 
+// d >>= WB (kernels/common.py::_limb_shr).
 __device__ __forceinline__ void limb_shr(uint32_t d[3]) {
-  d[0] = d[1];
-  d[1] = d[2];
-  d[2] = 0u;
+  if constexpr (WB == 32) {
+    d[0] = d[1];
+    d[1] = d[2];
+    d[2] = 0u;
+  } else {
+    // (WB % 32: this branch has WB < 32; the other keeps the shift legal)
+    constexpr int SH = WB % 32, UP = (32 - WB) % 32;
+    d[0] = (d[0] >> SH) | (d[1] << UP);
+    d[1] = (d[1] >> SH) | (d[2] << UP);
+    d[2] = d[2] >> SH;
+  }
 }
 
 __device__ __forceinline__ int clampi(int v, int hi) {
@@ -372,7 +489,9 @@ __device__ __forceinline__ int init_lane(const Args& a, Group& g, Lane& st) {
   st.nnz = g.in ? a.nnz[at] : 0;
   st.nsegs = (ns + LS - 1) / LS;
   const bool live = ns > 0;
-  const bool take[O] = {live, live, live};
+  bool take[O];
+#pragma unroll
+  for (int k = 0; k < O; ++k) take[k] = live;
   bool esc_any;
   int nseg;
   const Claims c = claim(g, take, 0, st.nsegs, &esc_any, &nseg);
@@ -405,9 +524,9 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     }
   }
 
-  // ---- unpack + all 8 table lookups ------------------------------------
+  // ---- unpack + all LS table lookups -----------------------------------
   unsigned long long syms[LS];
-  uint32_t meta[LS];
+  Meta meta[LS];
 #pragma unroll
   for (int k = 0; k < LS; ++k) {
     const int lo = k * KB;
@@ -416,31 +535,31 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     unsigned long long pair = st.w[O - 1 - wi];
     if (wi + 1 < O) pair |= (unsigned long long)st.w[O - 2 - wi] << WB;
     const uint32_t slot = (uint32_t)(pair >> sh) & KM1;
-    const int t = (a.pattern_bits >> k) & 1;
-    syms[k] = tb.sym[t * (3 * KSLOTS / 2) + slot];
-    meta[k] = tb.meta[t * 3 * KSLOTS + slot];
+    const int t = (int)((a.pattern_bits >> k) & 1);
+    syms[k] = table_sym(tb, t, slot);
+    meta[k] = table_meta(tb, t, slot);
   }
-  unsigned escm = 0u;
+  EscMask escm = 0u;
   uint32_t digs[LS], bass[LS];
 #pragma unroll
   for (int k = 0; k < LS; ++k) {
-    if (active && ((meta[k] >> 17) & 1u)) escm |= 1u << k;
-    digs[k] = active ? (meta[k] & 0xFFu) : 0u;
-    bass[k] = active ? ((meta[k] >> 8) & 0x1FFu) : 1u;
+    if (active && ((meta[k] >> ESC_SHIFT) & 1u)) escm |= (EscMask)1u << k;
+    digs[k] = active ? (uint32_t)(meta[k] & ((1u << MB) - 1u)) : 0u;
+    bass[k] = active ? (uint32_t)((meta[k] >> MB) & ((2u << MB) - 1u)) : 1u;
   }
 
   // ---- fold digits into the limb state (groups fit 32 bits) ------------
-  // gacc < racc <= 2^32 fits 32 bits; racc's last factor is widened.
-  static_assert(DG == 4 && MB == 8, "fold groups of four 8-bit digits");
+  // gacc < racc <= 2^32 fits 32 bits; racc's last factor is widened. The
+  // last group is shorter where DG does not divide LS.
 #pragma unroll
   for (int g0 = 0; g0 < LS; g0 += DG) {
+    const int ge = g0 + DG < LS ? g0 + DG : LS;  // constant once unrolled
     uint32_t gacc = 0u, r3 = 1u;
 #pragma unroll
-    for (int k = g0; k < g0 + DG; ++k) gacc = gacc * bass[k] + digs[k];
+    for (int k = g0; k < ge; ++k) gacc = gacc * bass[k] + digs[k];
 #pragma unroll
-    for (int k = g0; k < g0 + DG - 1; ++k) r3 *= bass[k];
-    const unsigned long long racc =
-        (unsigned long long)r3 * bass[g0 + DG - 1];
+    for (int k = g0; k < ge - 1; ++k) r3 *= bass[k];
+    const unsigned long long racc = (unsigned long long)r3 * bass[ge - 1];
     limb_mul_add(st.d, racc, gacc);
     limb_mul_add(st.r, racc, 0u);
   }
@@ -455,7 +574,7 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     take[k] = refill;
     if (k < F) {
       const bool cond = limb_ge_w(st.r) && refill;
-      wk[k] = st.d[0];
+      wk[k] = st.d[0] & WM1;
       if (cond) {
         limb_shr(st.d);
         limb_shr(st.r);
@@ -466,7 +585,7 @@ __device__ __forceinline__ void decode_segment(const Args& a,
   cp_async_wait_all();
   bool esc_any;
   int unused;
-  const Claims c = claim(g, take, __popc(escm), 0, &esc_any, &unused);
+  const Claims c = claim(g, take, popc_mask(escm), 0, &esc_any, &unused);
 #pragma unroll
   for (int k = 0; k < O; ++k) {
     if (take[k]) wk[k] = win[c.off[k]];
@@ -480,7 +599,8 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     int cnt[LS], pre[LS];
     unsigned bk[LS];
 #pragma unroll
-    for (int k = 0; k < LS; ++k) bk[k] = __ballot_sync(FULL, (escm >> k) & 1u);
+    for (int k = 0; k < LS; ++k)
+      bk[k] = __ballot_sync(FULL, (unsigned)((escm >> k) & 1u));
     if (!g.wide) {
 #pragma unroll
       for (int k = 0; k < LS; ++k) {
@@ -489,23 +609,25 @@ __device__ __forceinline__ void decode_segment(const Args& a,
         pre[k] = __popc(m & lt);
       }
     } else {
-      unsigned long long mine[2] = {0ull, 0ull}, wpre[2], wtot[2];
+      unsigned long long mine[EW], wpre[EW], wtot[EW];
+#pragma unroll
+      for (int w = 0; w < EW; ++w) mine[w] = 0ull;
 #pragma unroll
       for (int k = 0; k < LS; ++k)
         mine[k >> 2] |= (unsigned long long)__popc(bk[k]) << (16 * (k & 3));
       int unused2;
-      exchange<2>(g, mine, wpre, wtot, 0, &unused2);
+      exchange<EW>(g, mine, wpre, wtot, 0, &unused2);
 #pragma unroll
       for (int k = 0; k < LS; ++k) {
-        cnt[k] = field(wtot[k >> 2], k & 3);
-        pre[k] = field(wpre[k >> 2], k & 3) + __popc(bk[k] & lt);
+        cnt[k] = fields(wtot, k);
+        pre[k] = fields(wpre, k) + __popc(bk[k] & lt);
       }
     }
     const long long sl = g.s < a.S ? g.s : 0;
     const int emax1 = (int)a.emax - 1;
 #pragma unroll
     for (int k = 0; k < LS; ++k) {
-      const int t = (a.pattern_bits >> k) & 1;
+      const int t = (int)((a.pattern_bits >> k) & 1);
       const int cur = t ? st.esc1 : st.esc0;
       if ((escm >> k) & 1u) {
         const int e = clampi(cur + pre[k], emax1);
@@ -568,8 +690,8 @@ template <> struct Num<double> {
 
 inline Args make_args(const void* stream, long long wmax, const void* esc,
                       long long emax, const void* ns, const void* nnz,
-                      const void* tables, int T, int pattern_bits, int S,
-                      int L, int max_nseg) {
+                      const void* tables, int T, long long pattern_bits,
+                      int S, int L, int max_nseg) {
   Args a;
   a.stream = static_cast<const uint32_t*>(stream);
   a.wmax = wmax;
@@ -579,7 +701,7 @@ inline Args make_args(const void* stream, long long wmax, const void* esc,
   a.nnz = static_cast<const int*>(nnz);
   a.tables = static_cast<const int*>(tables);
   a.T = T;
-  a.pattern_bits = pattern_bits;
+  a.pattern_bits = (Pattern)pattern_bits;
   a.S = S;
   a.L = L;
   a.max_nseg = max_nseg;

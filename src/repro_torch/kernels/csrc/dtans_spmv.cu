@@ -23,7 +23,9 @@
 //
 // Design (the decoder is dtans_decode.cuh's, warp-synchronous):
 //   * persistent blocks (the geometry comes from kernels/tiling.py): the
-//     coding tables are staged in shared memory once per block, and each
+//     coding tables are staged in shared memory once per block (where the
+//     parameter set's plan puts them there; else read from global memory,
+//     dtans_decode.cuh), and each
 //     block loops over its share of the units (a warp of packed narrow
 //     slices, or the warps of one wide slice);
 //   * SpMV: one thread per lane, the accumulator in a register. After
@@ -32,7 +34,8 @@
 //     latency hides behind it;
 //   * SpMM, warp-specialised: the unit's decoder warps write each decoded
 //     segment (column with a valid flag in bit 31, value) into a ring of
-//     two segments in shared memory, a row's four entries in 16 bytes;
+//     two segments in shared memory, a row's H entries together (at
+//     PAPER's H = 4, 16 bytes: one vector access);
 //     contraction warps, mapped to columns, read it under named barriers
 //     (full / empty per stage), four rows a lane at a time so that 16 x
 //     loads are in flight. Thread b owns column b0 + b of a row: its x
@@ -43,7 +46,7 @@
 //     group load one x line per position. Each (row, column) is owned by
 //     one thread and takes its terms in segment order;
 //   * the contraction per segment and column is, in both kernels,
-//       s = ((c0 + c1) + c2) + c3,  c_i = valid_i ? v_i * x[col_i] : 0,
+//       s = ((c0 + c1) + ...) + c_{H-1},  c_i = valid_i ? v_i * x[col_i] : 0,
 //       acc += s
 //     with __fmul_rn/__fadd_rn (or the double forms), so tiled, untiled,
 //     SpMV and SpMM at B = 1 agree bitwise with each other and with the
@@ -130,28 +133,73 @@ __device__ __forceinline__ bool unit_row(const Args& a, const Geom& gm,
   return lane < a.L && s < a.S;
 }
 
-// A ring row's H entries, 16-byte aligned: one vector access each.
+// A ring row's H entries. At H = 4 (PAPER) a row is 16-byte aligned: one
+// vector access each; other sets take one access an entry.
+template <typename T>
+__device__ __forceinline__ void store_entries(T* p, const T v[H]) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) p[i] = v[i];
+}
+template <typename T>
+__device__ __forceinline__ void load_entries(const T* p, T v[H]) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) v[i] = p[i];
+}
+__device__ __forceinline__ void store_cols(int* p, const int v[H]) {
+  if constexpr (H == 4) {
+    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+    store_entries(p, v);
+  }
+}
+__device__ __forceinline__ void load_cols(const int* p, int v[H]) {
+  if constexpr (H == 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    load_entries(p, v);
+  }
+}
 __device__ __forceinline__ void store_row(float* p, const float v[H]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  if constexpr (H == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    store_entries(p, v);
+  }
 }
 __device__ __forceinline__ void store_row(double* p, const double v[H]) {
-  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
-  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  if constexpr (H == 4) {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  } else {
+    store_entries(p, v);
+  }
 }
 __device__ __forceinline__ void load_row(const float* p, float v[H]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
+  if constexpr (H == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+    load_entries(p, v);
+  }
 }
 __device__ __forceinline__ void load_row(const double* p, double v[H]) {
-  const double2 q0 = reinterpret_cast<const double2*>(p)[0];
-  const double2 q1 = reinterpret_cast<const double2*>(p)[1];
-  v[0] = q0.x;
-  v[1] = q0.y;
-  v[2] = q1.x;
-  v[3] = q1.y;
+  if constexpr (H == 4) {
+    const double2 q0 = reinterpret_cast<const double2*>(p)[0];
+    const double2 q1 = reinterpret_cast<const double2*>(p)[1];
+    v[0] = q0.x;
+    v[1] = q0.y;
+    v[2] = q1.x;
+    v[3] = q1.y;
+  } else {
+    load_entries(p, v);
+  }
 }
 
 constexpr int RB = 4;  // rows a contraction lane takes at once
@@ -160,7 +208,6 @@ template <typename V, int MAXT, bool SHARED>
 __global__ void __launch_bounds__(MAXT)
 dtans_spmm_kernel(Args a, Geom gm, const V* __restrict__ x, long long n,
                   long long B, int bn, V* __restrict__ y) {
-  static_assert(H == 4, "ring rows are four entries");
   extern __shared__ __align__(16) unsigned char smem[];
   const Tables tb = stage_tables(a, smem);
   const int R = gm.uw * 32;  // rows of a unit (thread lanes)
@@ -198,8 +245,7 @@ dtans_spmm_kernel(Args a, Geom gm, const V* __restrict__ x, long long n,
         const int stage = (int)(q % D);
         if (q >= D) bar_sync(1 + D + stage, nthreads);
         const int at = (stage * R + g.r) * H;
-        *reinterpret_cast<int4*>(rcol + at) =
-            make_int4(cols[0], cols[1], cols[2], cols[3]);
+        store_cols(rcol + at, cols);
         store_row(rval + at, vals);
         __threadfence_block();
         bar_arrive(1 + stage, nthreads);
@@ -257,11 +303,7 @@ dtans_spmm_kernel(Args a, Geom gm, const V* __restrict__ x, long long n,
 #pragma unroll
         for (int k = 0; k < RB; ++k) {
           const int at = (stage * R + r0 + k) * H;
-          const int4 cq = *reinterpret_cast<const int4*>(rcol + at);
-          c[k][0] = cq.x;
-          c[k][1] = cq.y;
-          c[k][2] = cq.z;
-          c[k][3] = cq.w;
+          load_cols(rcol + at, c[k]);
           load_row(rval + at, v[k]);
         }
         for (int ch = 0; ch < nc; ++ch) {
@@ -380,7 +422,7 @@ long long dtans_smem_need(int spmm, int T, int uw, int upb, int bn,
 int dtans_spmv_launch(int f64, const void* stream, long long wmax,
                       const void* esc, long long emax, const void* ns,
                       const void* nnz, const void* tables, int T,
-                      int pattern_bits, int S, int L, int max_nseg,
+                      long long pattern_bits, int S, int L, int max_nseg,
                       int group, int uw, int spu, long long units, int upb,
                       int cw, int blocks, int threads, long long smem,
                       int shared, const void* x, long long n, void* y,
@@ -411,7 +453,7 @@ int dtans_spmv_launch(int f64, const void* stream, long long wmax,
 int dtans_spmm_launch(int f64, const void* stream, long long wmax,
                       const void* esc, long long emax, const void* ns,
                       const void* nnz, const void* tables, int T,
-                      int pattern_bits, int S, int L, int max_nseg,
+                      long long pattern_bits, int S, int L, int max_nseg,
                       int group, int uw, int spu, long long units, int upb,
                       int cw, int blocks, int threads, long long smem,
                       int shared, const void* x, long long n, long long B,

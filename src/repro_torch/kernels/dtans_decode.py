@@ -6,8 +6,9 @@ max_nseg * l/2)``, lane by lane and segment-major, ``cols == -1`` and
 ``vals == +0`` at padding. On a CUDA matrix it launches the hand-written
 kernel of ``csrc/dtans_decode.cu`` (which replaces the JAX package's
 ``dtans_decode_pallas``: the warp-synchronous decoder, each warp's
-segments staged in shared memory and written out as whole sectors) in
-the geometry of `tiling.decode_geometry`; on a CPU matrix it runs
+segments staged in shared memory and written out as whole sectors),
+compiled for the matrix's parameter set, in the geometry of
+`tiling.decode_geometry`; on a CPU matrix it runs
 `dtans_decode_plain`, the torch lock-step decoder (`kernels.common`).
 There is no fallback: a CUDA matrix never reaches the plain version, and
 a build or launch failure raises. Kernel and plain version agree exactly:
@@ -22,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.params import PAPER, DtansParams
 from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
 from repro_torch.kernels.dtans_spmv import (GEOM_ARGS, MATRIX_ARGS,
@@ -39,8 +41,8 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dtans_decode")
+def _lib(params: DtansParams = PAPER) -> ctypes.CDLL:
+    lib = _build.load("dtans_decode", params)
     if not getattr(lib, "_repro_declared", False):
         lib.dtans_decode_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
             _VP, _VP, _VP]
@@ -75,11 +77,13 @@ def dtans_decode_plain(dm: DeviceMatrix
             vals.reshape(S, L, -1).contiguous())
 
 
-def smem_need(n_tables: int, lane_width: int, itemsize: int) -> int:
-    """The built kernel's own count of the shared memory a decode block
+def smem_need(n_tables: int, lane_width: int, itemsize: int,
+              params: DtansParams = PAPER) -> int:
+    """A set's built kernel's own count of the shared memory a decode block
     needs; `tiling.decode_geometry`'s plan must give the same."""
-    upb = tiling.geometry(1, lane_width, n_tables, itemsize).units_per_block
-    return int(_lib().dtans_decode_smem_need(
+    upb = tiling.geometry(1, lane_width, n_tables, itemsize,
+                          params=params).units_per_block
+    return int(_lib(params).dtans_decode_smem_need(
         n_tables, tiling.unit_warps(lane_width), upb, itemsize))
 
 
@@ -91,14 +95,14 @@ def dtans_decode(dm: DeviceMatrix) -> tuple[torch.Tensor, torch.Tensor]:
     args = kernel_args(dm)
     geom = tiling.decode_geometry(dm.n_slices, dm.lane_width,
                                   dm.tables.shape[0], dm.dtype.itemsize,
-                                  n_sm=n_sm(dm.device))
+                                  n_sm=n_sm(dm.device), params=dm.params)
     check_plan(geom.smem)
     shape = (dm.n_slices, dm.lane_width, out_width(dm))
     cols = torch.empty(shape, dtype=torch.int32, device=dm.device)
     vals = torch.empty(shape, dtype=dm.dtype, device=dm.device)
     if dm.n_slices == 0:
         return cols, vals
-    lib = _lib()
+    lib = _lib(dm.params)
     rc = lib.dtans_decode_launch(
         *args, *geom.args(), cols.data_ptr(), vals.data_ptr(),
         torch.cuda.current_stream(dm.device).cuda_stream)

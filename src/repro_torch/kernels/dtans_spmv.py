@@ -4,15 +4,19 @@ plain torch versions.
 ``dtans_spmv`` / ``dtans_spmm`` take a `DeviceMatrix` and a dense right-hand
 side on the same device. On a CUDA tensor they launch the hand-written
 kernels of ``csrc/dtans_spmv.cu`` (which replace the JAX package's
-``dtans_spmv_pallas`` / ``dtans_spmm_pallas``); on a CPU tensor they run
-the plain versions below. There is no fallback: a CUDA tensor never
-reaches the plain version, and a build or launch failure raises.
+``dtans_spmv_pallas`` / ``dtans_spmm_pallas``), compiled for the matrix's
+parameter set (`_build`: one library a set, built at first use); on a CPU
+tensor they run the plain versions below. There is no fallback: a CUDA
+tensor never reaches the plain version, and a build or launch failure
+raises. The kernels take every set the JAX package's decoder decodes
+right; `check_params` refuses the one kind it decodes wrongly.
 
 The plain versions run the torch lock-step decoder (`kernels.common`) and
 contract each segment in the kernels' own order,
-``s = ((c0 + c1) + c2) + c3`` with ``c_i = valid_i ? v_i * x[col_i] : 0``,
-then ``acc += s``. They work on CPU and CUDA tensors alike; the kernels
-are held against them on the card.
+``s = ((c0 + c1) + ...) + c_{l/2-1}`` with
+``c_i = valid_i ? v_i * x[col_i] : 0``, then ``acc += s``. They work on
+CPU and CUDA tensors alike; the kernels are held against them on the
+card.
 
 ``shared_cols=True`` is the fused BCSR-dtANS contraction of a block-filled
 pack (`PackedMatrix.shared_cols`): every lane gathers x at lane 0's
@@ -36,7 +40,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.params import PAPER
+from repro_torch.core.params import PAPER, DtansParams
 from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
 from repro_torch.kernels.pack import DeviceMatrix, check_rhs
@@ -45,7 +49,7 @@ launches = {"dtans_spmv": 0, "dtans_spmm": 0, "dtans_spmv_shared": 0,
             "dtans_spmm_shared": 0}
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I]
+MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _LL, _I, _I, _I]
 GEOM_ARGS = [_I, _I, _I, _LL, _I, _I, _I, _I, _LL]
 
 
@@ -54,8 +58,8 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dtans_spmv")
+def _lib(params: DtansParams = PAPER) -> ctypes.CDLL:
+    lib = _build.load("dtans_spmv", params)
     if not getattr(lib, "_repro_declared", False):
         lib.dtans_spmv_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
             _I, _VP, _LL, _VP, _VP]
@@ -73,20 +77,35 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def check_params(params: DtansParams) -> None:
+    """Refuses a parameter set whose table slot can span more than the two
+    stream words the decoder reads for it (``segment_step`` of both
+    packages ORs word ``k`` with word ``k + 1`` only, the last word alone):
+    the JAX package's decoder decodes such a set wrongly, so no kernel
+    copies it (``tests/test_torch_params.py`` shows the reference wrong
+    on one). No set with ``k_bits <= w_bits + 1`` meets it."""
+    W, Kb, o = params.w_bits, params.k_bits, params.o
+    for k in range(params.l):
+        wi, sh = divmod(k * Kb, W)
+        if Kb > (2 if wi + 1 < o else 1) * W - sh:
+            raise ValueError(
+                f"{params}: table slot {k} spans more than the two "
+                f"{W}-bit stream words the decoder reads (bits {k * Kb}.."
+                f"{(k + 1) * Kb - 1}); the reference decodes such a set "
+                f"wrongly")
+
+
 def kernel_args(dm: DeviceMatrix) -> list:
     """The C entries' matrix arguments (shared by the decode-only kernel);
     refuses what the kernels do not take."""
-    if dm.params != PAPER:
-        raise NotImplementedError(
-            f"the CUDA kernels are built for the paper's parameters "
-            f"{PAPER}, not {dm.params}; other parameter sets are a later "
-            f"item of ROADMAP.md queue B")
+    check_params(dm.params)
     T = dm.tables.shape[0]
     if T > 2 or any(t >= T for t in dm.pattern):
         raise ValueError(f"pattern {dm.pattern} needs at most 2 tables")
-    if dm.tables.shape[1] != 3 * tiling.TABLE_SLOTS:
+    width = (2 + tiling.meta_words(dm.params)) * dm.params.K
+    if dm.tables.shape[1] != width:
         raise ValueError(f"packed tables of shape {tuple(dm.tables.shape)}"
-                         f", want (T, {3 * tiling.TABLE_SLOTS})")
+                         f", want (T, {width}) for {dm.params}")
     L = dm.lane_width
     if not 1 <= L <= 1024:
         raise ValueError(f"lane_width {L} outside 1..1024")
@@ -110,7 +129,7 @@ def spmv_geometry(dm: DeviceMatrix, n_sms: int = tiling.SM_COUNT
                   ) -> tiling.Geometry:
     """The SpMV launch of a device matrix."""
     geom = tiling.geometry(dm.n_slices, dm.lane_width, dm.tables.shape[0],
-                           dm.dtype.itemsize, n_sm=n_sms)
+                           dm.dtype.itemsize, n_sm=n_sms, params=dm.params)
     check_plan(geom.smem)
     return geom
 
@@ -137,7 +156,8 @@ def spmm_geometry(dm: DeviceMatrix, B: int, bt: int,
             f"contraction warp share a 1024-thread block), not "
             f"{dm.lane_width}; SpMV (B = 1) takes up to 1024")
     geom = tiling.geometry(dm.n_slices, dm.lane_width, dm.tables.shape[0],
-                           dm.dtype.itemsize, bn=bt, batch=B, n_sm=n_sms)
+                           dm.dtype.itemsize, bn=bt, batch=B, n_sm=n_sms,
+                           params=dm.params)
     check_plan(geom.smem)
     return geom
 
@@ -150,10 +170,10 @@ def raise_on(lib, rc: int, name: str) -> None:
                            f"({lib.dtans_error_string(rc).decode()})")
 
 
-def static_smem_bytes() -> int:
-    """The kernels' static shared memory as the built library reports it;
-    `tiling.STATIC_SMEM_BYTES` must not be less."""
-    lib = _lib()
+def static_smem_bytes(params: DtansParams = PAPER) -> int:
+    """The kernels' static shared memory as a set's built library reports
+    it; `tiling.STATIC_SMEM_BYTES` must not be less."""
+    lib = _lib(params)
     out = _LL(0)
     raise_on(lib, lib.dtans_spmm_static_smem(ctypes.byref(out)),
              "dtans_spmm_static_smem")
@@ -161,13 +181,14 @@ def static_smem_bytes() -> int:
 
 
 def smem_need(spmm: bool, n_tables: int, lane_width: int, itemsize: int,
-              bn: int = 0) -> int:
-    """The built kernels' own count of the shared memory a plan needs;
+              bn: int = 0, params: DtansParams = PAPER) -> int:
+    """A set's built kernels' own count of the shared memory a plan needs;
     `tiling.smem_plan` must give the same."""
-    upb = tiling.geometry(1, lane_width, n_tables, itemsize).units_per_block
-    return int(_lib().dtans_smem_need(int(spmm), n_tables,
-                                      tiling.unit_warps(lane_width), upb,
-                                      bn, itemsize))
+    upb = tiling.geometry(1, lane_width, n_tables, itemsize,
+                          params=params).units_per_block
+    return int(_lib(params).dtans_smem_need(
+        int(spmm), n_tables, tiling.unit_warps(lane_width), upb, bn,
+        itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +264,7 @@ def dtans_spmv(dm: DeviceMatrix, x: torch.Tensor,
                     device=x.device)
     if dm.n_slices == 0:
         return y
-    lib = _lib()
+    lib = _lib(dm.params)
     rc = lib.dtans_spmv_launch(*args, *geom.args(), int(shared_cols),
                                x.data_ptr(), x.shape[0], y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)
@@ -273,7 +294,7 @@ def dtans_spmm(dm: DeviceMatrix, x: torch.Tensor, bn: int | None = None,
                     device=x.device)
     if dm.n_slices == 0 or B == 0:
         return y
-    lib = _lib()
+    lib = _lib(dm.params)
     rc = lib.dtans_spmm_launch(*args, *geom.args(), int(shared_cols),
                                x.data_ptr(), x.shape[0], B, bt, y.data_ptr(),
                                torch.cuda.current_stream(x.device).cuda_stream)

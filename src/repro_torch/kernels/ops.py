@@ -280,7 +280,8 @@ def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
     fit a block, an explicit one or a whole batch, is cut to
     `tiling.dtans_widest_bn`. Every tile width gives bitwise the same
     result as the untiled kernel. A lane width wider than the SpMM kernel
-    takes (993 to 1024, `tiling.spmm_by_columns`) runs the SpMV kernel
+    takes (993 to 1024, or a set's slices whose plan holds no column
+    tile, `tiling.spmm_by_columns`) runs the SpMV kernel
     once a column, counted in its ``dtans_spmv`` launches: bitwise the
     SpMM column by column (both sum each segment, then add it). ``fused``,
     ``pipeline``, ``mesh`` and ``n_shards`` as in `spmv`."""
@@ -304,8 +305,8 @@ def dtans_tiles(dm, shared: bool) -> tuple:
     ``choose(B)`` the default tile, ``widest`` the widest tile a block's
     shared memory holds (`resolve_bn` takes the last two)."""
     L, T = dm.lane_width, int(dm.tab_symbol.shape[0])
-    item = dm.dtype.itemsize
-    if tiling.spmm_by_columns(L):
+    item, params = dm.dtype.itemsize, dm.params
+    if tiling.spmm_by_columns(L, T, item, params):
 
         def run(X, b):                          # tiles of one column
             return torch.stack([dtans_spmv(dm, X[:, j].contiguous(),
@@ -316,8 +317,8 @@ def dtans_tiles(dm, shared: bool) -> tuple:
 
         def run(X, b):
             return dtans_spmm(dm, X, bn=b, shared_cols=shared)
-        widest = tiling.dtans_widest_bn(L, T, item)
-    return run, (lambda B: tiling.dtans_bn(L, T, B, item)), widest
+        widest = tiling.dtans_widest_bn(L, T, item, params)
+    return run, (lambda B: tiling.dtans_bn(L, T, B, item, params)), widest
 
 
 def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"

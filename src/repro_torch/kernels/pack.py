@@ -10,7 +10,9 @@ counted in the format's compressed size (CSRdtANS.nbytes).
 `to_device` builds the torch tensors the kernels read, once per device,
 and caches them on the packed object (as `ops.get_packed` caches the pack
 on the matrix). Among them are the coding tables packed for the CUDA
-kernels (`pack_tables`), which stage them in shared memory.
+kernels (`pack_tables`), in the slot layout of the pack's parameter set;
+the kernels stage them in shared memory or read them from global memory,
+as `tiling.tables_in_smem` says.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.csr_dtans import CSRdtANS
-from repro_torch.core.params import DtansParams
+from repro_torch.core.params import PAPER, DtansParams
+from repro_torch.kernels import tiling
 
 _DEVICE_CACHE_FIELD = "_device_cache"
 
@@ -72,7 +75,7 @@ class DeviceMatrix:
     tab_digit: torch.Tensor   # (T, K) int32
     tab_base: torch.Tensor    # (T, K) int32
     tab_is_esc: torch.Tensor  # (T, K) int32
-    tables: torch.Tensor      # (T, 3 K) int32, `pack_tables`
+    tables: torch.Tensor      # (T, (2 + meta words) K) int32, `pack_tables`
     params: DtansParams
     pattern: tuple
     max_nseg: int
@@ -98,43 +101,56 @@ class DeviceMatrix:
             self.stream, self.esc, self.ns, self.nnz, self.tables))
 
 
-#: Bit layout of a packed table slot's u32 word: digit | base << 8 |
-#: is_esc << 17 (digit < 256, base <= M = 256 < 512).
-_BASE_SHIFT, _ESC_SHIFT = 8, 17
+def _meta_fields(params: DtansParams) -> tuple[int, int]:
+    """Shifts of base and is_esc in a slot's meta word: digit takes
+    ``m_bits`` bits (digit < base <= M), base ``m_bits + 1``, is_esc 1."""
+    return params.m_bits, 2 * params.m_bits + 1
 
 
 def pack_tables(symbol: np.ndarray, digit: np.ndarray, base: np.ndarray,
-                is_esc: np.ndarray) -> np.ndarray:
-    """The (T, K) coding tables as the CUDA kernels stage them in shared
-    memory: per table, K u64 symbols (as int32 pairs, little-endian), then
-    K u32 words of digit | base << 8 | is_esc << 17; 12 bytes a slot, a
-    (T, 3 K) int32 array. Refuses values the word cannot hold."""
+                is_esc: np.ndarray, params: DtansParams = PAPER
+                ) -> np.ndarray:
+    """The (T, K) coding tables as the CUDA kernels read them: per table, K
+    u64 symbols (as int32 pairs, little-endian), then K meta words of
+    digit | base << m_bits | is_esc << (2 m_bits + 1), each one u32 where
+    the fields fit 32 bits and one u64 where they do not
+    (`tiling.meta_words`): 12 bytes a slot at `PAPER` (digit < 256, base
+    <= 256), 16 at ``m_bits = 16``; a (T, (2 + meta words) K) int32 array.
+    Refuses values the fields cannot hold."""
     digit, base = np.asarray(digit, np.int64), np.asarray(base, np.int64)
     is_esc = np.asarray(is_esc, np.int64)
-    if digit.size and (digit.min() < 0 or digit.max() >= 1 << _BASE_SHIFT
+    base_shift, esc_shift = _meta_fields(params)
+    if digit.size and (digit.min() < 0 or digit.max() >= 1 << base_shift
                        or base.min() < 0
-                       or base.max() >= 1 << (_ESC_SHIFT - _BASE_SHIFT)
+                       or base.max() >= 1 << (esc_shift - base_shift)
                        or not np.isin(is_esc, (0, 1)).all()):
-        raise ValueError("coding table out of the packed slot's range "
-                         "(digit < 256, base < 512, is_esc 0/1)")
+        raise ValueError(
+            f"coding table out of the packed slot's range (digit < "
+            f"{1 << base_shift}, base < {1 << (esc_shift - base_shift)}, "
+            f"is_esc 0/1)")
     T, K = digit.shape
+    mw = tiling.meta_words(params)
     sym = np.ascontiguousarray(symbol, dtype=np.uint64).view(np.int32)
-    meta = (digit | base << _BASE_SHIFT | is_esc << _ESC_SHIFT).astype(
-        np.uint32).view(np.int32)
-    return np.concatenate([sym.reshape(T, 2 * K), meta.reshape(T, K)],
+    meta = (digit | base << base_shift | is_esc << esc_shift).astype(
+        np.uint32 if mw == 1 else np.uint64).view(np.int32)
+    return np.concatenate([sym.reshape(T, 2 * K), meta.reshape(T, mw * K)],
                           axis=1)
 
 
-def unpack_tables(tables: np.ndarray):
+def unpack_tables(tables: np.ndarray, params: DtansParams = PAPER):
     """Inverse of `pack_tables`: (symbol u64, digit, base, is_esc), each
     (T, K)."""
     tables = np.ascontiguousarray(tables, dtype=np.int32)
-    K = tables.shape[1] // 3
+    mw = tiling.meta_words(params)
+    K = tables.shape[1] // (2 + mw)
     symbol = np.ascontiguousarray(tables[:, :2 * K]).view(np.uint64)
-    meta = tables[:, 2 * K:].view(np.uint32).astype(np.int64)
-    return (symbol, (meta & 0xFF).astype(np.int32),
-            (meta >> _BASE_SHIFT & 0x1FF).astype(np.int32),
-            (meta >> _ESC_SHIFT & 1).astype(np.int32))
+    meta = np.ascontiguousarray(tables[:, 2 * K:]).view(
+        np.uint32 if mw == 1 else np.uint64).astype(np.int64)
+    base_shift, esc_shift = _meta_fields(params)
+    return (symbol, (meta & ((1 << base_shift) - 1)).astype(np.int32),
+            (meta >> base_shift & ((1 << (esc_shift - base_shift)) - 1)
+             ).astype(np.int32),
+            (meta >> esc_shift & 1).astype(np.int32))
 
 
 def pack_matrix(mat: CSRdtANS) -> PackedMatrix:
@@ -260,7 +276,7 @@ def to_device(pm: PackedMatrix, device="cuda") -> DeviceMatrix:
             tab_base=t(pm.tab_base.astype(np.int32)),
             tab_is_esc=t(pm.tab_is_esc.astype(np.int32)),
             tables=t(pack_tables(pm.tab_symbol, pm.tab_digit, pm.tab_base,
-                                 pm.tab_is_esc)),
+                                 pm.tab_is_esc, pm.params)),
             params=pm.params,
             pattern=tuple(pm.pattern),
             max_nseg=int(pm.max_nseg),

@@ -10,7 +10,8 @@ geometry is computed here and handed to the C entries:
   (a *unit*); a wider slice is decoded by ``ceil(L / 32)`` warps (one unit
   per slice). A unit has ``32 * unit_warps`` rows (thread lanes);
 * blocks are persistent: about as many as fit on the card's SMs, each
-  staging the coding tables in shared memory once and looping over its
+  staging the coding tables in shared memory once (where `tables_in_smem`
+  puts them there) and looping over its
   share of the units (SpMV, decode: ``units_per_block`` units at a time;
   SpMM: one unit and column tile at a time);
 * the SpMM block adds contraction warps beside the unit's decoder warps
@@ -18,21 +19,31 @@ geometry is computed here and handed to the C entries:
   lane widths up to `MAX_SPMM_LANE_WIDTH`; `ops.spmm` serves wider slices
   (to 1024) by one SpMV launch a column (`spmm_by_columns`).
 
-The shared-memory plan (`smem_plan`) is the coding tables (12 bytes a
-slot), per unit in flight the refill windows and the claim exchange, for
-SpMM the decoded ring and the ``(rows, bn)`` accumulator tile, and for
-decode a staging tile of `DECODE_STAGE` segments per warp
-(`decode_geometry`).
-The C side computes the same sizes (``dtans_smem_need``,
-``dtans_decode_smem_need``) and refuses a launch given less.
+The kernels are compiled once per parameter set (`DtansParams`: one
+library each, `_build`), and every size below is a value of the set: the
+table slots ``K``, the bytes of a slot (`slot_bytes`: 12 at `PAPER`, 16
+where a slot's digit, base and escape flag take more than 32 bits), the
+words a lane claims a segment (``o``) and the entries of a segment
+(``l / 2``). The shared-memory plan (`smem_plan`) is the coding tables,
+where `tables_in_smem` puts them there (else the kernels read them from
+global memory through the read-only path), per unit in flight the refill
+windows and the claim exchange, for SpMM the decoded ring and the
+``(rows, bn)`` accumulator tile, and for decode a staging tile of
+`DECODE_STAGE` * 4 entries a row per warp (`decode_geometry`). At `PAPER`
+two tables take 98,304 bytes of the plan. The C side computes the same
+sizes (``dtans_smem_need``, ``dtans_decode_smem_need``) and refuses a
+launch given less.
 
 `dtans_bn` sizes the dtANS SpMM's column tile: `choose_bn`'s, at most
 `DTANS_BN_MAX` columns. `choose_bn`: the accumulator tile may take
 `DEFAULT_SMEM_BYTES`, and the whole plan must fit `MAX_SMEM_BYTES`;
 `dtans_widest_bn` is the widest tile whose plan fits at all, where
-`ops.spmm` caps an explicit ``bn``. Tiling splits only the B axis, so every
-output column sees exactly the arithmetic of the untiled kernel: tiled
-results are bitwise equal to untiled ones at every ``bn``.
+`ops.spmm` caps an explicit ``bn``; where not even one column fits (a wide
+slice of a set with long segments, whose ring outgrows the block),
+`spmm_by_columns` sends ``ops.spmm`` to one SpMV launch a column. Tiling
+splits only the B axis, so every output column sees exactly the
+arithmetic of the untiled kernel: tiled results are bitwise equal to
+untiled ones at every ``bn``.
 
 The SELL, RGCSR and BCSR SpMM kernel (``csrc/padded_rows.cuh::
 spmm_warp_kernel``) keeps its accumulators in registers; its shared memory
@@ -51,6 +62,9 @@ and up to 227 KB (232,448 bytes) with
 from __future__ import annotations
 
 import dataclasses
+import functools
+
+from repro_torch.core.params import PAPER, DtansParams
 
 #: Shared memory an accumulator tile may take by default: the 48 KB a block
 #: gets without opting in.
@@ -84,10 +98,6 @@ MIN_BN = 8
 #: ran slower (fewer blocks fit an SM; PERF.md).
 DTANS_BN_MAX = 64
 
-#: Table slots (K = 2^12 at the paper's parameters), bytes a slot, stream
-#: words claimed per lane and segment (o), entries per segment (l / 2).
-TABLE_SLOTS, SLOT_BYTES, WORDS, ENTRIES = 4096, 12, 3, 4
-
 #: SpMV / decode blocks hold this many warps of units (or one wide unit);
 #: the SpMM ring holds this many segments. Both chosen by timing the
 #: SmolLM-135M head and the 4x4-pruned head on an H100 (PERF.md).
@@ -96,7 +106,10 @@ RING_DEPTH = 2
 
 #: Segments a decode warp stages in shared memory before it writes them
 #: out (``STAGE`` of ``csrc/dtans_decode.cu``): 2, the least that writes
-#: whole 32-byte sectors of a row's columns. On an H100 4 tied with it on
+#: whole 32-byte sectors of a row's columns at `PAPER`'s 4 entries a
+#: segment (a set whose segments hold another number of entries stages
+#: the same ``DECODE_STAGE * 4`` = 8 entries a row, the same bytes,
+#: written out whenever 8 have gathered). On an H100 4 tied with it on
 #: the SmolLM-135M head and lost 3% on its 4x4-blocked shape, 8 lost 35-50%
 #: (2 blocks an SM instead of 3; PERF.md, ``experiments/decode_geometry/``).
 #: It fits a block at every lane width up to 1024, f64 on two tables
@@ -110,6 +123,66 @@ MAX_SPMM_LANE_WIDTH = 31 * WARP
 
 def _align16(v: int) -> int:
     return (v + 15) & ~15
+
+
+# ---------------------------------------------------------------------------
+# the parameter set's sizes
+# ---------------------------------------------------------------------------
+
+def meta_words(params: DtansParams = PAPER) -> int:
+    """32-bit words of a table slot's meta field (digit | base << m_bits |
+    is_esc << (2 m_bits + 1), `pack.pack_tables`): 1 where its
+    ``2 m_bits + 2`` bits fit one, else 2."""
+    return 1 if 2 * params.m_bits + 2 <= 32 else 2
+
+
+def slot_bytes(params: DtansParams = PAPER) -> int:
+    """Bytes of a packed table slot: the u64 symbol and the meta words (12
+    at `PAPER`, 16 at ``m_bits = 16``)."""
+    return 8 + 4 * meta_words(params)
+
+
+def entries(params: DtansParams = PAPER) -> int:
+    """Nonzeros of a segment, ``l / 2`` (4 at `PAPER`)."""
+    return params.l // 2
+
+
+def exchange_words(params: DtansParams = PAPER) -> int:
+    """u64 words a warp of a wide group writes per exchange: 16-bit fields
+    of its ``o`` claims and escape count, or of the ``l`` positions'
+    escape counts, whichever needs more (2 at `PAPER`)."""
+    return max(-(-(params.o + 1) // 4), -(-params.l // 4))
+
+
+def table_bytes(n_tables: int, params: DtansParams = PAPER) -> int:
+    """Bytes of ``n_tables`` packed coding tables (98,304 for two at
+    `PAPER`; 1,572,864 at K = 2^16 with 12-byte slots)."""
+    return int(n_tables) * params.K * slot_bytes(params)
+
+
+def _unit_bytes(lane_width: int, params: DtansParams) -> int:
+    """Shared memory of one unit in flight: its refill windows (two
+    parities of ``o`` words a lane) and the claim exchange."""
+    uw = unit_warps(lane_width)
+    R = uw * WARP
+    return (_align16(2 * params.o * R * 4)
+            + _align16(2 * uw * exchange_words(params) * 8)
+            + _align16(2 * uw * 4))
+
+
+@functools.lru_cache(maxsize=None)
+def tables_in_smem(params: DtansParams = PAPER) -> bool:
+    """Whether the kernels of a parameter set stage the coding tables in
+    shared memory: where two tables fit beside the largest plan of the
+    rest (the decode block at lane width 1024, f64: one unit of 32 warps,
+    each with its staging tile). Else every lookup reads global memory
+    through the read-only path. A value of the set, compiled into its
+    kernels (``DTANS_TABLES_SMEM``): true at `PAPER` (98,304 + 124,160 of
+    232,448 bytes), false at K = 2^16 (1,572,864 bytes of tables)."""
+    rest = _unit_bytes(1024, params) + unit_warps(1024) * stage_bytes(
+        DECODE_STAGE, 8)
+    return (_align16(table_bytes(2, params)) + rest
+            <= MAX_SMEM_BYTES - STATIC_SMEM_BYTES)
 
 
 def group_size(lane_width: int) -> int:
@@ -132,23 +205,26 @@ def unit_rows(lane_width: int) -> int:
 
 
 def stage_bytes(stage: int, itemsize: int) -> int:
-    """A decode warp's staging tile: 32 rows x ``stage`` segments of
-    columns (16 bytes a segment) and values (16 or 32 bytes)."""
-    return WARP * int(stage) * ENTRIES * (4 + int(itemsize))
+    """A decode warp's staging tile: 32 rows x ``stage`` * 4 entries
+    (``stage`` segments at `PAPER`) of columns (4 bytes an entry) and
+    values (4 or 8 bytes), whatever the parameter set."""
+    return WARP * int(stage) * 4 * (4 + int(itemsize))
 
 
 def smem_plan(n_tables: int, lane_width: int, itemsize: int, *,
               bn: int | None = None, units_per_block: int = 1,
-              stage: int = 0) -> dict:
+              stage: int = 0, params: DtansParams = PAPER) -> dict:
     """Bytes of shared memory each part of a block takes, and their
-    ``total``. ``bn=None`` is the SpMV / decode block (``units_per_block``
-    units in flight; the decode block adds a tile of ``stage`` segments
-    per warp), an integer the SpMM block at column tile ``bn``."""
+    ``total``, for the kernels of ``params``. ``bn=None`` is the SpMV /
+    decode block (``units_per_block`` units in flight; the decode block
+    adds a tile of ``stage`` * 4 entries a row per warp), an integer the
+    SpMM block at column tile ``bn``. ``tables`` is 0 where the set's
+    tables stay in global memory (`tables_in_smem`)."""
     uw = unit_warps(lane_width)
     R = uw * WARP
-    per_unit = (_align16(2 * WORDS * R * 4) + _align16(2 * uw * 2 * 8)
-                + _align16(2 * uw * 4))
-    plan = {"tables": _align16(n_tables * TABLE_SLOTS * SLOT_BYTES)}
+    per_unit = _unit_bytes(lane_width, params)
+    plan = {"tables": (_align16(table_bytes(n_tables, params))
+                       if tables_in_smem(params) else 0)}
     if bn is None:
         plan["units"] = units_per_block * per_unit
         if stage:
@@ -156,16 +232,19 @@ def smem_plan(n_tables: int, lane_width: int, itemsize: int, *,
                                                                itemsize)
     else:
         plan["units"] = per_unit
-        plan["ring"] = (_align16(RING_DEPTH * ENTRIES * R * 4)
-                        + _align16(RING_DEPTH * ENTRIES * R * itemsize))
+        h = entries(params)
+        plan["ring"] = (_align16(RING_DEPTH * h * R * 4)
+                        + _align16(RING_DEPTH * h * R * itemsize))
         plan["acc"] = _align16(R * int(bn) * itemsize)
     plan["total"] = sum(plan.values())
     return plan
 
 
-def spmm_fixed_bytes(n_tables: int, lane_width: int, itemsize: int) -> int:
+def spmm_fixed_bytes(n_tables: int, lane_width: int, itemsize: int,
+                     params: DtansParams = PAPER) -> int:
     """The SpMM plan without its accumulator tile."""
-    return smem_plan(n_tables, lane_width, itemsize, bn=0)["total"]
+    return smem_plan(n_tables, lane_width, itemsize, bn=0,
+                     params=params)["total"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,9 +287,10 @@ def _blocks(work: int, threads: int, smem: int, n_sm: int) -> int:
 
 def geometry(n_slices: int, lane_width: int, n_tables: int, itemsize: int,
              *, bn: int | None = None, batch: int = 1,
-             n_sm: int = SM_COUNT) -> Geometry:
+             n_sm: int = SM_COUNT, params: DtansParams = PAPER) -> Geometry:
     """The launch of the SpMV / decode kernels (``bn=None``) or of the SpMM
-    kernel at column tile ``bn`` over ``batch`` columns."""
+    kernel at column tile ``bn`` over ``batch`` columns, for the kernels
+    of ``params``."""
     G = group_size(lane_width)
     uw = unit_warps(lane_width)
     spu = WARP // G if uw == 1 else 1
@@ -219,25 +299,28 @@ def geometry(n_slices: int, lane_width: int, n_tables: int, itemsize: int,
         upb = max(SPMV_WARPS // uw, 1)
         threads = upb * uw * WARP
         smem = smem_plan(n_tables, lane_width, itemsize,
-                         units_per_block=upb)["total"]
+                         units_per_block=upb, params=params)["total"]
         return Geometry(G, uw, spu, units, upb, 0, threads,
                         _blocks(-(-units // upb), threads, smem, n_sm), smem)
     cw = consumer_warps(lane_width, bn)
     threads = (uw + cw) * WARP
-    smem = smem_plan(n_tables, lane_width, itemsize, bn=bn)["total"]
+    smem = smem_plan(n_tables, lane_width, itemsize, bn=bn,
+                     params=params)["total"]
     tiles = -(-int(batch) // int(bn))
     return Geometry(G, uw, spu, units, 1, cw, threads,
                     _blocks(units * tiles, threads, smem, n_sm), smem, tiles)
 
 
 def decode_geometry(n_slices: int, lane_width: int, n_tables: int,
-                    itemsize: int, *, n_sm: int = SM_COUNT) -> Geometry:
+                    itemsize: int, *, n_sm: int = SM_COUNT,
+                    params: DtansParams = PAPER) -> Geometry:
     """The launch of the decode kernel: the SpMV kernel's units and blocks,
-    each warp with a staging tile of `DECODE_STAGE` segments."""
-    base = geometry(n_slices, lane_width, n_tables, itemsize, n_sm=n_sm)
+    each warp with a staging tile of `DECODE_STAGE` * 4 entries a row."""
+    base = geometry(n_slices, lane_width, n_tables, itemsize, n_sm=n_sm,
+                    params=params)
     upb = base.units_per_block
     smem = smem_plan(n_tables, lane_width, itemsize, units_per_block=upb,
-                     stage=DECODE_STAGE)["total"]
+                     stage=DECODE_STAGE, params=params)["total"]
     return dataclasses.replace(
         base, smem=smem,
         blocks=_blocks(-(-base.units // upb), base.threads, smem, n_sm))
@@ -269,31 +352,39 @@ def choose_bn(rows: int, batch: int, itemsize: int, fixed: int = 0,
 
 
 
-def dtans_widest_bn(lane_width: int, n_tables: int, itemsize: int) -> int:
+def dtans_widest_bn(lane_width: int, n_tables: int, itemsize: int,
+                    params: DtansParams = PAPER) -> int:
     """Widest dtANS SpMM column tile whose `smem_plan` fits a block beside
     the kernels' static shared memory: 335 columns at L = 128 f32 on one
-    table, 163 at f64, 23 at L = 992 f32. Every tile gives the untiled
-    bits, so `ops.spmm` caps any wider tile here."""
+    table, 163 at f64, 23 at L = 992 f32 (`PAPER`); 0 where not even the
+    plan's fixed part fits. Every tile gives the untiled bits, so
+    `ops.spmm` caps any wider tile here."""
     room = MAX_SMEM_BYTES - STATIC_SMEM_BYTES - spmm_fixed_bytes(
-        n_tables, lane_width, itemsize)
+        n_tables, lane_width, itemsize, params)
     # the accumulator tile, (unit rows, bn), is a whole number of 16 bytes
     return max(room // (unit_rows(lane_width) * int(itemsize)), 0)
 
 
-def spmm_by_columns(lane_width: int) -> bool:
+def spmm_by_columns(lane_width: int, n_tables: int = 2, itemsize: int = 8,
+                    params: DtansParams = PAPER) -> bool:
     """Whether `ops.spmm` serves a lane width by one SpMV launch a column:
-    wider than the SpMM block takes (`MAX_SPMM_LANE_WIDTH`), which is
-    bitwise the SpMM column by column."""
-    return int(lane_width) > MAX_SPMM_LANE_WIDTH
+    wider than the SpMM block takes (`MAX_SPMM_LANE_WIDTH`), or a plan
+    that holds no column tile at all (`dtans_widest_bn` 0: the ring of a
+    set with long segments at a wide slice, e.g. ``l = 48`` at L = 512).
+    Either way it is bitwise the SpMM column by column. At `PAPER` every
+    lane width up to 992 fits, whatever the tables and dtype."""
+    return (int(lane_width) > MAX_SPMM_LANE_WIDTH
+            or dtans_widest_bn(lane_width, n_tables, itemsize, params) < 1)
 
 
 def dtans_bn(lane_width: int, n_tables: int, batch: int,
-             itemsize: int) -> int | None:
+             itemsize: int, params: DtansParams = PAPER) -> int | None:
     """Column tile of the dtANS SpMM: `choose_bn`'s beside the plan's fixed
     part, at most `DTANS_BN_MAX` columns; ``None`` when the whole batch
     fits one tile."""
     return choose_bn(unit_rows(lane_width), batch, itemsize,
-                     spmm_fixed_bytes(n_tables, lane_width, itemsize),
+                     spmm_fixed_bytes(n_tables, lane_width, itemsize,
+                                      params),
                      DTANS_BN_MAX)
 
 

@@ -793,7 +793,8 @@ class _DtansFamilySpec(FormatSpec):
                   artifacts: dict | None, **knobs):
         kn = self._knobs(knobs)
         enc = artifacts if artifacts is not None else {}
-        key = self.artifact_key(kn)
+        # another parameter set is another artifact (PAPER's keys as ever)
+        key = self.artifact_key(kn) + (() if params == PAPER else (params,))
         mat = enc.get(key)
         if mat is None:
             mat = self._encode(a, params=params, **kn)

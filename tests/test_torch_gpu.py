@@ -30,8 +30,9 @@ import torch
 from repro_torch import autotune, configs, obs
 from repro_torch.autotune import measure
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix
+from repro_torch.core.rgcsr_dtans import encode_rgcsr_matrix
 from repro_torch.core.csr_dtans import encode_matrix
-from repro_torch.core.params import TOY
+from repro_torch.core.params import TOY, DtansParams
 from repro_torch.data.pipeline import PipelineConfig, SyntheticTokens
 from repro_torch.kernels import _build, ops, padded, tiling
 from repro_torch.kernels import bcsr_spmv as BC
@@ -150,13 +151,14 @@ def test_sparse_linear_on_card_counts_launches():
 
 @pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
+    """TOY computes (bitwise its plain version); lane widths the SpMM
+    block cannot hold raise."""
     _need_card()
     d = _dense(12, 10, 0.5, np.float64, 9)
     toy = to_device(pack_matrix(encode_matrix(CSR.from_dense(d), params=TOY,
                                               lane_width=4)), "cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K.dtans_spmv(toy, torch.zeros(10, dtype=torch.float64,
-                                      device="cuda"))
+    x = torch.as_tensor(np.arange(10) / 7, device="cuda")
+    assert torch.equal(K.dtans_spmv(toy, x), K.dtans_spmv_plain(toy, x))
     dm = to_device(pack_matrix(encode_matrix(CSR.from_dense(d),
                                              lane_width=992)), "cuda")
     with pytest.raises(ValueError, match="shared memory"):
@@ -167,6 +169,92 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="lane widths up to 992"):
         K.dtans_spmm(dm, torch.zeros(10, 2, dtype=torch.float64,
                                      device="cuda"))
+
+
+#: The parameter sets of tests/test_torch_params.py: (w_bits, k_bits, l, o,
+#: f, m_bits), each moving one of the kernels' constants away from PAPER.
+PARAM_SETS = {
+    "PAPER": (32, 12, 8, 3, 2, 8), "TOY": (2, 3, 2, 3, 2, 2),
+    "K8": (32, 8, 4, 1, 1, 8), "K16": (32, 16, 4, 2, 1, 8),
+    "W16": (16, 12, 4, 3, 2, 8), "W8": (8, 12, 2, 3, 2, 8),
+    "M4": (32, 12, 8, 3, 1, 4), "L48": (32, 2, 48, 3, 3, 2),
+    "M16": (32, 16, 6, 3, 3, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane_width", [16, 128])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(PARAM_SETS))
+def test_param_set_kernels_vs_plain_on_card(name, dtype, lane_width):
+    """B1 (B = 1), B2 (B = 4 and 64, and a ragged tile of 24) and B3 of
+    each parameter set bitwise their plain versions on the card (f64 on
+    two tables, f32 on one), every launch counted; each set's plan as its
+    built kernels count it."""
+    _need_card()
+    params = DtansParams(*PARAM_SETS[name])
+    d = _dense(300, 90, 0.2, dtype, 31)
+    pm = pack_matrix(encode_matrix(CSR.from_dense(d), params=params,
+                                   lane_width=lane_width,
+                                   shared_table=dtype == np.float32))
+    dm = to_device(pm, "cuda")
+    rng = np.random.default_rng(12)
+    K.reset_launches()
+    DD.reset_launches()
+    x = torch.as_tensor(rng.standard_normal(90), dtype=dm.dtype,
+                        device="cuda")
+    assert torch.equal(_bits(K.dtans_spmv(dm, x)),
+                       _bits(K.dtans_spmv_plain(dm, x)))
+    for B in (4, 64):
+        X = torch.as_tensor(rng.standard_normal((90, B)), dtype=dm.dtype,
+                            device="cuda")
+        want = _bits(K.dtans_spmm_plain(dm, X))
+        assert torch.equal(_bits(K.dtans_spmm(dm, X)), want)
+        assert torch.equal(_bits(K.dtans_spmm(dm, X, bn=24)), want)
+    cols, vals = DD.dtans_decode(dm)
+    pcols, pvals = DD.dtans_decode_plain(dm)
+    assert torch.equal(cols, pcols)
+    assert torch.equal(_bits(vals), _bits(pvals))
+    torch.cuda.synchronize()
+    assert K.launches["dtans_spmv"] == 1 and K.launches["dtans_spmm"] == 4
+    assert DD.launches["dtans_decode"] == 1
+    T, item = dm.tables.shape[0], dm.dtype.itemsize
+    assert DD.smem_need(T, lane_width, item, params) == \
+        tiling.decode_geometry(1, lane_width, T, item, params=params).smem
+    assert K.smem_need(True, T, lane_width, item, 8, params) == \
+        tiling.smem_plan(T, lane_width, item, bn=8, params=params)["total"]
+    assert K.smem_need(False, T, lane_width, item, 0, params) == \
+        tiling.geometry(1, lane_width, T, item, params=params).smem
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["TOY", "K16", "W8", "L48", "M4"])
+def test_param_set_blocked_packs_on_card(name):
+    """The BCSR-dtANS (fused shared-column kernels) and RGCSR-dtANS packs
+    of a set: bitwise their plain versions and the generic kernels. (Not
+    M16: its 2x2 blocks' explicit zeros give one symbol a base of 28,672,
+    and the 96-bit state overflows, in the JAX package too: ROADMAP
+    C11.)"""
+    _need_card()
+    params = DtansParams(*PARAM_SETS[name])
+    d = _dense(96, 80, 0.3, np.float64, 33)
+    a = CSR.from_dense(d)
+    rng = np.random.default_rng(34)
+    x = torch.as_tensor(rng.standard_normal(80), device="cuda")
+    X = torch.as_tensor(rng.standard_normal((80, 5)), device="cuda")
+    for mat, shared in ((encode_bcsr_matrix(a, (2, 2), params=params), True),
+                        (encode_rgcsr_matrix(a, 8, params=params), False)):
+        pm = pack_matrix(mat)
+        assert pm.shared_cols == shared and pm.params == params
+        dm = to_device(pm, "cuda")
+        y = K.dtans_spmv(dm, x, shared_cols=shared)
+        assert torch.equal(y, K.dtans_spmv_plain(dm, x, shared_cols=shared))
+        assert torch.equal(y, K.dtans_spmv(dm, x))
+        Y = K.dtans_spmm(dm, X, shared_cols=shared)
+        assert torch.equal(Y, K.dtans_spmm_plain(dm, X, shared_cols=shared))
+        assert torch.equal(Y, K.dtans_spmm(dm, X))
+        _close(ops.spmv(mat, x).cpu(), torch.from_numpy(d @ x.cpu().numpy()),
+               torch.float64)
 
 
 @pytest.mark.gpu

@@ -90,10 +90,10 @@ def test_packed_tables_round_trip(name):
     included; the device matrix carries that tensor and counts it."""
     pm = pack_matrix(TABLE_CASES[name]())
     packed = pack_tables(pm.tab_symbol, pm.tab_digit, pm.tab_base,
-                         pm.tab_is_esc)
+                         pm.tab_is_esc, pm.params)
     T, K = pm.tab_symbol.shape
     assert packed.shape == (T, 3 * K) and packed.dtype == np.int32
-    sym, dig, base, esc = unpack_tables(packed)
+    sym, dig, base, esc = unpack_tables(packed, pm.params)
     np.testing.assert_array_equal(sym, pm.tab_symbol.astype(np.uint64))
     np.testing.assert_array_equal(dig, pm.tab_digit)
     np.testing.assert_array_equal(base, pm.tab_base)
