@@ -94,7 +94,7 @@ Phases, each raising on failure (no phase falls back to the CPU):
    head compressed by ``Engine.compress_lm_head`` at ``from_dense``'s
    defaults (a host encode of ~7.7 M nonzeros, made on the host beside
    phases 2-4c from the same seeded weights, checked by a digest of the
-   head) serves `SSM_PROMPTS`
+   head, moved to the card by ``SparseLinear.to``) serves `SSM_PROMPTS`
    (4g's, the last 301 tokens long, so its prefill runs two chunks of 256,
    the second padded; ``max_seq=320``)
    through the same three engines and checks as 4g (`_serve_and_check`:
@@ -107,8 +107,9 @@ Phases, each raising on failure (no phase falls back to the CPU):
    their largest |logit|, argmax equal) and timed.
 4i. the row-sharded head: phase 4's weight built by
    ``SparseLinear.from_dense(n_shards=4)`` (its four shards of 96 slices
-   encoded on the host beside phases 2-4c, then uploaded; the whole head
-   is not, the layer never needs it).
+   encoded on the host beside phases 2-4c, then moved to the card by
+   ``SparseLinear.to``, where ``from_dense`` ends; the whole head is not
+   encoded, the layer never needs it).
    The per-shard loop serves B =
    1, 4, 64 and 512 bitwise phase 4's layer, 4 launches a pass, and
    phase 4g's requests through a pooled engine (4 launches a step) with
@@ -188,10 +189,11 @@ Phases, each raising on failure (no phase falls back to the CPU):
    the collectives' share on rank 0 (the last step's collectives over the
    warm untimed step before it).
 4o. parameter sets: the dtANS kernels compiled for each set of
-   `PARAM_SETS` (PAPER, TOY and seven that each move one constant: K =
-   2^8 and 2^16, whose 1.5 MB of tables stay in global memory, 16- and
-   8-bit words, M = 2^4 and 2^16 with its 16-byte slots, l = 48, o = 1
-   and 2). (a) Each set's encodes of tests/test_torch_params.py's
+   `PARAM_SETS` (`tests/param_sets.py`: PAPER, TOY and eight that move
+   its constants: K = 2^8 and 2^16, whose 1.5 MB of tables stay in global
+   memory, 16- and 8-bit words, M = 2^4 and 2^16 with its 16-byte slots,
+   l = 48, o = 1 and 2, and L66's 2-slot tables, 22-bit words and 66
+   positions a segment). (a) Each set's encodes of tests/test_torch_params.py's
    matrices (f32 on one table, f64 on two) and of a band of 109,970
    nonzeros (f32, f64) go through ``ops.spmv`` (B1), ``ops.spmm`` at B =
    4 and 64 (B2) and ``ops.decode`` (B3), bitwise the plain versions and
@@ -306,6 +308,7 @@ from repro_torch.train.trainer import TrainConfig, Trainer  # noqa: E402
 import quickstart_torch  # noqa: E402
 from cg_solver_torch import cg as cg_torch  # noqa: E402
 from hand_made_packs import HAND_MADE  # noqa: E402
+from param_sets import PARAM_SETS as SET_TUPLES  # noqa: E402
 from torch_shard_ranks import rank_spmm  # noqa: E402
 from train_lm_torch import sparse_head_eval  # noqa: E402
 
@@ -447,13 +450,11 @@ def phase_set_build(build: _build.Build) -> None:
     sets = RESULTS["set_registers"] = {}
     for name, p in PARAM_SETS.items():
         for stem in _build.PARAM_SOURCES:
-            text = _build.log_path(stem, p).read_text()
-            regs = [int(v) for v in re.findall(r"Used (\d+) registers", text)]
-            spill = [int(a) + int(b) for a, b in re.findall(
-                r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
-            sets[f"{stem}[{name}]"] = {"most_registers": max(regs),
-                                       "spill_bytes": sum(spill),
-                                       "kernels": len(regs)}
+            lines = _build.ptxas(_build.log_path(stem, p).read_text())
+            sets[f"{stem}[{name}]"] = {
+                "most_registers": max(v[0] for v in lines.values()),
+                "spill_bytes": sum(v[2] + v[3] for v in lines.values()),
+                "kernels": len(lines)}
         static = K.static_smem_bytes(p)
         assert static <= tiling.STATIC_SMEM_BYTES, (name, static)
     log("[build] per set (most registers / spill stores+loads over its "
@@ -499,26 +500,15 @@ def kernel_registers() -> list:
     rows = []
     for stem in ("sell_spmv", "rgcsr_spmv", "bcsr_spmv", "dtans_decode"):
         path = _build.log_path(stem)
-        cur, spill = None, (0, 0)
-        for line in (path.read_text() if path.exists() else "").splitlines():
-            m = re.search(r"Compiling entry function '([^']+)'", line)
-            if m:
-                cur = _kernel_name(m.group(1))
-                continue
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                spill = (int(m.group(1)), int(m.group(2)))
-                continue
-            m = re.search(r"Used (\d+) registers", line)
-            if m and cur is not None:
+        text = path.read_text() if path.exists() else ""
+        for mangled, (regs, _, stores, loads) in _build.ptxas(text).items():
+            cur = _kernel_name(mangled)
+            if cur is not None:
                 rows.append({
                     "stem": stem, "kernel": cur[0],
                     "type": "float" if cur[1] == "f" else "double",
-                    "args": cur[2],
-                    "registers": int(m.group(1)), "spill_stores": spill[0],
-                    "spill_loads": spill[1]})
-                cur = None
+                    "args": cur[2], "registers": regs,
+                    "spill_stores": stores, "spill_loads": loads})
     return rows
 
 
@@ -1852,7 +1842,8 @@ def ssm_head_host() -> dict:
     (`_mamba2`) and its tied head compressed by `Engine.compress_lm_head`
     there, with a digest of the head's weights. `main` runs it in a process
     of its own beside phases 2-4c; `phase_engine_ssm` checks the digest
-    against the card's model and uploads the layer."""
+    against the card's model and moves the layer there
+    (`SparseLinear.to`)."""
     model = _mamba2("cpu")
     t0 = time.perf_counter()
     head = Engine.compress_lm_head(model, device="cpu")
@@ -1896,13 +1887,13 @@ def _long_prefill(model, prompt: np.ndarray) -> dict:
             "prefill_ms": statistics.median(ms), "prefill_runs_ms": ms}
 
 
-def phase_engine_ssm(host: dict | None = None) -> None:
+def phase_engine_ssm(host: dict) -> None:
     """mamba2-130m at full width (attention-free) serves `SSM_PROMPTS`
     through the port's `Engine` with its tied head compressed by
-    `Engine.compress_lm_head` at `from_dense`'s defaults
-    (`_serve_and_check`; ``host``: the head `ssm_head_host` compressed
-    beside the earlier phases); its longest prompt's chunked prefill is
-    held against the recurrence (`_long_prefill`)."""
+    `Engine.compress_lm_head` at `from_dense`'s defaults (``host``: the
+    head `ssm_head_host` compressed on the host, moved to the card by
+    `SparseLinear.to`; `_serve_and_check`); its longest prompt's chunked
+    prefill is held against the recurrence (`_long_prefill`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.perf_counter()
     model = _mamba2()
@@ -1915,24 +1906,17 @@ def phase_engine_ssm(host: dict | None = None) -> None:
         f"chunk {cfg.ssm_chunk}, vocab {cfg.vocab}, tied), "
         f"{api.param_count(model):,} parameters, built in {build_s:.1f} s; "
         f"dtype float32 in place of the config's bfloat16")
-    if host is None:
-        t0 = time.perf_counter()
-        head = Engine.compress_lm_head(model)
-        encode_s = time.perf_counter() - t0
-    else:
-        assert host["digest"] == _digest(model.embed.head_weight()), \
-            "the host's mamba2-130m head differs from the card's"
-        head = dataclasses.replace(host["head"], device=model.device)
-        to_device(head.packed, model.device)
-        encode_s = host["encode_s"]
+    assert host["digest"] == _digest(model.embed.head_weight()), \
+        "the host's mamba2-130m head differs from the card's"
+    head = host["head"].to("cuda")
+    encode_s = host["encode_s"]
     dense_mb = cfg.vocab * cfg.d_model * 4 / 1e6
     log(f"[ssm] head W^T {cfg.vocab}x{cfg.d_model} f32 "
         f"({dense_mb:.1f} MB dense, {_l2_note(cfg.vocab * cfg.d_model * 4)})"
         f" -> nnz {head.mat.nnz:,}, {head.compressed_bytes:,} B "
         f"({head.compression_vs_dense:.2f}x vs dense, "
         f"{_l2_note(head.compressed_bytes)}); compress_lm_head "
-        f"{encode_s:.1f} s on the host"
-        + ("" if host is None else " (beside phases 2-4c)"))
+        f"{encode_s:.1f} s on the host (beside phases 2-4c)")
     prng = np.random.default_rng(SEED + 7)
     prompts = [prng.integers(0, cfg.vocab, size=n) for n in SSM_PROMPTS]
     run = _serve_and_check("ssm", model, head, prompts, SSM_MAX_SEQ)
@@ -2002,19 +1986,19 @@ def shard_host() -> dict:
     """4i's host work, from `SEED` alone: phase 4's weights built into a
     `HEAD_SHARDS`-shard layer by ``SparseLinear.from_dense`` on the host
     (its shards encoded, uploaded to the host), timed. `main` runs it
-    beside phases 2-4c; `phase_shard` uploads the plan to the card."""
+    beside phases 2-4c; `phase_shard` moves the layer to the card
+    (`SparseLinear.to`)."""
     rng = np.random.default_rng(SEED)
     w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(np.float32)
     t0 = time.perf_counter()
     sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
                                  lane_width=128, shared_table=True,
                                  n_shards=HEAD_SHARDS, device="cpu")
-    sh._encode_whole = None     # phase 4i never encodes the whole head
     return {"sh": sh, "encode_s": time.perf_counter() - t0}
 
 
 def phase_shard(sl: SparseLinear, model, prompts: list, streams: list,
-                host: dict | None = None) -> None:
+                host: dict) -> None:
     """Phase 4's head built by ``SparseLinear.from_dense(n_shards=4)``: the
     per-shard loop serves the phase-4 batch sizes bitwise phase 4's layer
     (one launch a shard a pass) and phase 4g's requests through the pooled
@@ -2022,20 +2006,10 @@ def phase_shard(sl: SparseLinear, model, prompts: list, streams: list,
     the same plan on 4 gloo ranks on this one card, each uploading its own
     shard, bitwise the loop path; then every registered format's plan of a
     phase-3 matrix on 2 and 4 ranks against its single-device runner.
-    ``host``: the layer `shard_host` built beside the earlier phases."""
-    if host is None:
-        rng = np.random.default_rng(SEED)
-        w = (rng.standard_normal((D_MODEL, VOCAB)) * 0.02).astype(
-            np.float32)
-        t0 = time.perf_counter()
-        sh = SparseLinear.from_dense(w, sparsity=0.8, value_bits=8,
-                                     lane_width=128, shared_table=True,
-                                     n_shards=HEAD_SHARDS, device="cuda")
-        enc_s = time.perf_counter() - t0
-    else:
-        sh = dataclasses.replace(host["sh"], device=model.device)
-        shard_ops.upload(sh.plan, sh.device)
-        enc_s = host["encode_s"]
+    ``host``: the layer `shard_host` built on the host beside the earlier
+    phases, moved to the card by `SparseLinear.to`."""
+    sh = host["sh"].to("cuda")
+    enc_s = host["encode_s"]
     plan = sh.plan
     slices = [p.n_slices for p in plan.shards]
     assert sh.mat is None, "the sharded layer encoded the whole head"
@@ -2045,8 +2019,8 @@ def phase_shard(sl: SparseLinear, model, prompts: list, streams: list,
         f"shards of {plan.shard_rows} rows ({slices} slices of 128), "
         f"{plan.shard_nbytes} B ({plan.total_nbytes} B in all, "
         f"{sl.compressed_bytes} B unsharded); from_dense {enc_s:.1f} s on "
-        f"the host (the shards encoded, not the whole head"
-        + (")" if host is None else "; beside phases 2-4c)"))
+        f"the host (the shards encoded, not the whole head; beside phases "
+        f"2-4c)")
 
     # the main path of this slice: the loop, through the layer and the
     # engine, counts from 0
@@ -3220,7 +3194,7 @@ def cg_host() -> dict:
     return {"mat": mat, "encode_s": time.perf_counter() - t0}
 
 
-def phase_cg(host: dict | None = None) -> None:
+def phase_cg(host: dict) -> None:
     """Phase 4l: CG on ``stencil_2d(CG_SIDE)`` in float64 (262,144
     unknowns) to a relative residual of `CG_TOL`, its SpMV B1 (one launch
     an iteration and one for the first residual), then the same CG with
@@ -3232,14 +3206,10 @@ def phase_cg(host: dict | None = None) -> None:
     ``host``: the system `cg_host` encoded beside the earlier phases."""
     a = stencil_2d(CG_SIDE)
     n = a.shape[0]
-    t0 = time.perf_counter()
-    if host is None:
-        mat = encode_matrix(a, lane_width=128)
-    else:
-        mat = host["mat"]
-        assert (mat.nnz, mat.shape) == (a.nnz, a.shape)
+    mat = host["mat"]
+    assert (mat.nnz, mat.shape) == (a.nnz, a.shape)
     pm = pack_matrix(mat)
-    enc_s = time.perf_counter() - t0 if host is None else host["encode_s"]
+    enc_s = host["encode_s"]
     rng = np.random.default_rng(SEED)
     x_true = rng.standard_normal(n)
     rows = np.repeat(np.arange(n), np.diff(a.indptr))
@@ -3441,17 +3411,13 @@ def _check_zero1(ranks: list, want: list) -> dict:
 # 4o. parameter sets
 # ---------------------------------------------------------------------------
 
-#: The parameter sets of tests/test_torch_params.py, (w_bits, k_bits, l,
-#: o, f, m_bits): PAPER, the reference's TOY, and seven that each move one
-#: of the dtANS kernels' constants (K = 2^8 and 2^16, the latter's tables
-#: in global memory; 16- and 8-bit words; M = 2^4 and 2^16, a 16-byte
-#: slot; l = 48; o = 1 and 2).
-PARAM_SETS = {name: DtansParams(*t) for name, t in (
-    ("PAPER", (32, 12, 8, 3, 2, 8)), ("TOY", (2, 3, 2, 3, 2, 2)),
-    ("K8", (32, 8, 4, 1, 1, 8)), ("K16", (32, 16, 4, 2, 1, 8)),
-    ("W16", (16, 12, 4, 3, 2, 8)), ("W8", (8, 12, 2, 3, 2, 8)),
-    ("M4", (32, 12, 8, 3, 1, 4)), ("L48", (32, 2, 48, 3, 3, 2)),
-    ("M16", (32, 16, 6, 3, 3, 16)))}
+#: The parameter sets of the tests (`tests/param_sets.py`), as
+#: `DtansParams`: PAPER, the reference's TOY, and eight that move the
+#: dtANS kernels' constants (K = 2^8 and 2^16, the latter's tables in
+#: global memory; 16- and 8-bit words; M = 2^4 and 2^16, a 16-byte slot;
+#: l = 48; o = 1 and 2; L66's 2-slot tables, 22-bit words and 66
+#: positions a segment).
+PARAM_SETS = {name: DtansParams(*t) for name, t in SET_TUPLES.items()}
 #: The set farthest from PAPER: the head is encoded at it in 4o(b).
 HEAD_SET = "K16"
 #: 4o(a)'s banded matrix: 10,000 rows of 11 entries, 109,970 nonzeros.

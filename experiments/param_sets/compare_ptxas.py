@@ -17,34 +17,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.kernels._build import ptxas  # noqa: E402
+
 STEMS = ("dtans_spmv", "dtans_decode")
-
-
-def ptxas(log: str) -> dict:
-    """Kernel (mangled name, the anonymous namespace's hash removed) ->
-    (registers, stack bytes, spill store bytes, spill load bytes)."""
-    out, cur, spill = {}, None, (0, 0, 0)
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
-                         "ANON", m.group(1))
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and cur:
-            spill = tuple(int(v) for v in m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            out[cur] = (int(m.group(1)),) + spill
-            cur = None
-    return out
 
 
 def build_logs(root: Path, params: list | None) -> dict:

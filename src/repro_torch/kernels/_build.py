@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -93,6 +94,28 @@ def library_path(stem: str, params: DtansParams = PAPER) -> Path:
 
 def log_path(stem: str, params: DtansParams = PAPER) -> Path:
     return BUILD_DIR / f"{lib_name(stem, params)}.log"
+
+
+def ptxas(log: str) -> dict[str, tuple[int, int, int, int]]:
+    """The ``-Xptxas -v`` lines of a build log: kernel (its mangled name,
+    the anonymous namespace's per-file hash replaced by ``ANON``) ->
+    (registers, stack frame bytes, spill store bytes, spill load bytes)."""
+    out, cur, spill = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
+                         "ANON", m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            spill = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)),) + spill
+            cur = None
+    return out
 
 
 class Build:

@@ -186,7 +186,7 @@ __device__ __forceinline__ void decode_entries(const Args& a, const Geom& gm,
     decode_segment(a, tb, g, st, j, sg);
 #pragma unroll
     for (int i = 0; i < H; ++i) {
-      const bool ok = (sg.valid >> i) & 1u;
+      const bool ok = bit(sg.valid, i);
       tcol[eslot(wl, fill)] = ok ? sg.col[i] : -1;
       tval[eslot(wl, fill)] = ok ? (B)sg.vb[i] : (B)0;
       if (++fill == TILE_ENTRIES) {
@@ -246,15 +246,15 @@ dtans_decode_kernel(Args a, Geom gm, int4* __restrict__ cols_out,
         decode_segment(a, tb, g, st, j, sg);
         const int p = j & (STAGE - 1);
         int4 c;
-        c.x = (sg.valid & 1u) ? sg.col[0] : -1;
-        c.y = (sg.valid & 2u) ? sg.col[1] : -1;
-        c.z = (sg.valid & 4u) ? sg.col[2] : -1;
-        c.w = (sg.valid & 8u) ? sg.col[3] : -1;
+        c.x = bit(sg.valid, 0) ? sg.col[0] : -1;
+        c.y = bit(sg.valid, 1) ? sg.col[1] : -1;
+        c.z = bit(sg.valid, 2) ? sg.col[2] : -1;
+        c.w = bit(sg.valid, 3) ? sg.col[3] : -1;
         tcol[slot<STAGE>(wl, p)] = c;
         unsigned long long vb[H];  // value bits, 0 (+0) where invalid
 #pragma unroll
         for (int i = 0; i < H; ++i)
-          vb[i] = ((sg.valid >> i) & 1u) ? sg.vb[i] : 0ull;
+          vb[i] = bit(sg.valid, i) ? sg.vb[i] : 0ull;
         if constexpr (NV == 1) {
           tval[slot<STAGE>(wl, p)] =
               make_int4((int)(unsigned)vb[0], (int)(unsigned)vb[1],
@@ -325,7 +325,7 @@ long long dtans_decode_smem_need(int T, int uw, int upb, int itemsize) {
 int dtans_decode_launch(int f64, const void* stream, long long wmax,
                         const void* esc, long long emax, const void* ns,
                         const void* nnz, const void* tables, int T,
-                        long long pattern_bits, int S, int L, int max_nseg,
+                        PatternArg pattern_bits, int S, int L, int max_nseg,
                         int group, int uw, int spu, long long units, int upb,
                         int cw, int blocks, int threads, long long smem,
                         void* cols, void* vals, void* cuda_stream) {

@@ -86,7 +86,7 @@ constexpr int MB = DTANS_M_BITS;  // log2(M): multiplicity cap bits
 constexpr bool TABLES_SMEM = DTANS_TABLES_SMEM != 0;
 constexpr int H = LS / 2;                       // nonzeros per segment
 constexpr int DG = (32 / MB) > 0 ? (32 / MB) : 1;  // digits per fold group
-constexpr int KSLOTS = 1 << KB;
+constexpr long long KSLOTS = 1ll << KB;
 constexpr uint32_t KM1 = (uint32_t)((1ull << KB) - 1ull);
 constexpr uint32_t WM1 = (uint32_t)((1ull << WB) - 1ull);
 constexpr unsigned FULL = 0xFFFFFFFFu;
@@ -100,25 +100,63 @@ constexpr int ESC_SHIFT = 2 * MB + 1;
 constexpr int CW = (O + 1 + 3) / 4;
 constexpr int EW = (LS + 3) / 4;
 constexpr int XW = CW > EW ? CW : EW;
+// (kernels/dtans_spmv.py::check_params refuses m_bits = 32 by name.)
 static_assert(WB >= 1 && WB <= 32, "stream words hold at most 32 bits");
-static_assert(KB >= 1 && KB <= 24 && MB >= 1 && MB <= KB,
-              "tables of at most 2^24 slots; digits and bases fit a u32");
-static_assert(LS % 2 == 0 && H <= 32, "segments of (delta, value) pairs");
+static_assert(KB >= 1 && KB <= 32 && MB >= 1 && MB <= KB && MB <= 31,
+              "slots of at most 32 bits; digits and bases fit a u32");
+static_assert(LS >= 2 && LS % 2 == 0, "segments of (delta, value) pairs");
 static_assert(F >= 1 && F <= O, "0 < f <= o");
 
 using Meta = typename std::conditional<MW == 1, uint32_t,
                                       unsigned long long>::type;
-using EscMask = typename std::conditional<(LS > 32), unsigned long long,
-                                         unsigned>::type;
+
+// N bits in (N + 63) / 64 words, for masks of more than 64 positions.
+template <int N>
+struct BitsN {
+  unsigned long long w[(N + 63) / 64];
+};
+// A mask of N positions: a u32 up to 32, a u64 up to 64, else `BitsN`.
+template <int N>
+using Bits = typename std::conditional<
+    (N > 64), BitsN<N>,
+    typename std::conditional<(N > 32), unsigned long long,
+                              unsigned>::type>::type;
+using EscMask = Bits<LS>;  // bit k: position k escapes
+using ValidMask = Bits<H>;  // bit i: entry i of the segment is one
 // Bit k: the table of segment position k (an int up to 32 positions).
-using Pattern = typename std::conditional<(LS > 32), unsigned long long,
-                                         int>::type;
-__device__ __forceinline__ int popc_mask(EscMask m) {
-  if constexpr (LS > 32) {
-    return __popcll(m);
-  } else {
-    return __popc(m);
-  }
+using Pattern = typename std::conditional<(LS > 32), Bits<LS>, int>::type;
+// The pattern as the C entries take it: one long long up to 64
+// positions, else a host array of its (LS + 63) / 64 words.
+using PatternArg = typename std::conditional<(LS > 64), const long long*,
+                                            long long>::type;
+
+// Bit k of a mask (k a constant once unrolled).
+template <typename M>
+__device__ __forceinline__ int bit(const M& m, int k) {
+  return (int)((m >> k) & 1);
+}
+template <int N>
+__device__ __forceinline__ int bit(const BitsN<N>& m, int k) {
+  return (int)((m.w[k >> 6] >> (k & 63)) & 1ull);
+}
+__device__ __forceinline__ void set_bit(unsigned& m, int k) { m |= 1u << k; }
+__device__ __forceinline__ void set_bit(unsigned long long& m, int k) {
+  m |= 1ull << k;
+}
+template <int N>
+__device__ __forceinline__ void set_bit(BitsN<N>& m, int k) {
+  m.w[k >> 6] |= 1ull << (k & 63);
+}
+__device__ __forceinline__ int popc_mask(unsigned m) { return __popc(m); }
+__device__ __forceinline__ int popc_mask(unsigned long long m) {
+  return __popcll(m);
+}
+template <int N>
+__device__ __forceinline__ int popc_mask(const BitsN<N>& m) {
+  int c = 0;
+#pragma unroll
+  for (int i = 0; i < (N + 63) / 64; ++i) c += __popcll(m.w[i]);
+  return c;
 }
 
 struct Args {
@@ -182,9 +220,12 @@ __device__ __forceinline__ UnitSmem unit_smem(unsigned char* base, int uw) {
 }
 
 // A table is KSLOTS u64 symbols, then KSLOTS metas: TSYM u64s or TMETA
-// metas from one table's start to the next's.
-constexpr int TSYM = KSLOTS * SLOT_BYTES / 8;
-constexpr int TMETA = KSLOTS * SLOT_BYTES / (int)sizeof(Meta);
+// metas from one table's start to the next's; an int offset where two
+// tables stay under 2^31 bytes (every set up to k_bits = 26).
+using TabIdx = typename std::conditional<
+    (2 * KSLOTS * SLOT_BYTES < (1ll << 31)), int, long long>::type;
+constexpr TabIdx TSYM = (TabIdx)(KSLOTS * SLOT_BYTES / 8);
+constexpr TabIdx TMETA = (TabIdx)(KSLOTS * SLOT_BYTES / (int)sizeof(Meta));
 
 struct Tables {
   const unsigned long long* sym;  // table t at sym + t * TSYM
@@ -201,12 +242,12 @@ __device__ __forceinline__ Tables stage_tables(const Args& a,
     if constexpr (KSLOTS * SLOT_BYTES % 16 == 0) {
       const int4* src = reinterpret_cast<const int4*>(a.tables);
       int4* dst = reinterpret_cast<int4*>(smem);
-      const int n16 = a.T * KSLOTS * SLOT_BYTES / 16;
+      const int n16 = (int)(a.T * KSLOTS * SLOT_BYTES / 16);
       for (int i = threadIdx.x; i < n16; i += blockDim.x)
         dst[i] = __ldg(src + i);
     } else {
       int* dst = reinterpret_cast<int*>(smem);
-      const int n4 = a.T * KSLOTS * SLOT_BYTES / 4;
+      const int n4 = (int)(a.T * KSLOTS * SLOT_BYTES / 4);
       for (int i = threadIdx.x; i < n4; i += blockDim.x)
         dst[i] = __ldg(a.tables + i);
     }
@@ -478,7 +519,7 @@ struct Lane {
 struct Seg {
   int col[H];
   unsigned long long vb[H];
-  unsigned valid;  // bit i: position i holds an entry
+  ValidMask valid;  // bit i: position i holds an entry
 };
 
 // init_state (kernels/common.py): O claims in k order by every live lane.
@@ -535,15 +576,15 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     unsigned long long pair = st.w[O - 1 - wi];
     if (wi + 1 < O) pair |= (unsigned long long)st.w[O - 2 - wi] << WB;
     const uint32_t slot = (uint32_t)(pair >> sh) & KM1;
-    const int t = (int)((a.pattern_bits >> k) & 1);
+    const int t = bit(a.pattern_bits, k);
     syms[k] = table_sym(tb, t, slot);
     meta[k] = table_meta(tb, t, slot);
   }
-  EscMask escm = 0u;
+  EscMask escm{};
   uint32_t digs[LS], bass[LS];
 #pragma unroll
   for (int k = 0; k < LS; ++k) {
-    if (active && ((meta[k] >> ESC_SHIFT) & 1u)) escm |= (EscMask)1u << k;
+    if (active && ((meta[k] >> ESC_SHIFT) & 1u)) set_bit(escm, k);
     digs[k] = active ? (uint32_t)(meta[k] & ((1u << MB) - 1u)) : 0u;
     bass[k] = active ? (uint32_t)((meta[k] >> MB) & ((2u << MB) - 1u)) : 1u;
   }
@@ -600,7 +641,7 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     unsigned bk[LS];
 #pragma unroll
     for (int k = 0; k < LS; ++k)
-      bk[k] = __ballot_sync(FULL, (unsigned)((escm >> k) & 1u));
+      bk[k] = __ballot_sync(FULL, (unsigned)bit(escm, k));
     if (!g.wide) {
 #pragma unroll
       for (int k = 0; k < LS; ++k) {
@@ -627,9 +668,9 @@ __device__ __forceinline__ void decode_segment(const Args& a,
     const int emax1 = (int)a.emax - 1;
 #pragma unroll
     for (int k = 0; k < LS; ++k) {
-      const int t = (int)((a.pattern_bits >> k) & 1);
+      const int t = bit(a.pattern_bits, k);
       const int cur = t ? st.esc1 : st.esc0;
-      if ((escm >> k) & 1u) {
+      if (bit(escm, k)) {
         const int e = clampi(cur + pre[k], emax1);
         syms[k] = __ldg(a.esc + ((long long)t * a.S + sl) * a.emax + e);
       }
@@ -642,14 +683,14 @@ __device__ __forceinline__ void decode_segment(const Args& a,
   }
 
   // ---- positions: even = delta, odd = value bits -------------------------
-  out.valid = 0u;
+  out.valid = ValidMask{};
 #pragma unroll
   for (int i = 0; i < H; ++i) {
     const int q = j * H + i;
     const bool ok = active && (q < st.nnz);
     if (ok) {
       st.col = (int)((uint32_t)st.col + (uint32_t)syms[2 * i]);
-      out.valid |= 1u << i;
+      set_bit(out.valid, i);
     }
     out.col[i] = st.col;
     out.vb[i] = syms[2 * i + 1];
@@ -688,9 +729,19 @@ template <> struct Num<double> {
   __device__ static double add(double a, double b) { return __dadd_rn(a, b); }
 };
 
+// Args::pattern_bits from the C entries' argument (`PatternArg`).
+inline void set_pattern(int& p, long long v) { p = (int)v; }
+inline void set_pattern(unsigned long long& p, long long v) {
+  p = (unsigned long long)v;
+}
+template <int N>
+inline void set_pattern(BitsN<N>& p, const long long* v) {
+  for (int i = 0; i < (N + 63) / 64; ++i) p.w[i] = (unsigned long long)v[i];
+}
+
 inline Args make_args(const void* stream, long long wmax, const void* esc,
                       long long emax, const void* ns, const void* nnz,
-                      const void* tables, int T, long long pattern_bits,
+                      const void* tables, int T, PatternArg pattern_bits,
                       int S, int L, int max_nseg) {
   Args a;
   a.stream = static_cast<const uint32_t*>(stream);
@@ -701,7 +752,7 @@ inline Args make_args(const void* stream, long long wmax, const void* esc,
   a.nnz = static_cast<const int*>(nnz);
   a.tables = static_cast<const int*>(tables);
   a.T = T;
-  a.pattern_bits = (Pattern)pattern_bits;
+  set_pattern(a.pattern_bits, pattern_bits);
   a.S = S;
   a.L = L;
   a.max_nseg = max_nseg;

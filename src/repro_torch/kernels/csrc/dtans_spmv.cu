@@ -101,13 +101,13 @@ dtans_spmv_kernel(Args a, Geom gm, const V* __restrict__ x, long long n,
       V xv[H];
 #pragma unroll
       for (int i = 0; i < H; ++i)
-        xv[i] = ((cur.valid >> i) & 1u) ? __ldg(x + cols[i]) : V(0);
+        xv[i] = bit(cur.valid, i) ? __ldg(x + cols[i]) : V(0);
       Seg nxt = cur;
       if (j + 1 < nseg) decode_segment(a, tb, g, st, j + 1, nxt);
       V sum = V(0);
 #pragma unroll
       for (int i = 0; i < H; ++i) {
-        const V c = ((cur.valid >> i) & 1u)
+        const V c = bit(cur.valid, i)
                         ? Num<V>::mul(Num<V>::value(cur.vb[i]), xv[i])
                         : V(0);
         sum = (i == 0) ? c : Num<V>::add(sum, c);
@@ -239,7 +239,7 @@ dtans_spmm_kernel(Args a, Geom gm, const V* __restrict__ x, long long n,
         V vals[H];
 #pragma unroll
         for (int i = 0; i < H; ++i) {
-          if (!((sg.valid >> i) & 1u)) cols[i] |= INVALID;
+          if (!bit(sg.valid, i)) cols[i] |= INVALID;
           vals[i] = Num<V>::value(sg.vb[i]);
         }
         const int stage = (int)(q % D);
@@ -422,7 +422,7 @@ long long dtans_smem_need(int spmm, int T, int uw, int upb, int bn,
 int dtans_spmv_launch(int f64, const void* stream, long long wmax,
                       const void* esc, long long emax, const void* ns,
                       const void* nnz, const void* tables, int T,
-                      long long pattern_bits, int S, int L, int max_nseg,
+                      PatternArg pattern_bits, int S, int L, int max_nseg,
                       int group, int uw, int spu, long long units, int upb,
                       int cw, int blocks, int threads, long long smem,
                       int shared, const void* x, long long n, void* y,
@@ -453,7 +453,7 @@ int dtans_spmv_launch(int f64, const void* stream, long long wmax,
 int dtans_spmm_launch(int f64, const void* stream, long long wmax,
                       const void* esc, long long emax, const void* ns,
                       const void* nnz, const void* tables, int T,
-                      long long pattern_bits, int S, int L, int max_nseg,
+                      PatternArg pattern_bits, int S, int L, int max_nseg,
                       int group, int uw, int spu, long long units, int upb,
                       int cw, int blocks, int threads, long long smem,
                       int shared, const void* x, long long n, long long B,

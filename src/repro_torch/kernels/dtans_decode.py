@@ -26,9 +26,9 @@ import torch
 from repro_torch.core.params import PAPER, DtansParams
 from repro_torch.kernels import _build, tiling
 from repro_torch.kernels.common import bits_to_value, iter_segments
-from repro_torch.kernels.dtans_spmv import (GEOM_ARGS, MATRIX_ARGS,
-                                           check_plan, kernel_args, n_sm,
-                                           raise_on)
+from repro_torch.kernels.dtans_spmv import (GEOM_ARGS, check_plan,
+                                           kernel_args, matrix_argtypes,
+                                           n_sm, raise_on)
 from repro_torch.kernels.pack import DeviceMatrix
 
 launches = {"dtans_decode": 0}
@@ -44,8 +44,8 @@ def reset_launches() -> None:
 def _lib(params: DtansParams = PAPER) -> ctypes.CDLL:
     lib = _build.load("dtans_decode", params)
     if not getattr(lib, "_repro_declared", False):
-        lib.dtans_decode_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
-            _VP, _VP, _VP]
+        lib.dtans_decode_launch.argtypes = matrix_argtypes(params) + \
+            GEOM_ARGS + [_VP, _VP, _VP]
         lib.dtans_decode_launch.restype = _I
         lib.dtans_decode_smem_need.argtypes = [_I, _I, _I, _I]
         lib.dtans_decode_smem_need.restype = _LL

@@ -51,6 +51,26 @@ launches = {"dtans_spmv": 0, "dtans_spmm": 0, "dtans_spmv_shared": 0,
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 MATRIX_ARGS = [_I, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _LL, _I, _I, _I]
 GEOM_ARGS = [_I, _I, _I, _LL, _I, _I, _I, _I, _LL]
+_PATTERN = 9                            # MATRIX_ARGS' pattern argument
+
+
+def matrix_argtypes(params: DtansParams) -> list:
+    """`MATRIX_ARGS` of a set's library: past 64 segment positions the
+    pattern goes as a pointer to its 64-bit words (``PatternArg`` in
+    ``csrc/dtans_decode.cuh``)."""
+    if params.l <= 64:
+        return MATRIX_ARGS
+    return MATRIX_ARGS[:_PATTERN] + [_VP] + MATRIX_ARGS[_PATTERN + 1:]
+
+
+def pattern_arg(pattern, l: int):
+    """The pattern (bit k: the table of segment position k) as the C
+    entries take it: one signed 64-bit word up to 64 positions, else a
+    ctypes array of ``ceil(l / 64)`` of them."""
+    bits = sum(int(t) << k for k, t in enumerate(pattern))
+    words = [(bits >> (64 * i)) & (2 ** 64 - 1) for i in range(-(-l // 64))]
+    words = [w - 2 ** 64 if w >> 63 else w for w in words]
+    return words[0] if l <= 64 else (_LL * len(words))(*words)
 
 
 def reset_launches() -> None:
@@ -61,11 +81,11 @@ def reset_launches() -> None:
 def _lib(params: DtansParams = PAPER) -> ctypes.CDLL:
     lib = _build.load("dtans_spmv", params)
     if not getattr(lib, "_repro_declared", False):
-        lib.dtans_spmv_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
-            _I, _VP, _LL, _VP, _VP]
+        lib.dtans_spmv_launch.argtypes = matrix_argtypes(params) + \
+            GEOM_ARGS + [_I, _VP, _LL, _VP, _VP]
         lib.dtans_spmv_launch.restype = _I
-        lib.dtans_spmm_launch.argtypes = MATRIX_ARGS + GEOM_ARGS + [
-            _I, _VP, _LL, _LL, _I, _VP, _VP]
+        lib.dtans_spmm_launch.argtypes = matrix_argtypes(params) + \
+            GEOM_ARGS + [_I, _VP, _LL, _LL, _I, _VP, _VP]
         lib.dtans_spmm_launch.restype = _I
         lib.dtans_smem_need.argtypes = [_I, _I, _I, _I, _I, _I]
         lib.dtans_smem_need.restype = _LL
@@ -83,7 +103,17 @@ def check_params(params: DtansParams) -> None:
     packages ORs word ``k`` with word ``k + 1`` only, the last word alone):
     the JAX package's decoder decodes such a set wrongly, so no kernel
     copies it (``tests/test_torch_params.py`` shows the reference wrong
-    on one). No set with ``k_bits <= w_bits + 1`` meets it."""
+    on one). No set with ``k_bits <= w_bits + 1`` meets it.
+
+    Also refuses ``m_bits = 32``, the kernels' own limit (a base of 2^32
+    does not fit their 32-bit digits): such a set needs ``k_bits = 32``,
+    and one table of 2^32 slots of 24 bytes is 96 GiB, more than an H100
+    holds, so no card could run it."""
+    if params.m_bits > 31:
+        raise ValueError(
+            f"{params}: m_bits {params.m_bits} > 31; the kernels' digits "
+            f"and bases are 32-bit, and its 2^{params.k_bits}-slot tables "
+            f"would not fit a card")
     W, Kb, o = params.w_bits, params.k_bits, params.o
     for k in range(params.l):
         wi, sh = divmod(k * Kb, W)
@@ -112,12 +142,12 @@ def kernel_args(dm: DeviceMatrix) -> list:
     for t in (dm.stream, dm.esc, dm.ns, dm.nnz, dm.tables):
         if not t.is_contiguous():
             raise ValueError("device matrix tensors must be contiguous")
-    pattern_bits = sum(int(t) << k for k, t in enumerate(dm.pattern))
     return [int(dm.dtype == torch.float64),
             dm.stream.data_ptr(), dm.stream.shape[1],
             dm.esc.data_ptr(), dm.esc.shape[2],
             dm.ns.data_ptr(), dm.nnz.data_ptr(), dm.tables.data_ptr(),
-            T, pattern_bits, dm.n_slices, L, dm.max_nseg]
+            T, pattern_arg(dm.pattern, dm.params.l), dm.n_slices, L,
+            dm.max_nseg]
 
 
 def n_sm(device: torch.device) -> int:

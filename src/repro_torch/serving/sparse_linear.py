@@ -154,14 +154,27 @@ class SparseLinear:
         sl = cls(mat=mat, packed=None if mat is None else ops.get_packed(mat),
                  d_in=d_in, d_out=d_out,
                  dense_bytes=w_arr.size * w_arr.dtype.itemsize,
-                 baseline_bytes=bb, decision=decision, device=dev,
-                 mesh=mesh, plan=plan)
-        if plan is None:
-            to_device(sl.packed, dev)
-        else:
+                 baseline_bytes=bb, decision=decision, mesh=mesh, plan=plan)
+        if plan is not None:
             sl._encode_whole = functools.partial(spec.encode, pruned, **knobs)
-            shard_ops.upload(plan, dev, mesh=mesh)
-        return sl
+        return sl.to(dev)
+
+    def to(self, device) -> "SparseLinear":
+        """Serve from ``device``: the pack (or, on a sharded layer, the
+        shards this process runs) moved there once and cached, and the
+        layer's ``device`` set. Returns the layer. `from_dense` ends here;
+        a layer built on the host (``device="cpu"``) moves to a card the
+        same way. A CUDA request without a card raises, as does a mesh on
+        another device type."""
+        dev = check_device(device)
+        if self.plan is None:
+            to_device(self.packed, dev)
+        else:
+            if self.mesh is not None:
+                shard_ops.validate_mesh(self.n_shards, self.mesh, dev)
+            shard_ops.upload(self.plan, dev, mesh=self.mesh)
+        self.device = dev
+        return self
 
     @property
     def n_shards(self) -> int:

@@ -53,6 +53,7 @@ from repro_torch.sparse.rgcsr import RGCSR
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 from hand_made_packs import HAND_LENGTHS, HAND_MADE
+from param_sets import PARAM_SETS
 
 RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 
@@ -150,6 +151,27 @@ def test_sparse_linear_on_card_counts_launches():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", (None, 4))
+def test_host_layer_moved_to_card_is_from_dense_on_card(n_shards):
+    """`SparseLinear.to` on a layer built on the host gives the layer
+    `from_dense(device="cuda")` builds: the same device (an index given),
+    bitwise the same products, through the kernels."""
+    _need_card()
+    w = (np.random.default_rng(8).standard_normal((96, 300)) / 10).astype(
+        np.float32)
+    kw = dict(sparsity=0.7, value_bits=6, lane_width=32, n_shards=n_shards)
+    card = SparseLinear.from_dense(w, **kw)
+    host = SparseLinear.from_dense(w, device="cpu", **kw).to("cuda")
+    assert host.device == card.device and host.device.index is not None
+    x = torch.randn(5, 96, device="cuda")
+    K.reset_launches()
+    y = host.apply(x)
+    torch.cuda.synchronize()
+    assert K.launches["dtans_spmm"] == (n_shards or 1)
+    assert torch.equal(y, card.apply(x))
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take():
     """TOY computes (bitwise its plain version); lane widths the SpMM
     block cannot hold raise."""
@@ -169,16 +191,6 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="lane widths up to 992"):
         K.dtans_spmm(dm, torch.zeros(10, 2, dtype=torch.float64,
                                      device="cuda"))
-
-
-#: The parameter sets of tests/test_torch_params.py: (w_bits, k_bits, l, o,
-#: f, m_bits), each moving one of the kernels' constants away from PAPER.
-PARAM_SETS = {
-    "PAPER": (32, 12, 8, 3, 2, 8), "TOY": (2, 3, 2, 3, 2, 2),
-    "K8": (32, 8, 4, 1, 1, 8), "K16": (32, 16, 4, 2, 1, 8),
-    "W16": (16, 12, 4, 3, 2, 8), "W8": (8, 12, 2, 3, 2, 8),
-    "M4": (32, 12, 8, 3, 1, 4), "L48": (32, 2, 48, 3, 3, 2),
-    "M16": (32, 16, 6, 3, 3, 16)}
 
 
 @pytest.mark.gpu
@@ -228,7 +240,7 @@ def test_param_set_kernels_vs_plain_on_card(name, dtype, lane_width):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["TOY", "K16", "W8", "L48", "M4"])
+@pytest.mark.parametrize("name", ["TOY", "K16", "W8", "L48", "M4", "L66"])
 def test_param_set_blocked_packs_on_card(name):
     """The BCSR-dtANS (fused shared-column kernels) and RGCSR-dtANS packs
     of a set: bitwise their plain versions and the generic kernels. (Not

@@ -7,10 +7,11 @@ layout (`pack.pack_tables`), table placement and shared-memory plan
 (`kernels.tiling`). Here, on the CPU, each set of `SETS` x f32 / f64 runs
 through the port's plain `decode_ref`, `spmv_ref` and ``ops.spmm`` against
 the JAX package's jnp oracles (`repro.kernels.ref`) and its numpy
-`spmv_gold` on the same seeded matrix: decode bitwise, SpMV / SpMM within
-rtol 1e-12 (f64) / 1e-4 (f32). The sets are `PAPER`, the reference's
-`TOY`, and seven more that move one of the kernels' constants each:
-``(w_bits, k_bits, l, o, f, m_bits)``. The kernels themselves are held
+`spmv_gold` (and its numpy `decode_matrix`) on the same seeded matrix:
+decode bitwise, SpMV / SpMM within rtol 1e-12 (f64) / 1e-4 (f32). The
+sets are `tests/param_sets.py`'s: `PAPER`, the reference's `TOY`, and
+eight more that move the kernels' constants: ``(w_bits, k_bits, l, o, f,
+m_bits)``. The kernels themselves are held
 against their plain versions for each set on the card by
 ``tests/test_torch_gpu.py::test_param_set_kernels_vs_plain_on_card``
 (that file imports no JAX).
@@ -21,7 +22,9 @@ import functools
 import numpy as np
 import pytest
 import torch
+from param_sets import PARAM_SETS
 
+from repro.core.csr_dtans import decode_matrix as r_decode_matrix
 from repro.core.csr_dtans import encode_matrix as r_encode
 from repro.core.csr_dtans import spmv_gold as r_spmv_gold
 from repro.core.params import DtansParams as RParams
@@ -42,26 +45,13 @@ from repro_torch.sparse.registry import get_format
 
 RTOL = {np.float32: 1e-4, np.float64: 1e-12}
 
-#: name -> (w_bits, k_bits, l, o, f, m_bits). Each moves one constant of
-#: the kernels away from PAPER: K (8 and 16 bits: 1,572,864 bytes of
-#: tables, read from global memory), W (16- and 8-bit stream words, limb
-#: shifts), M (fold groups of 8 and of 2 digits, a 16-byte slot at 16
-#: bits), l (48 positions, a 64-bit escape mask), o = 1 and o = 2, f = o.
-SETS = {
-    "PAPER": (32, 12, 8, 3, 2, 8),
-    "TOY": (2, 3, 2, 3, 2, 2),
-    "K8": (32, 8, 4, 1, 1, 8),
-    "K16": (32, 16, 4, 2, 1, 8),
-    "W16": (16, 12, 4, 3, 2, 8),
-    "W8": (8, 12, 2, 3, 2, 8),
-    "M4": (32, 12, 8, 3, 1, 4),
-    "L48": (32, 2, 48, 3, 3, 2),
-    "M16": (32, 16, 6, 3, 3, 16),
-}
+#: name -> (w_bits, k_bits, l, o, f, m_bits) (`param_sets`).
+SETS = PARAM_SETS
 
 #: Where each set's two tables go (`tiling.tables_in_smem`).
 IN_SMEM = {"PAPER": True, "TOY": True, "K8": True, "K16": False,
-           "W16": True, "W8": True, "M4": True, "L48": True, "M16": False}
+           "W16": True, "W8": True, "M4": True, "L48": True, "M16": False,
+           "L66": True}
 
 M, N, DENSITY, LANE_WIDTH = 60, 50, 0.3, 16
 
@@ -98,22 +88,33 @@ def _case(name, dtype):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("name", list(SETS))
 def test_plain_versions_match_the_reference(name, dtype):
-    """Decode bitwise the JAX package's `decode_ref`; SpMV and SpMM within
-    rtol of its `spmv_ref` and of `spmv_gold`, the same pack byte for
-    byte."""
+    """The same pack byte for byte; decode bitwise the JAX package's gold
+    decoder (`decode_matrix`) and, at f64, its jitted jnp oracle
+    `decode_ref`; SpMV and SpMM within rtol of its `spmv_gold`. (One
+    oracle compile a set: the compiles are most of this module's time.
+    Its `spmv_ref` is held to the port's where the state overflows,
+    `test_m16_state_overflow_is_the_references`.)"""
     d, mat, pm, rmat, rpm, x, X = _case(name, dtype)
     np.testing.assert_array_equal(pm.stream, rpm.stream)
     np.testing.assert_array_equal(pm.tab_base, rpm.tab_base)
     assert pm.pattern == tuple(rpm.pattern)
     cols, vals = decode_ref(pm)
-    rcols, rvals = r_decode_ref(rpm)
-    np.testing.assert_array_equal(cols.numpy(), np.asarray(rcols))
-    np.testing.assert_array_equal(vals.numpy().view(np.uint8),
-                                  np.asarray(rvals).view(np.uint8))
+    cols, vals = cols.numpy(), vals.numpy()
+    gold = r_decode_matrix(rmat)
+    rows_c = cols.reshape(-1, cols.shape[-1])[:M]
+    rows_v = vals.reshape(-1, vals.shape[-1])[:M]
+    real = rows_c >= 0
+    np.testing.assert_array_equal(real.sum(1), np.diff(gold.indptr))
+    np.testing.assert_array_equal(rows_c[real], gold.indices)
+    np.testing.assert_array_equal(rows_v[real].view(np.uint8),
+                                  gold.values.view(np.uint8))
     rtol = RTOL[dtype]
+    if dtype == np.float64:
+        rcols, rvals = r_decode_ref(rpm)
+        np.testing.assert_array_equal(cols, np.asarray(rcols))
+        np.testing.assert_array_equal(vals.view(np.uint8),
+                                      np.asarray(rvals).view(np.uint8))
     y = spmv_ref(pm, torch.as_tensor(x)).numpy()
-    np.testing.assert_allclose(y, np.asarray(r_spmv_ref(rpm, x)), rtol=rtol,
-                               atol=rtol)
     np.testing.assert_allclose(y, r_spmv_gold(rmat, x), rtol=rtol,
                                atol=rtol)
     Y = ops.spmm(mat, torch.as_tensor(X), device="cpu").numpy()
@@ -181,7 +182,8 @@ def test_smem_plan_places_each_sets_tables(name):
                 assert tiling.geometry(7, L, T, item,
                                        params=p).smem <= dec.smem
                 if tiling.spmm_by_columns(L, T, item, p):
-                    assert L > tiling.MAX_SPMM_LANE_WIDTH or name == "L48"
+                    # (or a ring of long segments outgrows the block)
+                    assert L > tiling.MAX_SPMM_LANE_WIDTH or p.l >= 48
                     continue
                 bn = tiling.dtans_bn(L, T, 512, item, p)
                 g = tiling.geometry(7, L, T, item, bn=bn, batch=512,
@@ -293,6 +295,30 @@ def test_kernels_refuse_a_set_the_reference_decodes_wrongly():
     dm = to_device(pack_matrix(mat), "cpu")
     with pytest.raises(ValueError, match="spans more than the two"):
         K.kernel_args(dm)
+
+
+def test_m_bits_32_is_refused_by_name():
+    """The kernels' own limit: a base of 2^32 does not fit their 32-bit
+    digits. Such a set needs k_bits = 32 (M <= K), and its tables (2^32
+    slots of 24 bytes) exceed a card's memory, so it is refused by name
+    before any build; m_bits = 31 at the same K is taken."""
+    with pytest.raises(ValueError, match="m_bits 32 > 31"):
+        K.check_params(DtansParams(32, 32, 2, 2, 2, 32))
+    K.check_params(DtansParams(32, 32, 2, 2, 2, 31))
+
+
+def test_pattern_goes_as_words_past_64_positions():
+    """Up to 64 segment positions the pattern is one signed 64-bit
+    argument; past them an array of words (``PatternArg``), and the
+    library's argument types say so."""
+    assert K.pattern_arg([0, 1] * 4, 8) == 0b10101010
+    assert K.pattern_arg([0, 1] * 32, 64) == -6148914691236517206
+    words = K.pattern_arg([0, 1] * 33, 66)
+    assert list(words) == [-6148914691236517206, 2]
+    assert K.matrix_argtypes(PAPER) == K.MATRIX_ARGS
+    l66, i = K.matrix_argtypes(_params("L66")), K._PATTERN
+    assert K.MATRIX_ARGS[i] is K._LL and l66[i] is K._VP
+    assert l66[:i] + l66[i + 1:] == K.MATRIX_ARGS[:i] + K.MATRIX_ARGS[i + 1:]
 
 
 def test_one_library_a_set():

@@ -24,6 +24,7 @@ the obs test.
 """
 
 import functools
+import pickle
 
 import numpy as np
 import pytest
@@ -536,6 +537,26 @@ def test_sparse_linear_n_shards_bitwise_unsharded(n_shards):
     assert np.array_equal(sl.mat.stream, one.mat.stream)
     assert torch.equal(sl.apply_dense_reference(x),
                        one.apply_dense_reference(x))
+
+
+@pytest.mark.parametrize("n_shards", (None, 4))
+def test_sparse_linear_to_moves_a_host_layer(n_shards):
+    """A layer built on the host survives a pickle (a worker process's
+    result) and `to` is where `from_dense` ends: the layer on the device
+    asked for, bitwise, its whole matrix still encoded on demand; a card
+    request without a card raises."""
+    w = _weight()
+    sl = SparseLinear.from_dense(w, lane_width=16, n_shards=n_shards,
+                                 device="cpu")
+    back = pickle.loads(pickle.dumps(sl))
+    assert back.to("cpu") is back and back.device == torch.device("cpu")
+    x = torch.as_tensor(_acts())
+    assert torch.equal(back.apply(x), sl.apply(x))
+    assert back.compressed_bytes == sl.compressed_bytes
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            back.to("cuda")
+        assert back.device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("n_shards", (2, 4))
