@@ -63,14 +63,19 @@ Phases, each raising on failure (no phase falls back to the CPU):
    request shapes, each held against the dense product of the head's
    pruned weight and, bitwise, the winner's plain path on the card (and
    phase 4's outputs, where it picks phase 4's configuration); the
-   winner's launch counters must have risen.
+   winner's launch counters must have risen. The `H100` model prices each
+   measured candidate within `MODEL_BAND` (2x) of its time, and
+   ``choose_dtans_config(budget=0)`` (estimates, no encode) picks at B=1
+   and B=64, each held against the fastest configuration measured here.
 4f. the registry and calibration on the card: every registered format's
    ``FormatSpec`` runners (B = 1, 8) on two of `measure._calibration_suite`'s
    matrices, the kernel-backed ones bitwise their plain versions, csr /
    coo / dense within tolerance of the dense product (every comparator and
    dtANS kernel's counter must rise); then ``measure.calibrate(base=H100,
-   small=True)`` fits the cost model to the kernels' CUDA-event times and
-   prints the fitted constants beside the data-sheet seed.
+   small=True)`` times the calibration configurations' runners on its five
+   matrices, and the `H100` model (fitted by
+   ``experiments/autotune_calibration/fit_h100.py``) prices each within
+   `MODEL_BAND` of its time.
 4g. the serving engine at full width: SmolLM-135M (30 layers, d_model 576,
    9 / 3 heads, d_ff 1536, vocab 49152, tied; float32 where the config
    says bfloat16, TF32 off), layer weights from a generator seeded
@@ -270,6 +275,7 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch import configs, obs  # noqa: E402
 from repro_torch.autotune import H100, DecisionCache, measure  # noqa: E402
+from repro_torch.autotune import choose_dtans_config  # noqa: E402
 from repro_torch.core.bcsr_dtans import encode_bcsr_matrix  # noqa: E402
 from repro_torch.core.csr_dtans import decode_matrix, encode_matrix  # noqa: E402
 from repro_torch.core.params import DtansParams  # noqa: E402
@@ -1289,6 +1295,8 @@ def phase_decode(sl: SparseLinear, csr: CSR, blk: dict) -> None:
 
 AUTO_BATCH = 64     # a batched serving step: SpMM passes of 0.15-0.5 ms
 AUTO_BUDGET = 2     # candidates encoded at full width and timed
+# The `H100` model's band: modeled over measured time of a pass (C5).
+MODEL_BAND = (0.5, 2.0)
 
 
 def _all_launches() -> dict:
@@ -1339,6 +1347,15 @@ def phase_autotuned(sl: SparseLinear) -> SparseLinear:
     assert d.measured_time is not None and d.measured_time > 0
     assert sum(row[3] is not None for row in d.leaderboard) == AUTO_BUDGET
     assert sel_counts, "the measured selection launched no kernel"
+    # The `H100` model (C5) against the selection's own timings.
+    band = {cfg: modeled / measured
+            for cfg, _, modeled, measured in d.leaderboard
+            if measured is not None}
+    for cfg, q in band.items():
+        log(f"[auto]   modeled / measured {cfg:26s} {q:.3f} (B="
+            f"{AUTO_BATCH}) | {card()}")
+    assert all(MODEL_BAND[0] <= q <= MODEL_BAND[1] for q in band.values()), \
+        f"the H100 model is off its 2x band on the head: {band}"
     # Phase 4's configuration in the same harness and currency (a CUDA
     # graph of the call, as `select` timed the candidates).
     X = torch.as_tensor(np.random.default_rng(SEED + 7).standard_normal(
@@ -1376,6 +1393,7 @@ def phase_autotuned(sl: SparseLinear) -> SparseLinear:
         f"kernel time: {names[0]} {graph[names[0]]:.4f} ms vs "
         f"{names[1]} {graph[names[1]]:.4f} ms (runner-up {gap:+.2%}; "
         f"encoded again in {up_encode_s:.1f} s)")
+    choices = _modeled_choices(pruned, d, t_phase4, packs)
     shared = bool(auto.packed.shared_cols)
     # (a BCSR-dtANS winner codes the block-filled matrix: more entries)
     assert shared or (auto.mat.nnz == sl.mat.nnz and np.array_equal(
@@ -1428,9 +1446,44 @@ def phase_autotuned(sl: SparseLinear) -> SparseLinear:
         "select_s": select_s, "serve_s": serve_s,
         "phase4_config_measured_s": float(t_phase4),
         "graph_ms": graph, "ranking_holds_on_graph": holds,
-        "runner_up_gap_on_graph": gap,
+        "runner_up_gap_on_graph": gap, "modeled_over_measured": band,
+        "budget0": choices,
         "launches_selection": sel_counts, "launches_serving": counts}
     return auto
+
+
+def _modeled_choices(pruned: CSR, d, t_phase4, packs: dict) -> dict:
+    """`choose_dtans_config(budget=0)` on the head (estimates, no encode)
+    at B=1 and at B=`AUTO_BATCH`, against the configurations measured
+    here: at B=`AUTO_BATCH` the selection's timings (winner, runner-up)
+    and phase 4's; at B=1 the same three packs, timed now (`time_kernel`,
+    as `select` times). A choice among none of them is not measured."""
+    x1 = torch.as_tensor(np.random.default_rng(SEED + 8).standard_normal(
+        D_MODEL), dtype=torch.float32, device="cuda")
+    phase4 = "dtans[w=128,shared]"
+    measured = {1: {}, AUTO_BATCH: {cfg: t for cfg, _, _, t in
+                                    d.leaderboard if t is not None}}
+    measured[AUTO_BATCH].setdefault(phase4, float(t_phase4))
+    for name, (spec, packed) in packs.items():
+        cfg = phase4 if name.startswith("phase 4") else name
+        measured[1][cfg] = float(measure.time_kernel(
+            spec.runner(packed, x1, device="cuda"), device="cuda"))
+    out = {}
+    for B, times in measured.items():
+        pick = choose_dtans_config(pruned, budget=0, batch=B,
+                                   cache=DecisionCache(path=None))
+        best = min(times, key=times.get)
+        t = times.get(pick.config_name)
+        regret = None if t is None else t / times[best] - 1.0
+        out[B] = {"choice": pick.config_name, "measured": times,
+                  "fastest": best, "regret": regret}
+        log(f"[auto] budget=0 at B={B}: {pick.config_name} "
+            + ("(not among the measured)" if t is None else
+               f"{t * 1e3:.4f} ms") + f"; fastest measured {best} "
+            f"{times[best] * 1e3:.4f} ms"
+            + ("" if regret is None else f" ({regret:+.2%})")
+            + f" | {card()}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1464,7 +1517,9 @@ def phase_registry() -> None:
     (B = 1, 8) on two calibration matrices on the card: the kernel-backed
     ones bitwise their plain versions, csr / coo / dense within `RTOL` of
     the dense product; then ``measure.calibrate(base=H100, small=True)``
-    fits the cost model to CUDA-event times of the real kernels."""
+    times the calibration configurations' runners on its five matrices
+    (CUDA graphs between CUDA events) and the `H100` model prices each
+    pass within `MODEL_BAND` of its time."""
     mats = measure._calibration_suite(small=True)
     rng = np.random.default_rng(SEED + 6)
     torch.cuda.synchronize()
@@ -1509,27 +1564,26 @@ def phase_registry() -> None:
     torch.cuda.synchronize()
     cal_s = time.perf_counter() - t0
     cal_counts = {k: v for k, v in _all_launches().items() if v}
-    fit = res.model
-    log(f"[cal] calibrate(base=H100, small=True): {len(res.points)} "
-        f"points in {cal_s:.1f} s; mean |model - measured| / measured "
-        f"{res.err_before:.3f} (data-sheet seed) -> {res.err_after:.3f} "
-        f"(fitted); launches {cal_counts} | {card()}")
-    for field in ("hbm_bw", "cache_bw", "spmv_ops_per_elem",
-                  "row_seq_penalty", "decode_ops_per_nnz"):
-        log(f"[cal]   {field:19s} seed {getattr(H100, field):.6g} "
-            f"fitted {getattr(fit, field):.6g}")
-    consts = [getattr(fit, f) for f in ("hbm_bw", "cache_bw",
-                                        "spmv_ops_per_elem",
-                                        "row_seq_penalty",
-                                        "decode_ops_per_nnz")]
-    assert all(np.isfinite(c) and c > 0 for c in consts), consts
+    # The adopted `H100` (C5) against the runners' timings: each pass's
+    # price under it (`modeled_before`) over its measured time.
+    band = [(p.matrix, p.config_name, p.batch, p.modeled_before / p.measured)
+            for p in res.points]
+    log(f"[cal] the H100 model against {len(res.points)} runner timings "
+        f"(`calibrate(base=H100, small=True)`, {cal_s:.1f} s): modeled / "
+        f"measured {min(q for *_, q in band):.3f} .. "
+        f"{max(q for *_, q in band):.3f}, mean |error| "
+        f"{res.err_before:.3f}; launches {cal_counts} | {card()}")
+    for mname, cfg, B, q in band:
+        log(f"[cal]   {mname:7s} {cfg:26s} B={B:<2d} {q:.3f}")
     assert all(p.measured > 0 for p in res.points)
     assert cal_counts, "calibration launched no kernel"
+    off = [row for row in band if not MODEL_BAND[0] <= row[3] <= MODEL_BAND[1]]
+    assert not off, f"the H100 model is off its 2x band: {off}"
     RESULTS["registry"] = {"passes": checked, "seconds": reg_s,
                            "launches": counts}
     RESULTS["calibration"] = {**res.to_dict(), "seconds": cal_s,
                               "launches": cal_counts,
-                              "seed": H100.to_dict()}
+                              "model": H100.to_dict()}
 
 
 # ---------------------------------------------------------------------------

@@ -19,14 +19,17 @@ names plus `H100` and `device_kind`.
 
 from repro_torch.autotune.cache import (DecisionCache, atomic_merge_json,
                                         default_cache, default_cache_path)
-from repro_torch.autotune.cost_model import (H100, V5E, Candidate, MachineModel,
+from repro_torch.autotune.cost_model import (H100, V5E, Candidate, CardModel,
+                                             MachineModel,
                                              bcsr_config_name,
                                              bcsr_dtans_nbytes_estimate,
                                              candidate_time, candidates,
+                                             card_terms,
                                              collective_time, coo_nbytes,
                                              csr_nbytes, dtans_config_name,
                                              dtans_nbytes_estimate,
-                                             memory_time, model_time,
+                                             memory_time, model_from_dict,
+                                             model_time,
                                              rgcsr_config_name,
                                              rgcsr_dtans_config_name,
                                              rgcsr_dtans_nbytes_estimate,
@@ -36,8 +39,10 @@ from repro_torch.autotune.cost_model import (H100, V5E, Candidate, MachineModel,
 from repro_torch.autotune.fingerprint import (Fingerprint, codeable_bits,
                                               fingerprint, lockstep_elems,
                                               max_group_nnz)
-from repro_torch.autotune.measure import (NOISY_REL_IQR, CalibrationResult,
+from repro_torch.autotune.measure import (HEAD_BATCHES, NOISY_REL_IQR,
+                                          CalibrationResult,
                                           TimingSample, calibrate,
+                                          card_calibration_suite,
                                           default_profiles_path,
                                           list_profiles, load_profile,
                                           measure_candidate, measure_config,
@@ -56,13 +61,16 @@ from repro_torch.sparse.registry import (DTANS_LANE_WIDTHS, CostTerms,
 from repro_torch.sparse.rgcsr import RGCSR_GROUP_SIZES
 
 __all__ = [
-    "ALL_FORMATS", "CalibrationResult", "Candidate", "CostTerms",
+    "ALL_FORMATS", "CalibrationResult", "Candidate", "CardModel",
+    "CostTerms",
     "Decision", "DecisionCache", "NOISY_REL_IQR", "TimingSample",
     "DTANS_LANE_WIDTHS", "Fingerprint", "FormatSpec", "H100",
+    "HEAD_BATCHES",
     "MachineModel", "RGCSR_GROUP_SIZES", "V5E",
     "atomic_merge_json", "bcsr_config_name",
     "bcsr_dtans_nbytes_estimate", "calibrate",
-    "candidate_time", "candidates", "choose_dtans_config", "clear_memo",
+    "candidate_time", "candidates", "card_calibration_suite",
+    "card_terms", "choose_dtans_config", "clear_memo",
     "codeable_bits", "collective_time",
     "coo_nbytes", "csr_nbytes", "default_cache", "default_cache_path",
     "default_profiles_path", "device_kind",
@@ -71,7 +79,7 @@ __all__ = [
     "get_format", "iter_formats",
     "list_profiles", "load_profile", "lockstep_elems", "max_group_nnz",
     "measure_candidate", "measure_config", "measure_named",
-    "memory_time", "model_time",
+    "memory_time", "model_from_dict", "model_time",
     "oracle_best", "parse_config", "parse_config_name",
     "oracle_times", "register", "rgcsr_config_name",
     "rgcsr_dtans_config_name",

@@ -46,8 +46,10 @@ paper-figure benchmarks, Figs. 7/8; the selector path uses
 This is a copy of the JAX package's ``repro.autotune.cost_model``: under
 the same `MachineModel` constants it prices every candidate to the same
 float (the column-tile count comes from `_n_col_tiles`, the reference's
-fast-memory budget rule, kept here because the port's kernels tile by
-their own shared-memory plan, `repro_torch.kernels.tiling`).
+fast-memory budget rule). The port's default, `H100`, is a `CardModel`,
+which prices the port's own kernels instead (`card_terms`: their column
+tiles and launches from `repro_torch.kernels.tiling`, a fixed cost a
+launch, the longest row's chain), its constants fitted on the card.
 """
 
 from __future__ import annotations
@@ -113,6 +115,141 @@ class MachineModel:
         return cls(**d)
 
 
+@dataclasses.dataclass(frozen=True)
+class CardModel(MachineModel):
+    """A card's machine model: `MachineModel`'s constants priced on the
+    port's own kernels (`card_terms`). A pass is the sum over
+    `CARD_TERMS` of a count of the pass (`FormatSpec.kernel_passes`, the
+    fingerprint) times a coefficient (`coefficients`):
+
+    * bytes: the matrix once a column tile the kernels run (not the
+      reference's fast-memory rule, `_n_col_tiles`), x and y once, split
+      between L2 hits and misses as `memory_time` does;
+    * contraction, a lock-step element slot (the kernel's warps) and
+      right-hand side: ``spmv_ops_per_elem`` where a SELL / RGCSR / BCSR
+      SpMM stages its x slab in shared memory, ``unstaged_ops_per_elem``
+      where x is read through L1 (the SpMV; an SpMM whose slab does not
+      fit), ``fused_ops_per_elem`` in the fused dtANS kernels, and
+      ``row_seq_penalty`` times the first for csr / coo's scatter;
+    * the dtANS decode, a lock-step slot and tile (``decode_ops_per_nnz``),
+      and ``spmm_unit_s`` a unit and tile of the dtANS SpMM, whose blocks
+      take one unit (`repro_torch.kernels.tiling.unit_rows` rows) and tile
+      at a time;
+    * ``launch_s`` a launch of any kernel (a pass by one SpMV launch a
+      column pays B of them, a sharded one one a shard), in the currency
+      of `repro_torch.autotune.measure.time_kernel` (back-to-back calls in
+      a CUDA graph), and more a launch of the dtANS kernels
+      (``decode_launch_s``: tables staged, ring set up) and of the padded
+      SpMM (``spmm_launch_s``);
+    * the longest row's serial chain, a nonzero of it and a launch:
+      ``decode_chain_s`` (the decoder's dependent segments),
+      ``padded_chain_s`` (a padded SpMM warp's walk; its SpMV's 4 lanes a
+      row walk a quarter of it);
+    * ``scatter_ops_per_nnz``, the csr / coo stand-in's two-dimensional
+      ``index_add_`` at B > 1, a nonzero.
+
+    ``hbm_bw``, ``cache_bytes`` and ``vpu_rate`` are the data sheet's;
+    `repro_torch.autotune.measure.calibrate` fits the rest on the card. A
+    subclass rather than new `MachineModel` fields, so that `V5E` and a
+    reference profile keep the reference's fields, signature and pricing.
+    """
+
+    name: str = "card"
+    unstaged_ops_per_elem: float = 1.0
+    fused_ops_per_elem: float = 1.0
+    spmm_unit_s: float = 0.0
+    launch_s: float = 0.0
+    decode_launch_s: float = 0.0
+    spmm_launch_s: float = 0.0
+    decode_chain_s: float = 0.0
+    padded_chain_s: float = 0.0
+    scatter_ops_per_nnz: float = 0.0
+
+    def signature(self) -> str:
+        return super().signature() + ":card:" + ":".join(
+            f"{getattr(self, f):g}" for f in _CARD_FIELDS)
+
+    def coefficients(self) -> tuple:
+        """Seconds a unit of each of `CARD_TERMS`."""
+        r = self.vpu_rate
+        return (1.0 / self.hbm_bw, 1.0 / self.cache_bw,
+                self.spmv_ops_per_elem / r, self.unstaged_ops_per_elem / r,
+                self.fused_ops_per_elem / r,
+                self.spmv_ops_per_elem * self.row_seq_penalty / r,
+                self.decode_ops_per_nnz / r, self.spmm_unit_s, self.launch_s,
+                self.decode_launch_s, self.spmm_launch_s,
+                self.decode_chain_s, self.padded_chain_s,
+                self.scatter_ops_per_nnz / r)
+
+    def seconds(self, terms) -> float:
+        """A pass's seconds from its `card_terms`."""
+        return float(sum(n * c for n, c in zip(terms, self.coefficients())))
+
+
+#: The counts of a pass a `CardModel` prices (`card_terms`), in the order
+#: of `CardModel.coefficients`.
+CARD_TERMS = ("miss_bytes", "hit_bytes", "staged_contract",
+              "unstaged_contract", "fused_contract", "rowseq", "decode",
+              "spmm_units", "launches", "decode_launches", "spmm_launches",
+              "decode_chain", "padded_chain", "scatter")
+
+#: `CardModel`'s own fields (beyond `MachineModel`'s).
+_CARD_FIELDS = tuple(
+    f.name for f in dataclasses.fields(CardModel)
+    if f.name not in {g.name for g in dataclasses.fields(MachineModel)})
+
+#: Lanes a row of the SELL / RGCSR SpMV (``padded_rows.cuh``'s
+#: ``spmv_lanes_kernel``): each walks a quarter of the longest row.
+SPMV_LANES = 4
+
+
+def card_terms(fp: Fingerprint, fmt: str, nbytes: int, *, batch: int = 1,
+               n_shards: int = 1, params: DtansParams = PAPER,
+               warm: bool = True, cache_bytes: float = 50e6,
+               **knobs) -> tuple:
+    """The counts of `CARD_TERMS` for one (format, config) pass at
+    ``batch`` right-hand sides: the format's `FormatSpec.kernel_passes`
+    (the kernels' own tiles, launches, lock-step slots and x staging) and
+    `CostTerms` on the fingerprint. ``n_shards > 1``: a shard's bytes and
+    work (1/k), and the launches of all k. The one formula of
+    `candidate_time` and of calibration's rows."""
+    spec = get_format(fmt)
+    kn = spec.filter_knobs(knobs)
+    terms = spec.cost_terms(fp, **kn)
+    B = max(int(batch), 1)
+    kp = spec.kernel_passes(fp, B, params=params, **kn)
+    k = max(int(n_shards), 1)
+    moved = spmm_bytes(-(-int(nbytes) // k), fp.cols, fp.rows,
+                       fp.value_bytes, batch, kp.tiles)
+    hit = min(moved, cache_bytes) if warm else 0.0
+    lock = (terms.lockstep if kp.lockstep is None else kp.lockstep) / k
+    dtans, padded = kp.kernel == "dtans", kp.kernel == "padded"
+    decode = (lock if dtans else terms.decode / k) * kp.tiles
+    rowseq = terms.rowseq / k
+    launches = kp.launches * k
+    rmax = float(fp.row_nnz_max)
+    walk = 1.0 if B > 1 else 1.0 / SPMV_LANES
+    return (moved - hit, hit,
+            lock * B if not dtans and (kp.staged or not padded) else 0.0,
+            lock * B if padded and not kp.staged else 0.0,
+            lock * B if dtans else 0.0,
+            rowseq * B, decode,
+            kp.units / k * kp.tiles if dtans and B > 1 else 0.0,
+            launches,
+            launches if dtans else 0,
+            launches if padded and B > 1 else 0,
+            rmax * launches if dtans else 0.0,
+            rmax * walk * launches if padded else 0.0,
+            rowseq if kp.kernel == "scatter" and B > 1 else 0.0)
+
+
+def model_from_dict(d: dict) -> MachineModel:
+    """A `CardModel` where ``d`` holds a field of one (a profile saved from
+    one), else a `MachineModel` (the reference's profiles)."""
+    return (CardModel if set(_CARD_FIELDS) & set(d)
+            else MachineModel).from_dict(d)
+
+
 def dtans_config_name(lane_width: int, shared_table: bool) -> str:
     """Canonical name of one CSR-dtANS configuration (registry-backed;
     `FormatSpec.encode_knobs` is the single source of truth)."""
@@ -142,17 +279,31 @@ def bcsr_config_name(block_shape: tuple) -> str:
 #: against the reference's. Never the port's default.
 V5E = MachineModel()
 
-#: The port's default: one NVIDIA H100 SXM, seeded from the data sheet
-#: (3.35 TB/s HBM, 50 MB L2, 67 TFLOP/s f32 outside the tensor cores,
-#: NVLink 450 GB/s each way) and the 227 KB of shared memory a block may
-#: opt into (`repro_torch.kernels.tiling.MAX_SMEM_BYTES`). The L2 reread
-#: rate has no data-sheet number and takes `V5E`'s 4x the HBM rate; the
-#: work coefficients are `V5E`'s. UNCALIBRATED until
-#: `repro_torch.autotune.measure.calibrate` has run on the card: its
-#: absolute seconds are a seed, not a measurement.
-H100 = MachineModel(name="h100", hbm_bw=3.35e12, cache_bw=4 * 3.35e12,
-                    cache_bytes=50e6, vpu_rate=67e12, ici_bw=450e9,
-                    vmem_bytes=232448.0)
+#: The port's default: one NVIDIA H100 SXM, a `CardModel`. From the data
+#: sheet: 3.35 TB/s HBM (``hbm_bw``), 50 MB L2, 67 TFLOP/s f32 outside the
+#: tensor cores (``vpu_rate``, the unit of the ``*_ops_*`` coefficients),
+#: NVLink 450 GB/s each way, and the 227 KB of shared memory a block may
+#: opt into (`repro_torch.kernels.tiling.MAX_SMEM_BYTES`). The rest was
+#: fitted on an "NVIDIA H100 80GB HBM3, 700.00 W" (``nvidia-smi
+#: --query-gpu=name,power.limit``) by
+#: ``experiments/autotune_calibration/fit_h100.py`` (its points in
+#: ``points.json`` beside it: 150 passes on 10 matrices at B = 1, 4, 64).
+H100 = CardModel(
+    name="h100", hbm_bw=3.35e12, cache_bytes=50e6, vpu_rate=67e12,
+    ici_bw=450e9, vmem_bytes=232448.0,
+    cache_bw=3038580257487.66,
+    decode_ops_per_nnz=254.33806724222777,
+    spmv_ops_per_elem=18.322455386182597,
+    row_seq_penalty=46.03477872766799,
+    unstaged_ops_per_elem=97.91918892507768,
+    fused_ops_per_elem=75.39190149826068,
+    spmm_unit_s=1.1425425384101254e-08,
+    launch_s=1.971716063428629e-06,
+    decode_launch_s=6.2367125852093384e-06,
+    spmm_launch_s=4.609890065516896e-06,
+    decode_chain_s=1.3916447254275974e-07,
+    padded_chain_s=1.4746407274851934e-07,
+    scatter_ops_per_nnz=35575.19554459104)
 
 
 #: The reference's column-tile rule (``repro.kernels.tiling``): x/y tiles
@@ -283,11 +434,13 @@ def collective_time(n_shards: int, *, rows: int, cols: int, vbytes: int,
 
 def candidate_time(fp: Fingerprint, fmt: str, nbytes: int, *, warm: bool,
                    machine: MachineModel = H100, batch: int = 1,
-                   n_shards: int = 1, **knobs) -> float:
+                   n_shards: int = 1, params: DtansParams = PAPER,
+                   **knobs) -> float:
     """Modeled seconds of one (format, config) from fingerprint
     features: `memory_time` plus the `work_time` of the format's
     `CostTerms` — for a ``batch``-RHS SpMM pass (matrix bytes and
-    decode work once, x/y bytes and contraction work per RHS).
+    decode work once a column tile, x/y bytes and contraction work per
+    RHS).
 
     ``n_shards > 1`` prices the sharded path: the critical-path device
     holds ~1/k of the matrix bytes and does 1/k of the decode and
@@ -296,14 +449,26 @@ def candidate_time(fp: Fingerprint, fmt: str, nbytes: int, *, warm: bool,
     ends in the `collective_time` x-broadcast/y-reduce — the
     single-chip-vs-k-chips trade `search.select(mesh=)` arbitrates.
 
+    Under a `MachineModel` the column tiles are the reference's capacity
+    rule (`_n_col_tiles`), so `V5E` prices every candidate to the
+    reference's float; a `CardModel` prices the port's kernels
+    (`card_terms`, at ``params``) and the same collectives.
+
     The single formula shared by `candidates`, `search._refine`, the
     exhaustive oracle (`repro_torch.autotune.oracle`) and calibration —
     selector and oracle cannot drift apart. Knobs the format does not
     declare are ignored, so callers may pass a candidate's full knob
     set."""
+    k = max(int(n_shards), 1)
+    comm = collective_time(k, rows=fp.rows, cols=fp.cols,
+                           vbytes=fp.value_bytes, batch=batch,
+                           machine=machine)
+    if isinstance(machine, CardModel):
+        return machine.seconds(card_terms(
+            fp, fmt, nbytes, batch=batch, n_shards=k, params=params,
+            warm=warm, cache_bytes=machine.cache_bytes, **knobs)) + comm
     spec = get_format(fmt)
     terms = spec.cost_terms(fp, **spec.filter_knobs(knobs))
-    k = max(int(n_shards), 1)
     if k > 1:
         nbytes = -(-int(nbytes) // k)
         terms = CostTerms(lockstep=terms.lockstep / k,
@@ -317,10 +482,7 @@ def candidate_time(fp: Fingerprint, fmt: str, nbytes: int, *, warm: bool,
     return (memory_time(spmm_bytes(nbytes, fp.cols, fp.rows,
                                    fp.value_bytes, batch, tiles),
                         warm=warm, machine=machine)
-            + work_time(terms, machine, batch, tiles)
-            + collective_time(k, rows=fp.rows, cols=fp.cols,
-                              vbytes=fp.value_bytes, batch=batch,
-                              machine=machine))
+            + work_time(terms, machine, batch, tiles) + comm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -350,7 +512,8 @@ class Candidate(KnobbedConfigMixin):
 def make_candidate(fp: Fingerprint, fmt: str, knobs: dict, nbytes: int,
                    exact: bool, *, warm: bool,
                    machine: MachineModel = H100,
-                   batch: int = 1, n_shards: int = 1) -> Candidate:
+                   batch: int = 1, n_shards: int = 1,
+                   params: DtansParams = PAPER) -> Candidate:
     """Price one (format, knobs, nbytes) point into a `Candidate`."""
     spec = get_format(fmt)
     kn = spec.normalize_knobs(knobs)
@@ -358,7 +521,8 @@ def make_candidate(fp: Fingerprint, fmt: str, knobs: dict, nbytes: int,
         fmt=fmt, nbytes=int(nbytes),
         modeled_time=candidate_time(fp, fmt, nbytes, warm=warm,
                                     machine=machine, batch=batch,
-                                    n_shards=n_shards, **kn),
+                                    n_shards=n_shards, params=params,
+                                    **kn),
         exact_size=bool(exact),
         knobs=tuple((k, kn[k]) for k in spec.knob_domains),
         n_shards=int(n_shards))
@@ -569,6 +733,7 @@ def candidates(fp: Fingerprint, *, machine: MachineModel = H100,
                                                     params=params):
             out.append(make_candidate(fp, fmt, knobs, nbytes, exact,
                                       warm=warm, machine=machine,
-                                      batch=batch, n_shards=n_shards))
+                                      batch=batch, n_shards=n_shards,
+                                      params=params))
     out.sort(key=lambda cand: cand.modeled_time)
     return out

@@ -17,9 +17,11 @@ This module closes the loop three ways:
   calls `measure_candidate` on the top-k candidates so the final argmin
   ranks *measured* seconds, not modeled ones, and the measurement flows
   into ``Decision.measured_time`` and the persistent cache.
-* **Calibration** — `calibrate` times a small synthetic sweep across
-  the format families and least-squares-fits the MachineModel constants
-  to the measurements. Fitted models persist as *named machine
+* **Calibration** — `calibrate` times a synthetic sweep across the
+  format families and least-squares-fits the MachineModel constants to
+  the measurements (a `CardModel`'s on its own terms, `fit_card`; the
+  `H100` default was fitted on `card_calibration_suite` on the card).
+  Fitted models persist as *named machine
   profiles* (`save_profile` / `load_profile`, JSON beside the decision
   cache); `MachineModel.signature()` carries the constants into every
   decision-cache key, so loading a different profile can never serve
@@ -27,10 +29,10 @@ This module closes the loop three ways:
 
 Measured seconds and modeled seconds are different currencies (the
 plain torch versions on a CPU host are orders of magnitude off the
-card's roofline, and the `H100` model is uncalibrated until `calibrate`
-has run on the card); they are never compared across candidates —
-measurement re-ranks only among measured candidates, and calibration
-exists precisely to bring the model into the measured currency.
+card's; `H100` is fitted to the card's CUDA-graph times); they are never
+compared across candidates — measurement re-ranks only among measured
+candidates, and calibration exists precisely to bring the model into
+the measured currency.
 
 A port of the JAX package's ``repro.autotune.measure``; machine
 profiles live in their own file (``$REPRO_TORCH_MACHINE_PROFILES``, or
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import time
 
@@ -50,9 +53,10 @@ import torch
 from repro_torch import obs
 from repro_torch.autotune.cache import (atomic_merge_json,
                                         default_cache_path)
-from repro_torch.autotune.cost_model import (H100, Candidate,
-                                             MachineModel, candidate_time,
-                                             spmm_bytes)
+from repro_torch.autotune.cost_model import (CARD_TERMS, H100, Candidate,
+                                             CardModel, MachineModel,
+                                             candidate_time, card_terms,
+                                             model_from_dict, spmm_bytes)
 from repro_torch.autotune.fingerprint import fingerprint
 from repro_torch.core.params import PAPER, DtansParams
 from repro_torch.kernels.pack import check_device
@@ -327,6 +331,12 @@ class CalibrationPoint:
     # are down-weighted, never discarded).
     measured_iqr: float = 0.0
     weight: float = 1.0
+    # The pass's column tiles and launches under a `CardModel`
+    # (`FormatSpec.kernel_passes`), and its row of the fit
+    # (`cost_model.card_terms`).
+    tiles: int = 1
+    launches: int = 1
+    terms: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -374,6 +384,47 @@ def _calibration_suite(small: bool = True) -> dict:
             for k, v in out.items()}
 
 
+def card_calibration_suite() -> dict:
+    """What `calibrate` fits the `H100` model on, all f32 from the port's
+    own generators. Matrices big enough that a pass is not bound by its
+    launch (1.6M to 5.7M nonzeros), whose passes set the bytes and work
+    terms: banded and stencil (regular columns, few values), Erdos-Renyi
+    (irregular columns, unit values), power-law rows of quantized values
+    (the lock-step padding case), and SmolLM-135M's tied head as W^T
+    (49152 x 576, std 0.02 from seed 0, pruned to 20%, an 8-bit codebook:
+    5,662,310 nonzeros), the matrix ``SparseLinear.from_dense(auto=True)``
+    serves. Beside them `_calibration_suite(small=True)` (600-9,830
+    nonzeros, names prefixed ``small_``), whose passes are bound by the
+    fixed costs of a launch and by the longest row's chain, which a
+    head-sized pass hides. Building it takes a few seconds, encoding its
+    dtANS configurations minutes."""
+    from repro_torch.sparse.formats import CSR
+    from repro_torch.sparse.prune import codebook_quantize, magnitude_prune
+    from repro_torch.sparse.random_graphs import (banded, erdos_renyi,
+                                                  stencil_2d)
+    rng = np.random.default_rng(28)
+    m = 150_000
+    lens = np.minimum(rng.zipf(1.7, size=m), 256)
+    rows = np.repeat(np.arange(m), lens)
+    cols = np.concatenate([rng.choice(m, size=int(k), replace=False)
+                           for k in lens])
+    vals = np.round(rng.standard_normal(rows.size)) + 0.5
+    w = (np.random.default_rng(0).standard_normal((576, 49152))
+         * 0.02).astype(np.float32)
+    out = {
+        "banded": banded(400_000, 5),
+        "stencil": stencil_2d(700),
+        "er": erdos_renyi(300_000, 8, rng),
+        "powerlaw": CSR.from_coo(rows, cols, vals, (m, m)),
+        "head": codebook_quantize(magnitude_prune(w.T, 0.8), bits=8),
+    }
+    out = {k: CSR(v.indptr, v.indices, v.values.astype(np.float32),
+                  v.shape) if v.values.dtype != np.float32 else v
+           for k, v in out.items()}
+    small = _calibration_suite(small=True)
+    return {**out, **{f"small_{k}": v for k, v in small.items()}}
+
+
 #: Canonical config names measured per sweep matrix — one
 #: representative per work-term family. Parsed through the registry, so
 #: every knob a row depends on (the SELL slice height included) comes
@@ -392,8 +443,8 @@ def _clamped_lstsq(A: np.ndarray, t: np.ndarray,
                    fallback: np.ndarray) -> np.ndarray:
     """Least squares with non-negativity by clamp-and-refit: columns
     whose coefficient comes out non-positive are pinned to their
-    ``fallback`` (base-model) value and the rest re-fit on the residual.
-    Five columns, so the loop is at most five rounds."""
+    ``fallback`` (base-model) value and the rest re-fit on the residual:
+    at most one round a column."""
     beta = np.array(fallback, dtype=np.float64)
     free = np.ones(A.shape[1], dtype=bool)
     for _ in range(A.shape[1]):
@@ -417,6 +468,11 @@ def _clamped_lstsq(A: np.ndarray, t: np.ndarray,
 #: to separate the per-RHS terms without slowing CI measurably.
 CALIBRATION_BATCHES = (1, 8)
 
+#: The batches of a fit on `card_calibration_suite`: one vector, the
+#: serving engine's pooled step (4 slots) and a batched step of 64,
+#: where the dtANS SpMM runs one column tile.
+HEAD_BATCHES = (1, 4, 64)
+
 
 def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
               name: str | None = None, warm: bool = True,
@@ -425,7 +481,8 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
               params: DtansParams = PAPER, device="cuda",
               warmup: int = DEFAULT_WARMUP,
               repeats: int = DEFAULT_REPEATS,
-              small: bool = True) -> CalibrationResult:
+              small: bool = True,
+              artifacts: dict | None = None) -> CalibrationResult:
     """Fit MachineModel constants from a measured microbench sweep.
 
     Each (matrix, config, batch) measurement contributes one row of a
@@ -448,12 +505,25 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
     single-vector and the fused multi-RHS kernel path, giving the fit
     rows where the contraction terms scale but the decode term does not.
 
+    A `CardModel` base is fitted on its own terms (`fit_card`): a row is
+    the pass's `cost_model.card_terms` (the kernels' own column tiles,
+    launches, lock-step slots and x staging, the longest row), one
+    coefficient a term; ``hbm_bw`` stays the data sheet's, and each row
+    is scaled by its measurement, so the fit minimizes relative error, as
+    the card's times span microseconds to milliseconds.
+
+    ``matrices`` defaults to the small suite (`_calibration_suite`:
+    launch-bound on a card); `card_calibration_suite` is the card's.
+    ``artifacts`` maps a matrix's name to its encodes
+    (`FormatSpec.artifact_key` -> artifact), made beforehand.
+
     The fitted model keeps every other field of ``base`` (interconnect,
     fast-memory budget). Returns a `CalibrationResult`;
     ``result.model`` is ready for ``select(machine=...)`` and
     `save_profile`.
     """
     mats = _calibration_suite(small=small) if matrices is None else matrices
+    card = isinstance(base, CardModel)
     points: list[CalibrationPoint] = []
     feats: list[list[float]] = []
     meas: list[float] = []
@@ -461,7 +531,7 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
 
     for mname, a in mats.items():
         fp = fingerprint(a, params=params)
-        enc: dict = {}
+        enc: dict = (artifacts or {}).get(mname, {})
         for cfg_name in configs:
             spec, knobs = parse_config(cfg_name)
             nbytes = spec.nbytes_constructed(a, params=params,
@@ -475,16 +545,22 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
                     a, spec.name, params=params, batch=B,
                     device=device, warmup=warmup,
                     repeats=repeats, artifacts=enc, **knobs)
-                moved = spmm_bytes(nbytes, fp.cols, fp.rows,
-                                   fp.value_bytes, B)
-                hit = min(moved, base.cache_bytes) if warm else 0.0
-                feats.append([
-                    moved - hit,          # 1/hbm_bw
-                    hit,                  # 1/cache_bw
-                    terms.lockstep * B,   # c_ls
-                    terms.rowseq * B,     # c_rs
-                    terms.decode,         # c_dec (once per pass)
-                ])
+                kp = spec.kernel_passes(fp, B, params=params, **knobs)
+                if card:
+                    feats.append(card_terms(
+                        fp, spec.name, nbytes, batch=B, params=params,
+                        warm=warm, cache_bytes=base.cache_bytes, **knobs))
+                else:
+                    moved = spmm_bytes(nbytes, fp.cols, fp.rows,
+                                       fp.value_bytes, B)
+                    hit = min(moved, base.cache_bytes) if warm else 0.0
+                    feats.append([
+                        moved - hit,          # 1/hbm_bw
+                        hit,                  # 1/cache_bw
+                        terms.lockstep * B,   # c_ls
+                        terms.rowseq * B,     # c_rs
+                        terms.decode,         # c_dec (once per pass)
+                    ])
                 meas.append(t_meas)
                 # Down-weight noisy measurements (`TimingSample`
                 # dispersion): a row whose repeats disagree by its own
@@ -494,18 +570,41 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
                 weights.append(1.0 / (1.0 + rel))
                 t_before = candidate_time(fp, spec.name, nbytes,
                                           warm=warm, machine=base,
-                                          batch=B, **knobs)
+                                          batch=B, params=params, **knobs)
                 points.append(CalibrationPoint(
                     matrix=mname, config_name=spec.encode_knobs(knobs),
                     fmt=spec.name, nbytes=int(nbytes),
                     work_elems=int(terms.work_elems), measured=t_meas,
                     modeled_before=t_before, batch=int(B),
                     measured_iqr=float(getattr(t_meas, "iqr", 0.0)),
-                    weight=weights[-1]))
+                    weight=weights[-1], tiles=int(kp.tiles),
+                    launches=int(kp.launches),
+                    terms=tuple(feats[-1]) if card else ()))
 
     A = np.asarray(feats, dtype=np.float64)
     t = np.asarray(meas, dtype=np.float64)
     w = np.asarray(weights, dtype=np.float64)
+    if card:
+        fitted = fit_card(A, t, w, base, name)
+        pred_after = [fitted.seconds(row) for row in A]
+    else:
+        fitted, pred_after = _fit_reference(A, t, w, base, name)
+
+    done = []
+    err_b, err_a = [], []
+    for p, t_after in zip(points, pred_after):
+        done.append(dataclasses.replace(p, modeled_after=float(t_after)))
+        err_b.append(abs(p.modeled_before - p.measured) / p.measured)
+        err_a.append(abs(t_after - p.measured) / p.measured)
+    return CalibrationResult(model=fitted,
+                             err_before=float(np.mean(err_b)),
+                             err_after=float(np.mean(err_a)),
+                             points=tuple(done))
+
+
+def _fit_reference(A: np.ndarray, t: np.ndarray, w: np.ndarray,
+                   base: MachineModel, name: str | None) -> tuple:
+    """The reference's five-column fit: (model, the rows' predictions)."""
     fallback = np.array([
         1.0 / base.hbm_bw,
         1.0 / base.cache_bw,
@@ -531,18 +630,38 @@ def calibrate(matrices: dict | None = None, *, base: MachineModel = H100,
         spmv_ops_per_elem=ops_per_elem,
         row_seq_penalty=max(beta[3] / beta[2], 1.0),
     )
+    return fitted, A @ beta
 
-    pred_after = A @ beta
-    done = []
-    err_b, err_a = [], []
-    for p, t_after in zip(points, pred_after):
-        done.append(dataclasses.replace(p, modeled_after=float(t_after)))
-        err_b.append(abs(p.modeled_before - p.measured) / p.measured)
-        err_a.append(abs(t_after - p.measured) / p.measured)
-    return CalibrationResult(model=fitted,
-                             err_before=float(np.mean(err_b)),
-                             err_after=float(np.mean(err_a)),
-                             points=tuple(done))
+
+def fit_card(A: np.ndarray, t: np.ndarray, w: np.ndarray,
+             base: CardModel, name: str | None = None) -> CardModel:
+    """A `CardModel` fitted on rows ``A`` of `cost_model.card_terms` and
+    measured seconds ``t`` (weights ``w``): the miss bytes at the base's
+    ``hbm_bw`` (the data sheet's), the other coefficients by non-negative
+    least squares on relative error (each row over its measurement, times
+    its dispersion weight; a term the card shows no cost for fits 0)."""
+    from scipy.optimize import nnls
+    A = np.asarray(A, dtype=np.float64)
+    t = np.asarray(t, dtype=np.float64)
+    scale = np.sqrt(np.asarray(w, dtype=np.float64)) / t
+    beta, _ = nnls(A[:, 1:] * scale[:, None],
+                   (t - A[:, 0] / base.hbm_bw) * scale)
+    c = dict(zip(CARD_TERMS[1:], beta))
+    r = base.vpu_rate
+    spmv = c["staged_contract"] * r
+    return dataclasses.replace(
+        base, name=name or f"{base.name}-calibrated",
+        cache_bw=(1.0 / c["hit_bytes"] if c["hit_bytes"] > 0 else math.inf),
+        spmv_ops_per_elem=spmv,
+        row_seq_penalty=c["rowseq"] * r / spmv if spmv else 0.0,
+        unstaged_ops_per_elem=c["unstaged_contract"] * r,
+        fused_ops_per_elem=c["fused_contract"] * r,
+        decode_ops_per_nnz=c["decode"] * r, spmm_unit_s=c["spmm_units"],
+        launch_s=c["launches"], decode_launch_s=c["decode_launches"],
+        spmm_launch_s=c["spmm_launches"],
+        decode_chain_s=c["decode_chain"],
+        padded_chain_s=c["padded_chain"],
+        scatter_ops_per_nnz=c["scatter"] * r)
 
 
 # --------------------------------------------------------------------------
@@ -588,7 +707,7 @@ def load_profile(name: str, *,
     if name not in data:
         raise KeyError(f"no machine profile {name!r} in {p} "
                        f"(have: {sorted(data)})")
-    return MachineModel.from_dict(data[name]["model"])
+    return model_from_dict(data[name]["model"])
 
 
 def list_profiles(path: str | os.PathLike | None = None) -> dict:

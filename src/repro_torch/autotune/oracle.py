@@ -70,7 +70,7 @@ def oracle_times(a, *, warm: bool = True, machine: MachineModel = H100,
                 key = name if k == 1 else f"{name}@S{k}"
                 times[key] = candidate_time(
                     fp, fmt, b, warm=warm, machine=machine, batch=batch,
-                    n_shards=k, **knobs)
+                    n_shards=k, params=params, **knobs)
     return times
 
 

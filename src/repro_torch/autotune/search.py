@@ -179,7 +179,8 @@ def _refine(a, cand: Candidate, fp: Fingerprint, *, warm: bool,
     b = spec.nbytes_constructed(a, params=params, artifacts=artifacts,
                                 **kn)
     t = candidate_time(fp, cand.fmt, b, warm=warm, machine=machine,
-                       batch=batch, n_shards=cand.n_shards, **kn)
+                       batch=batch, n_shards=cand.n_shards, params=params,
+                       **kn)
     return dataclasses.replace(cand, nbytes=int(b), modeled_time=t,
                                exact_size=True)
 

@@ -26,7 +26,11 @@ machine without a card raises.
 j + 1 before contracting j) is accepted by `spmv` / `spmm`: the CUDA
 kernels always run that schedule, in the same contraction order, so both
 values launch the same kernels and give the same bits (on the CPU the
-plain versions run either way).
+plain versions run either way). So is the reference's ``tile_mode``
+(``"auto"``, ``"grid"``, ``"loop"``) on the four SpMM entries: the
+kernels run a pass's column tiles as work items of one launch whatever
+the mode. Their ``vmem_budget`` is a block's shared-memory budget for a
+column tile; every tile gives the untiled bits (`tiling`).
 
 With ``mesh=`` (a `torch.distributed.device_mesh.DeviceMesh` whose
 ``"model"`` dim holds more than one rank) or ``n_shards > 1``, `spmv` /
@@ -56,6 +60,8 @@ from repro_torch.kernels.pack import (PackedMatrix, pack_matrix, to_device,
                                       torch_dtype)
 from repro_torch.kernels.rgcsr_spmv import PackedRGCSR
 from repro_torch.kernels.sell_spmv import PackedSELL
+from repro_torch.kernels.tiling import check_tile_mode, n_tiles
+from repro_torch.kernels.tiling import resolve_bn  # noqa: F401 (ops' name)
 
 _PACK_CACHE_FIELD = "_packed_cache"
 _SHARD_PLAN_FIELD = "_shard_plans"
@@ -79,29 +85,6 @@ def _record_pass(kind: str, dm, n: int, m: int, batch: int,
     r.counter("kernels.y_bytes").add(m * batch * itemsize)
     r.histogram("kernels.batch_size").observe(batch)
     r.histogram("kernels.col_tiles").observe(col_tiles)
-
-
-def resolve_bn(batch: int, bn, choose, widest: int | None = None
-               ) -> int | None:
-    """Effective column-tile width of one SpMM pass: an explicit ``bn``
-    wins (untiled when it covers the whole batch); otherwise the kernel's
-    ``choose`` (batch -> tile). A tile wider than ``widest`` (a whole
-    batch included) is cut to ``widest``: every tile width gives the
-    untiled bits."""
-    if bn is not None:
-        b = int(bn)
-        if b < 1:
-            raise ValueError(f"bn must be >= 1; got {bn}")
-        bt = None if b >= batch else b
-    else:
-        bt = choose(batch)
-    if widest is not None and (batch if bt is None else bt) > widest:
-        bt = int(widest)
-    return bt
-
-
-def _n_tiles(batch: int, bn: int | None) -> int:
-    return 1 if bn is None else -(-batch // bn)
 
 
 #: Accumulator dtype of the decode kernels for a packed matrix.
@@ -152,7 +135,8 @@ def get_shard_plan(mat: CSRdtANS, n_shards: int):
 
 
 def _sharded_dtans(mat, x, y, *, mesh, k: int, device, spmm: bool,
-                   bn=None, pipeline: bool = False) -> torch.Tensor:
+                   bn=None, tile_mode: str = "auto",
+                   pipeline: bool = False) -> torch.Tensor:
     from repro_torch.kernels import shard_ops
     if not isinstance(mat, CSRdtANS):
         raise TypeError(
@@ -162,7 +146,8 @@ def _sharded_dtans(mat, x, y, *, mesh, k: int, device, spmm: bool,
     plan = get_shard_plan(mat, k)
     if spmm:
         return shard_ops.shard_spmm(plan, x, y=y, mesh=mesh, device=device,
-                                    bn=bn, pipeline=pipeline)
+                                    bn=bn, tile_mode=tile_mode,
+                                    pipeline=pipeline)
     return shard_ops.shard_spmv(plan, x, y=y, mesh=mesh, device=device,
                                 pipeline=pipeline)
 
@@ -220,14 +205,12 @@ def _one_rhs(kind: str, dm, x, y, run, *, decodes: bool = False
     return out
 
 
-def _many_rhs(kind: str, dm, x, y, bn, one, run, choose, *,
-              decodes: bool = False, widest: int | None = None
-              ) -> torch.Tensor:
+def _many_rhs(kind: str, dm, x, y, one, run, tile, *,
+              decodes: bool = False) -> torch.Tensor:
     """Body of every multi-RHS entry point: B == 0 returns `_empty_y`,
     B == 1 calls the single-vector entry ``one`` (bitwise equal to it),
     otherwise ``run(x, bn)`` gives the padded rows of A X in column tiles
-    of the resolved ``bn`` (`resolve_bn`: an explicit one, else the
-    kernel's ``choose``, at most ``widest``)."""
+    of ``tile(B)``'s width (``None``: untiled)."""
     m, n = dm.shape
     x = torch.as_tensor(x, dtype=dm.dtype, device=dm.device)
     _check_rhs(x, n)
@@ -237,9 +220,9 @@ def _many_rhs(kind: str, dm, x, y, bn, one, run, choose, *,
     if B == 1:
         out = one(x[:, 0])[:, None]
     else:
-        bn_eff = resolve_bn(B, bn, choose, widest)
+        bn_eff = tile(B)
         _record_pass(kind, dm, n, m, B, x.element_size(), decodes=decodes,
-                     col_tiles=_n_tiles(B, bn_eff))
+                     col_tiles=n_tiles(B, bn_eff))
         out = run(x, bn_eff).reshape(-1, B)[:m]
     if y is not None:
         out = out + torch.as_tensor(y, dtype=dm.dtype, device=dm.device)
@@ -269,56 +252,66 @@ def spmv(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
 
 
 def spmm(mat: CSRdtANS | PackedMatrix, x, y=None, *, device="cuda",
-         mesh=None, n_shards=None, bn=None, pipeline: bool = False,
+         mesh=None, n_shards=None, bn=None, vmem_budget=None,
+         tile_mode: str = "auto", pipeline: bool = False,
          fused=None) -> torch.Tensor:
     """Y = A X + Y, X: (n, B) — decode once per column tile, contract all
     its columns in the fused kernel. B == 1 runs the single-vector `spmv`
     kernel, so the results are bitwise equal to it.
 
     ``bn`` pins the column-tile width (None = `tiling.dtans_bn`, untiled
-    when the whole batch fits); a tile whose shared-memory plan does not
-    fit a block, an explicit one or a whole batch, is cut to
-    `tiling.dtans_widest_bn`. Every tile width gives bitwise the same
-    result as the untiled kernel. A lane width wider than the SpMM kernel
-    takes (993 to 1024, or a set's slices whose plan holds no column
-    tile, `tiling.spmm_by_columns`) runs the SpMV kernel
+    when the whole batch fits); ``vmem_budget`` (the reference's name)
+    is a block's shared-memory budget for it instead: the widest tile
+    whose plan fits it (`tiling.dtans_budget_bn`). A tile whose
+    shared-memory plan does not fit a block, an explicit one or a whole
+    batch, is cut to `tiling.dtans_widest_bn`. Every tile width gives
+    bitwise the same result as the untiled kernel. A lane width wider
+    than the SpMM kernel takes (993 to 1024, or a set's slices whose plan
+    holds no column tile, `tiling.spmm_by_columns`) runs the SpMV kernel
     once a column, counted in its ``dtans_spmv`` launches: bitwise the
-    SpMM column by column (both sum each segment, then add it). ``fused``,
-    ``pipeline``, ``mesh`` and ``n_shards`` as in `spmv`."""
+    SpMM column by column (both sum each segment, then add it).
+    ``tile_mode`` is the reference's choice of tile schedule
+    (`tiling.check_tile_mode`: every mode runs the same kernels).
+    ``fused``, ``pipeline``, ``mesh`` and ``n_shards`` as in `spmv`; the
+    sharded path tiles by ``bn`` alone, as the reference's does."""
+    check_tile_mode(tile_mode)
     k = resolve_shards(mesh, n_shards)
     if k > 1:
         return _sharded_dtans(mat, x, y, mesh=mesh, k=k, device=device,
-                              spmm=True, bn=bn, pipeline=pipeline)
+                              spmm=True, bn=bn, tile_mode=tile_mode,
+                              pipeline=pipeline)
     pm = get_packed(mat) if isinstance(mat, CSRdtANS) else mat
     shared = _resolve_fused(pm, fused)
     dm = to_device(pm, device)
-    run, choose, widest = dtans_tiles(dm, shared)
-    return _many_rhs("dtans_spmm", dm, x, y, bn,
+    return _many_rhs("dtans_spmm", dm, x, y,
                      lambda v: spmv(pm, v, device=dm.device, fused=fused,
                                     pipeline=pipeline),
-                     run, choose, decodes=True, widest=widest)
+                     dtans_run(dm, shared),
+                     lambda B: dtans_tile(dm, B, bn, vmem_budget),
+                     decodes=True)
 
 
-def dtans_tiles(dm, shared: bool) -> tuple:
-    """``(run, choose, widest)`` of the dtANS SpMM on a device matrix:
-    ``run(X, bn)`` gives the padded rows of A X in column tiles of ``bn``,
-    ``choose(B)`` the default tile, ``widest`` the widest tile a block's
-    shared memory holds (`resolve_bn` takes the last two)."""
-    L, T = dm.lane_width, int(dm.tab_symbol.shape[0])
-    item, params = dm.dtype.itemsize, dm.params
-    if tiling.spmm_by_columns(L, T, item, params):
+def dtans_tile(dm, batch: int, bn=None, vmem_budget=None) -> int | None:
+    """The column tile (`tiling.dtans_spmm_tile`) of a dtANS SpMM pass
+    over ``batch`` columns of a device matrix."""
+    return tiling.dtans_spmm_tile(
+        dm.lane_width, int(dm.tab_symbol.shape[0]), batch,
+        dm.dtype.itemsize, dm.params, bn=bn, budget=vmem_budget)
+
+
+def dtans_run(dm, shared: bool):
+    """``run(X, bn)``: the padded rows of A X on a device matrix in column
+    tiles of ``bn`` (`dtans_tile`); one SpMV launch a column where
+    `tiling.spmm_by_columns`."""
+    if tiling.spmm_by_columns(dm.lane_width, int(dm.tab_symbol.shape[0]),
+                              dm.dtype.itemsize, dm.params):
 
         def run(X, b):                          # tiles of one column
             return torch.stack([dtans_spmv(dm, X[:, j].contiguous(),
                                            shared_cols=shared)
                                 for j in range(X.shape[1])], dim=-1)
-        widest = 1
-    else:
-
-        def run(X, b):
-            return dtans_spmm(dm, X, bn=b, shared_cols=shared)
-        widest = tiling.dtans_widest_bn(L, T, item, params)
-    return run, (lambda B: tiling.dtans_bn(L, T, B, item, params)), widest
+        return run
+    return lambda X, b: dtans_spmm(dm, X, bn=b, shared_cols=shared)
 
 
 def decode(mat: CSRdtANS | PackedMatrix, *, device="cuda"
@@ -341,16 +334,19 @@ def sell_spmv(ps: PackedSELL, x, y=None, *, device="cuda") -> torch.Tensor:
 
 
 def sell_spmm(ps: PackedSELL, x, y=None, *, device="cuda",
-              bn=None) -> torch.Tensor:
+              bn=None, vmem_budget=None,
+              tile_mode: str = "auto") -> torch.Tensor:
     """Multi-RHS SELL: Y = A X + Y, X: (n, B). Shares the `spmm`
     signature; B == 1 delegates to `sell_spmv` (bitwise equal), ``bn=None``
-    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
-    untiled result."""
+    takes `tiling.padded_bn`'s tile (``vmem_budget``: the widest whose
+    staged x fits it, `tiling.padded_budget_bn`), every ``bn`` and
+    ``tile_mode`` gives bitwise the untiled result."""
+    check_tile_mode(tile_mode)
     ds = _sell.to_device(ps, device)
-    return _many_rhs("sell_spmm", ds, x, y, bn,
+    return _many_rhs("sell_spmm", ds, x, y,
                      lambda v: sell_spmv(ps, v, device=ds.device),
                      lambda X, b: _sell.sell_spmm(ds, X, bn=b),
-                     lambda B: tiling.padded_bn(B, ds.dtype.itemsize))
+                     lambda B: padded_tile(ds, B, bn, vmem_budget))
 
 
 def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
@@ -363,16 +359,19 @@ def rgcsr_spmv(pr: PackedRGCSR, x, y=None, *,
 
 
 def rgcsr_spmm(pr: PackedRGCSR, x, y=None, *, device="cuda",
-               bn=None) -> torch.Tensor:
+               bn=None, vmem_budget=None,
+               tile_mode: str = "auto") -> torch.Tensor:
     """Multi-RHS RGCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
     signature; B == 1 delegates to `rgcsr_spmv` (bitwise equal), ``bn=None``
-    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
-    untiled result."""
+    takes `tiling.padded_bn`'s tile (``vmem_budget``: the widest whose
+    staged x fits it, `tiling.padded_budget_bn`), every ``bn`` and
+    ``tile_mode`` gives bitwise the untiled result."""
+    check_tile_mode(tile_mode)
     dr = _rgcsr.to_device(pr, device)
-    return _many_rhs("rgcsr_spmm", dr, x, y, bn,
+    return _many_rhs("rgcsr_spmm", dr, x, y,
                      lambda v: rgcsr_spmv(pr, v, device=dr.device),
                      lambda X, b: _rgcsr.rgcsr_spmm(dr, X, bn=b),
-                     lambda B: tiling.padded_bn(B, dr.dtype.itemsize))
+                     lambda B: padded_tile(dr, B, bn, vmem_budget))
 
 
 def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:
@@ -383,13 +382,24 @@ def bcsr_spmv(pb: PackedBCSR, x, y=None, *, device="cuda") -> torch.Tensor:
 
 
 def bcsr_spmm(pb: PackedBCSR, x, y=None, *, device="cuda",
-              bn=None) -> torch.Tensor:
+              bn=None, vmem_budget=None,
+              tile_mode: str = "auto") -> torch.Tensor:
     """Multi-RHS BCSR: Y = A X + Y, X: (n, B). Shares the `spmm`
     signature; B == 1 delegates to `bcsr_spmv` (bitwise equal), ``bn=None``
-    takes `tiling.padded_bn`'s tile, and every ``bn`` gives bitwise the
-    untiled result."""
+    takes `tiling.padded_bn`'s tile (``vmem_budget``: the widest whose
+    staged x fits it, `tiling.padded_budget_bn`), every ``bn`` and
+    ``tile_mode`` gives bitwise the untiled result."""
+    check_tile_mode(tile_mode)
     db = _bcsr.to_device(pb, device)
-    return _many_rhs("bcsr_spmm", db, x, y, bn,
+    return _many_rhs("bcsr_spmm", db, x, y,
                      lambda v: bcsr_spmv(pb, v, device=db.device),
                      lambda X, b: _bcsr.bcsr_spmm(db, X, bn=b),
-                     lambda B: tiling.padded_bn(B, db.dtype.itemsize))
+                     lambda B: padded_tile(db, B, bn, vmem_budget))
+
+
+def padded_tile(d, batch: int, bn=None, vmem_budget=None) -> int | None:
+    """The column tile (`tiling.padded_spmm_tile`) of a SELL / RGCSR /
+    BCSR SpMM pass over ``batch`` columns of a device matrix."""
+    return tiling.padded_spmm_tile(d.rows, d.shape[1], batch,
+                                   d.dtype.itemsize, bn=bn,
+                                   budget=vmem_budget)

@@ -57,9 +57,9 @@ def _run_dtans(pm: PackedMatrix, x: torch.Tensor, bn) -> torch.Tensor:
     shared = bool(pm.shared_cols)
     if x.shape[1] == 1:
         return dtans_spmv(dm, x[:, 0], shared_cols=shared).reshape(-1, 1)
-    run, choose, widest = ops.dtans_tiles(dm, shared)
     B = x.shape[1]
-    return run(x, ops.resolve_bn(B, bn, choose, widest)).reshape(-1, B)
+    return ops.dtans_run(dm, shared)(
+        x, ops.dtans_tile(dm, B, bn)).reshape(-1, B)
 
 
 def _padded(mod, spmv, spmm):
@@ -69,9 +69,7 @@ def _padded(mod, spmv, spmm):
         if x.shape[1] == 1:
             return spmv(d, x[:, 0]).reshape(-1, 1)
         B = x.shape[1]
-        bt = ops.resolve_bn(
-            B, bn, lambda b: tiling.padded_bn(b, d.dtype.itemsize))
-        return spmm(d, x, bn=bt).reshape(-1, B)
+        return spmm(d, x, bn=ops.padded_tile(d, B, bn)).reshape(-1, B)
     return mod.to_device, run
 
 
@@ -212,6 +210,7 @@ def _as_rhs(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
 
 
 def shard_spmm(plan, x, y=None, *, mesh=None, device="cuda", bn=None,
+               tile_mode: str = "auto",
                pipeline: bool = False) -> torch.Tensor:
     """Y = A X + Y from a shard plan, X: (n, B), on ``device``: the sharded
     analogue of `ops.spmm`. With a mesh of more than one rank (its
@@ -220,8 +219,11 @@ def shard_spmm(plan, x, y=None, *, mesh=None, device="cuda", bn=None,
     this with the same plan and shapes, runs its own shard and all-reduces;
     otherwise the per-shard loop runs here. Both give bitwise the
     single-device kernels' result. ``bn`` column-tiles each shard's SpMM
-    as in `ops.spmm`; ``pipeline`` names the decode-ahead schedule the
-    kernels always run (either value gives the same bits)."""
+    as in `ops.spmm`; ``tile_mode`` (the reference's tile schedule,
+    `tiling.check_tile_mode`) and ``pipeline`` (its decode-ahead schedule)
+    name schedules the kernels always run one way: every value gives the
+    same bits."""
+    tiling.check_tile_mode(tile_mode)
     m, n = plan.shape
     dev = check_device(device)
     x2 = _as_rhs(x, plan_dtype(plan), dev)

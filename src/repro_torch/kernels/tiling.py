@@ -388,6 +388,81 @@ def dtans_bn(lane_width: int, n_tables: int, batch: int,
                      DTANS_BN_MAX)
 
 
+def dtans_budget_bn(lane_width: int, n_tables: int, itemsize: int,
+                    budget: float, params: DtansParams = PAPER) -> int:
+    """Widest dtANS SpMM column tile whose whole `smem_plan` fits
+    ``budget`` bytes (the reference's ``vmem_budget``, here a block's
+    shared memory), at most `dtans_widest_bn`, at least one column."""
+    room = (int(budget) - STATIC_SMEM_BYTES
+            - spmm_fixed_bytes(n_tables, lane_width, itemsize, params))
+    bn = room // (unit_rows(lane_width) * int(itemsize))
+    return max(1, min(bn, dtans_widest_bn(lane_width, n_tables, itemsize,
+                                          params)))
+
+
+def resolve_bn(batch: int, bn, choose, widest: int | None = None
+               ) -> int | None:
+    """Effective column-tile width of one SpMM pass: an explicit ``bn``
+    wins (untiled when it covers the whole batch); otherwise the kernel's
+    ``choose`` (batch -> tile). A tile wider than ``widest`` (a whole
+    batch included) is cut to ``widest``: every tile width gives the
+    untiled bits."""
+    if bn is not None:
+        b = int(bn)
+        if b < 1:
+            raise ValueError(f"bn must be >= 1; got {bn}")
+        bt = None if b >= batch else b
+    else:
+        bt = choose(batch)
+    if widest is not None and (batch if bt is None else bt) > widest:
+        bt = int(widest)
+    return bt
+
+
+def n_tiles(batch: int, bn: int | None) -> int:
+    """Column tiles of a pass at tile ``bn`` (``None``: one)."""
+    return 1 if bn is None else -(-int(batch) // int(bn))
+
+
+def _within(bt: int, batch: int) -> int | None:
+    return None if bt >= batch else bt
+
+
+def dtans_spmm_tile(lane_width: int, n_tables: int, batch: int,
+                    itemsize: int, params: DtansParams = PAPER, *,
+                    bn=None, budget: float | None = None) -> int | None:
+    """The column tile one `ops.spmm` pass at ``batch`` columns runs
+    (``None``: untiled): an explicit ``bn``, else `dtans_budget_bn`'s
+    where a shared-memory ``budget`` is given, else `dtans_bn`'s; cut to
+    `dtans_widest_bn`, or to one column where `spmm_by_columns`."""
+    if spmm_by_columns(lane_width, n_tables, itemsize, params):
+        return resolve_bn(batch, bn, lambda b: None, 1)
+    if budget is not None:
+        bt = dtans_budget_bn(lane_width, n_tables, itemsize, budget, params)
+        choose = functools.partial(_within, bt)
+    else:
+        choose = functools.partial(dtans_bn, lane_width, n_tables,
+                                   itemsize=itemsize, params=params)
+    return resolve_bn(batch, bn, choose,
+                      dtans_widest_bn(lane_width, n_tables, itemsize,
+                                      params))
+
+
+def dtans_spmm_passes(lane_width: int, n_tables: int, batch: int,
+                      itemsize: int, params: DtansParams = PAPER
+                      ) -> tuple[int, int]:
+    """``(column tiles, launches)`` of one default `ops.spmm` pass: the
+    matrix is decoded once a tile. One launch (B == 1: the SpMV kernel;
+    else the SpMM kernel with its tiles as work items), or B SpMV launches
+    where `spmm_by_columns`. What the `H100` cost model charges."""
+    if int(batch) <= 1:
+        return 1, 1
+    tiles = n_tiles(batch, dtans_spmm_tile(lane_width, n_tables, batch,
+                                           itemsize, params))
+    by_columns = spmm_by_columns(lane_width, n_tables, itemsize, params)
+    return tiles, (tiles if by_columns else 1)
+
+
 # ---------------------------------------------------------------------------
 # the SELL / RGCSR / BCSR SpMM (csrc/padded_rows.cuh::spmm_warp_kernel)
 # ---------------------------------------------------------------------------
@@ -520,4 +595,63 @@ def padded_bn(batch: int, itemsize: int) -> int | None:
     the batch fits one."""
     slab = WARP * _most_cols_per_lane(itemsize)
     return None if int(batch) <= slab else slab
+
+
+def padded_budget_bn(rows: int, n: int, batch: int, itemsize: int,
+                     budget: float) -> int:
+    """Widest SELL / RGCSR / BCSR SpMM column tile, at most a slab, whose
+    block stages its slab of x in shared memory within ``budget`` bytes
+    (the reference's ``vmem_budget``): `padded_geometry`'s own plan; one
+    column where not even that fits."""
+    for bt in range(WARP * _most_cols_per_lane(itemsize), 0, -1):
+        g = padded_geometry(rows, n, batch, bt, itemsize)
+        if g.stage and g.smem <= budget:
+            return bt
+    return 1
+
+
+def padded_spmm_tile(rows: int, n: int, batch: int, itemsize: int, *,
+                     bn=None, budget: float | None = None) -> int | None:
+    """The column tile one SELL / RGCSR / BCSR SpMM pass runs (``None``:
+    untiled): an explicit ``bn``, else `padded_budget_bn`'s where a
+    ``budget`` is given, else `padded_bn`'s."""
+    if budget is not None:
+        choose = functools.partial(
+            _within, padded_budget_bn(rows, n, batch, itemsize, budget))
+    else:
+        choose = functools.partial(padded_bn, itemsize=itemsize)
+    return resolve_bn(batch, bn, choose)
+
+
+def padded_spmm_staged(rows: int, n: int, batch: int, itemsize: int) -> bool:
+    """Whether the default SELL / RGCSR / BCSR SpMM pass stages its x slab
+    in shared memory (`padded_geometry`; else x is read through L1)."""
+    bt = padded_bn(batch, itemsize) or int(batch)
+    return padded_geometry(rows, n, batch, bt, itemsize).stage
+
+
+def padded_spmm_passes(batch: int, itemsize: int) -> tuple[int, int]:
+    """``(column tiles, launches)`` of one default SELL / RGCSR / BCSR
+    pass: the SpMV kernel at B == 1, else the SpMM kernel, its tiles work
+    items of one launch, each reading the matrix again."""
+    if int(batch) <= 1:
+        return 1, 1
+    return n_tiles(batch, padded_bn(batch, itemsize)), 1
+
+
+#: The reference's column-tile schedules (``repro.kernels.tiling.
+#: resolve_tile_mode``): a 2-D grid over (slice, tile), a loop over the
+#: tiles, or ``"auto"``, its pick of the two.
+TILE_MODES = ("auto", "grid", "loop")
+
+
+def check_tile_mode(tile_mode: str) -> str:
+    """``tile_mode`` as the reference spells it. The port's kernels run
+    one schedule, a pass's column tiles as work items of one launch, so
+    every mode launches the same kernels and gives the same bits; an
+    unknown one raises as the reference's does."""
+    if tile_mode not in TILE_MODES:
+        raise ValueError(f"tile_mode must be 'auto', 'grid' or 'loop'; "
+                         f"got {tile_mode!r}")
+    return tile_mode
 

@@ -53,6 +53,8 @@ collectives against the reckoned.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -64,7 +66,8 @@ import torch
 from repro_torch import configs
 from repro_torch.launch.mesh import (abstract_production_mesh, fake_mesh,
                                      mesh_shape)
-from repro_torch.launch.op_cost import Costs
+from repro_torch.launch import op_cost
+from repro_torch.launch.op_cost import TRACE_HEADER, Costs
 from repro_torch.launch.roofline import HBM_PER_CHIP, Roofline, model_flops
 from repro_torch.launch.sharding import local_shape, spec_axes
 from repro_torch.launch.steps import build_cell, cell_is_skipped
@@ -222,25 +225,54 @@ def _collectives(cell) -> tuple:
 
 
 def _counted(arch, shape_name, mesh, cfg, shape, policy) -> tuple:
-    """(`Costs`, activation bytes) of rank 0's share of the cell's sharded
-    step, run on ``mesh``'s shape as a fake process group
-    (`launch.mesh.fake_mesh`) on meta tensors."""
+    """(`Costs`, activation bytes, the mesh's groups by name) of rank 0's
+    share of the cell's sharded step, run on ``mesh``'s shape as a fake
+    process group (`launch.mesh.fake_mesh`) on meta tensors. The groups map
+    each mesh dim's process group name to the dim's name."""
     with fake_mesh(mesh.sizes, mesh.axis_names) as dm:
         cell = build_cell(arch, shape_name, dm, cfg=cfg, shape=shape,
                           **policy)
-        return cell.run()
+        groups = {dm.get_group(i).group_name: name
+                  for i, name in enumerate(dm.mesh_dim_names)}
+        return (*cell.run(), groups)
+
+
+def _save_ops(rec: dict, costs, groups: dict, out_dir: str) -> str:
+    """Rank 0's op trace of the counted step (`op_cost.TraceOp` lines,
+    each collective's group by its mesh dims), gzip text beside the
+    record: the counterpart of the reference's ``--save-hlo``."""
+    import gzip
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(
+        out_dir, f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.ops.txt.gz")
+    counted = not rec["collectives"]["reckoned"]
+    with gzip.open(path, "wt") as f:
+        f.write(f"# {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                + ("rank 0's share of the sharded step on a fake process "
+                   "group" if counted else "one device's unsharded share "
+                   "of the step (the sharded step failed)")
+                + f"; {len(costs.trace)} ops\n# {TRACE_HEADER}\n")
+        for op in costs.trace:
+            if op.collective:
+                op = dataclasses.replace(op, group=groups.get(op.group,
+                                                              op.group))
+            f.write(op.line() + "\n")
+    return path
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
              out_dir: str | None = None, verbose: bool = True,
-             cfg=None, shape=None, mesh=None, **policy) -> dict:
+             cfg=None, shape=None, mesh=None, save_hlo: bool = False,
+             **policy) -> dict:
     """One cell's record (also written to ``out_dir``). ``cfg``, ``shape``
     and ``mesh`` (a `MeshShape`) override the arch's full config,
     `SHAPES`' shape and the production layout (the tests run smoke
     configs on small meshes). The sharded step is counted on a fake
     process group of the mesh's shape (`_counted`); a cell whose sharded
     step fails keeps the figures reckoned from one device's unsharded
-    share (``"reckoned": true``; the failure in ``sharded_error``)."""
+    share (``"reckoned": true``; the failure in ``sharded_error``).
+    ``save_hlo`` (with ``out_dir``) also writes the counted step's op
+    trace (`_save_ops`, ``ops_file`` in the record)."""
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
            "policy": {k: v for k, v in policy.items() if v is not None}}
     skip = cell_is_skipped(arch, shape_name)
@@ -263,9 +295,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                      "total_weighted": reckoned.collective_bytes,
                      "total_raw": sum(reckoned.coll_raw.values()),
                      "terms": terms}
+        trace = save_hlo and out_dir
+        groups: dict = {}
         try:
-            counted, act = _counted(arch, shape_name, mesh, cfg, shape,
-                                    policy)
+            with op_cost.traced() if trace else contextlib.nullcontext():
+                counted, act, groups = _counted(arch, shape_name, mesh, cfg,
+                                                shape, policy)
             tp = 1                   # rank 0's share: nothing to divide
             coll = {"reckoned": False, "weighted": counted.coll_wire,
                     "raw": counted.coll_raw,
@@ -278,7 +313,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             rec["sharded_error"] = f"{type(e).__name__}: {e}"
             rec["sharded_traceback"] = traceback.format_exc()[-4000:]
         if counted is None:
-            counted, act = cell.run()
+            with op_cost.traced() if trace else contextlib.nullcontext():
+                counted, act = cell.run()
             tp = cell.rules.msize
             coll = reckoning
         t2 = time.time()
@@ -313,6 +349,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
             dtype_leak=bool(counted.f64_ops),
             f64_ops=sorted(counted.f64_ops),
         )
+        if trace:
+            rec["ops_file"] = _save_ops(rec, counted, groups, out_dir)
     except Exception as e:  # noqa: BLE001 — a failed cell is a data point
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-4000:])
@@ -358,6 +396,9 @@ def main(argv=None):
     ap.add_argument("--grad-compress", action="store_true")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--no-seq-shard-cache", action="store_true")
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="also write each cell's op trace, "
+                         "{arch}__{shape}__{mesh}.ops.txt.gz in --out")
     args = ap.parse_args(argv)
 
     policy = dict(fsdp=args.fsdp, grad_compress=args.grad_compress,
@@ -369,14 +410,15 @@ def main(argv=None):
             for arch in configs.ARCH_IDS:
                 for shape in SHAPES:
                     rec = run_cell(arch, shape, mesh_kind, args.out,
-                                   **policy)
+                                   save_hlo=args.save_hlo, **policy)
                     n_ok += rec["status"] in ("ok", "skipped")
                     n_err += rec["status"] == "error"
         print(f"dry-run done: {n_ok} ok/skip, {n_err} errors")
         raise SystemExit(1 if n_err else 0)
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
-    rec = run_cell(args.arch, args.shape, args.mesh, args.out, **policy)
+    rec = run_cell(args.arch, args.shape, args.mesh, args.out,
+                   save_hlo=args.save_hlo, **policy)
     raise SystemExit(0 if rec["status"] in ("ok", "skipped") else 1)
 
 

@@ -27,10 +27,16 @@ rank, not at its global shape; the ops of DTensor's shape propagation
 It also records every op that produced a float64 tensor: the counterpart
 of the reference's dtype-leak check (``dryrun.py``, on ``f64[`` and
 ``s64[`` in the HLO). int64 is torch's index dtype, so it is no leak here.
+
+Under `traced()` it also keeps each counted op (`Costs.trace`: the op,
+its tensors' shapes and dtypes, FLOPs, bytes, the collective and its
+group), which the dry-run's ``--save-hlo`` writes out: the counterpart of
+the HLO text the reference saves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -83,6 +89,8 @@ class Costs:
     sites: list = dataclasses.field(default_factory=list)
     n_ops: int = 0
     max_result: int = 0        # bytes of the largest tensor an op made
+    # one `TraceOp` a counted op, under `traced()` (None otherwise)
+    trace: list | None = None
 
     def add(self, other: "Costs", mult: float = 1.0):
         self.flops += other.flops * mult
@@ -95,6 +103,10 @@ class Costs:
         self.sites += other.sites
         self.n_ops += int(other.n_ops * mult)
         self.max_result = max(self.max_result, other.max_result)
+        if other.trace is not None:
+            self.trace = (self.trace or []) + [
+                dataclasses.replace(op, times=int(op.times * mult))
+                for op in other.trace]
 
     def add_collective(self, kind: str, raw_bytes: float, count: int = 1):
         self.coll_raw[kind] += raw_bytes
@@ -104,6 +116,67 @@ class Costs:
     @property
     def collective_bytes(self) -> float:
         return sum(self.coll_wire.values())
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceOp:
+    """One counted op of `Costs.trace`; ``times`` it ran (a microbatch's
+    ops run once a microbatch)."""
+    op: str
+    shapes: tuple
+    dtypes: tuple
+    flops: float = 0.0
+    bytes: float = 0.0
+    collective: str = ""
+    group: str = ""
+    times: int = 1
+
+    def line(self) -> str:
+        """Tab-separated: op, shapes, dtypes, FLOPs, bytes, collective,
+        group, times."""
+        shapes = " ".join("x".join(map(str, s)) or "()" for s in self.shapes)
+        return "\t".join((self.op, shapes or "-",
+                          " ".join(self.dtypes) or "-", f"{self.flops:g}",
+                          f"{self.bytes:g}", self.collective or "-",
+                          self.group or "-", str(self.times)))
+
+
+TRACE_HEADER = "op\tshapes\tdtypes\tflops\tbytes\tcollective\tgroup\ttimes"
+
+_TRACING = False
+
+
+@contextlib.contextmanager
+def traced():
+    """Within it, `analyze` also keeps each op it counts (`Costs.trace`)."""
+    global _TRACING
+    was, _TRACING = _TRACING, True
+    try:
+        yield
+    finally:
+        _TRACING = was
+
+
+def _tensors(tree) -> list:
+    return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def _group(args) -> str:
+    """The process group a collective op names: a functional collective's
+    group name (its last string argument), or a ``c10d`` op's group's."""
+    import torch.distributed as dist
+    for a in reversed(args):
+        if isinstance(a, str):
+            return a
+        name = getattr(a, "group_name", None)
+        if name is None and isinstance(a, torch.ScriptObject):
+            try:
+                name = dist.ProcessGroup.unbox(a).group_name
+            except (AttributeError, RuntimeError, TypeError):
+                name = None
+        if isinstance(name, str):
+            return name
+    return "?"
 
 
 def _tensor_bytes(tree) -> int:
@@ -173,27 +246,43 @@ class _Counter(TorchDispatchMode):
         if func.namespace == "c10d" or func.namespace in _FUNCTIONAL_NS:
             kind = collective_kind(func)
             if kind is not None:
-                self._collective(kind, _tensor_bytes(
-                    args[0] if func.namespace == "c10d" else out))
+                raw = _tensor_bytes(args[0] if func.namespace == "c10d"
+                                    else out)
+                self._collective(kind, raw)
+            self._trace(func, flat, 0.0, 0.0, kind, args)
             return out       # wait_tensor and the wrappers move nothing
         packet = func._overloadpacket
+        flops = moved = 0.0
         if packet in flop_registry:
-            c.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+            flops = flop_registry[packet](*args, **kwargs, out_val=out)
+            c.flops += flops
         if not func.is_view:
             result = _tensor_bytes(out)
-            c.bytes += _tensor_bytes((args, kwargs)) + result
+            moved = _tensor_bytes((args, kwargs)) + result
+            c.bytes += moved
             c.max_result = max(c.max_result, result)
         if any(isinstance(t, torch.Tensor) and t.dtype == torch.float64
                for t in tree_flatten(out)[0]):
             c.f64_ops.add(str(packet))
+        self._trace(func, flat, flops, moved, None, args)
         return out
+
+    def _trace(self, func, flat, flops, moved, kind, args) -> None:
+        if self.costs.trace is None:
+            return
+        ts = _tensors(flat)
+        self.costs.trace.append(TraceOp(
+            str(func), tuple(tuple(t.shape) for t in ts),
+            tuple(str(t.dtype).removeprefix("torch.") for t in ts),
+            float(flops), float(moved), kind or "",
+            _group(args) if kind else ""))
 
 
 def analyze(fn, *args, **kwargs) -> tuple:
     """Runs ``fn(*args, **kwargs)`` and counts what it dispatches. Returns
     (its result, `Costs`), which also list where each collective was
     issued (`Costs.sites`)."""
-    costs = Costs()
+    costs = Costs(trace=[] if _TRACING else None)
     with _Counter(costs):
         out = fn(*args, **kwargs)
     return out, costs

@@ -92,6 +92,27 @@ class CostTerms:
         return self.lockstep + self.rowseq
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelPass:
+    """One pass of a format on the card, as its kernels run it: what the
+    `H100` cost model (`repro_torch.autotune.cost_model.CardModel`)
+    prices. ``kernel`` names the family of kernels (``"dtans"``,
+    ``"padded"``: SELL / RGCSR / BCSR, ``"scatter"``: the torch stand-in of
+    csr / coo; ``""``: priced on its `CostTerms` and launches alone),
+    ``tiles`` the column tiles (reads, and decodes, of the matrix),
+    ``lockstep`` the element slots its warps run in lock-step (None: the
+    `CostTerms`' own), ``units`` the dtANS kernels' units (the SpMM's
+    blocks take one unit and tile at a time) and ``staged`` whether a
+    padded SpMM stages its x slab in shared memory."""
+
+    kernel: str = ""
+    tiles: int = 1
+    launches: int = 1
+    lockstep: float | None = None
+    units: int = 0
+    staged: bool = False
+
+
 #: Config-string component spellings: knob name -> (prefix, parse).
 _KNOB_PREFIX = {
     "group_size": "G=",
@@ -290,6 +311,15 @@ class FormatSpec:
     def cost_terms(self, fp, **knobs) -> CostTerms:
         raise NotImplementedError(f"{self.name}: cost_terms")
 
+    def kernel_passes(self, fp, batch: int, *, params: DtansParams = PAPER,
+                      **knobs) -> KernelPass:
+        """The `KernelPass` of one pass at ``batch`` right-hand sides on the
+        card: how often it reads the matrix (and decodes it), the kernels
+        it launches. Each kernel-backed family answers from its kernels'
+        own tiling (`repro_torch.kernels.tiling`). Default: one tile, one
+        launch."""
+        return KernelPass()
+
     # -- kernels -----------------------------------------------------
 
     @property
@@ -342,19 +372,23 @@ class FormatSpec:
         return None
 
     def spmm_runner(self, packed, x, *, device="cuda", bn=None,
-                    pipeline: bool = False):
+                    tile_mode: str = "auto", pipeline: bool = False):
         """Zero-arg callable computing ``Y = A X`` (``X: (n, B)``) from
         `pack`'s artifact — the batched analogue of `runner`, driven by
         the timing harness (``measure.spmv_runner(batch=B)``) and the
         conformance checks; the pack and ``x`` are uploaded once, here.
 
-        ``bn`` pins the kernel's column tile and ``pipeline`` names the
+        ``bn`` pins the kernel's column tile, ``tile_mode`` names the
+        reference's tile schedule (`repro_torch.kernels.tiling.
+        check_tile_mode`: one schedule runs) and ``pipeline`` the
         decode-ahead schedule (`repro_torch.kernels.ops.spmm`) —
         kernel-backed families only. The per-column fallback ignores
-        ``bn`` (a column loop is already maximally tiled), stacks the
-        columns with ``torch.stack`` on the device, and rejects
-        ``pipeline`` for formats with nothing to decode, so third-party
-        specs join unchanged."""
+        ``bn`` and ``tile_mode`` (a column loop is already maximally
+        tiled), stacks the columns with ``torch.stack`` on the device,
+        and rejects ``pipeline`` for formats with nothing to decode, so
+        third-party specs join unchanged."""
+        from repro_torch.kernels.tiling import check_tile_mode
+        check_tile_mode(tile_mode)
         fn = self.spmm_fn
         if pipeline and not self.decodes:
             raise ValueError(f"{self.name}: pipeline= only applies to "
@@ -363,6 +397,8 @@ class FormatSpec:
             kw = {}
             if bn is not None:
                 kw["bn"] = bn
+            if tile_mode != "auto":
+                kw["tile_mode"] = tile_mode
             if pipeline:
                 kw["pipeline"] = True
             d = self.upload(packed, device)
@@ -379,13 +415,15 @@ class FormatSpec:
                                    dim=-1)
 
     def spmm(self, a, x, *, params: DtansParams = PAPER,
-             device="cuda", bn=None, pipeline: bool = False, **knobs):
+             device="cuda", bn=None, tile_mode: str = "auto",
+             pipeline: bool = False, **knobs):
         """One-shot ``Y = A X`` through the registered batched kernel
         path — how the conformance checks sweep every format over B
-        (and, with ``bn`` / ``pipeline``, over the tiled schedules,
-        bitwise equal to the untiled kernel)."""
+        (and, with ``bn`` / ``tile_mode`` / ``pipeline``, over the tiled
+        schedules, bitwise equal to the untiled kernel)."""
         packed = self.pack(a, params=params, **knobs)
         return self.spmm_runner(packed, x, device=device, bn=bn,
+                                tile_mode=tile_mode,
                                 pipeline=pipeline)()
 
     # -- sharding (multi-device row partition) -----------------------
@@ -444,7 +482,8 @@ class FormatSpec:
                          dtype=np.dtype(a.values.dtype))
 
     def shard_runner(self, plan, x, *, mesh=None, device="cuda",
-                     bn=None, pipeline: bool = False):
+                     bn=None, tile_mode: str = "auto",
+                     pipeline: bool = False):
         """Zero-arg callable computing ``y = A x`` (1-D ``x``) or
         ``Y = A X`` (2-D ``x``) from a `shard` plan: the sharded analogue
         of `runner` / `spmm_runner`; ``x`` goes to ``device`` now, once.
@@ -454,7 +493,8 @@ class FormatSpec:
         packs without a shard adapter, a per-shard loop through this
         family's single-device runners, so EVERY registered format
         (third-party specs included) has a sharded path."""
-        from repro_torch.kernels import shard_ops
+        from repro_torch.kernels import shard_ops, tiling
+        tiling.check_tile_mode(tile_mode)
         xt = _rhs(x, shard_ops.plan_dtype(plan), check_device(device))
         if xt.ndim == 1:
             return lambda: shard_ops.shard_spmv(plan, xt, mesh=mesh,
@@ -462,6 +502,7 @@ class FormatSpec:
                                                 pipeline=pipeline)
         return lambda: shard_ops.shard_spmm(plan, xt, mesh=mesh,
                                             device=xt.device, bn=bn,
+                                            tile_mode=tile_mode,
                                             pipeline=pipeline)
 
     # -- encoded artifact (decodes=True formats) ---------------------
@@ -611,11 +652,13 @@ class DenseSpec(FormatSpec):
         return lambda: torch.matmul(d, xt)
 
     def spmm_runner(self, packed, x, *, device="cuda", bn=None,
-                    pipeline: bool = False):
+                    tile_mode: str = "auto", pipeline: bool = False):
         # Dense ``A @ X`` is the same contraction for any number of
         # right-hand sides — the single-vector runner already is the
         # batched bandwidth anchor. ``torch.matmul`` tiles the
-        # contraction itself, so ``bn`` is accepted and ignored.
+        # contraction itself, so the tile knobs are accepted and ignored.
+        from repro_torch.kernels.tiling import check_tile_mode
+        check_tile_mode(tile_mode)
         return self.runner(packed, x, device=device)
 
 
@@ -630,6 +673,11 @@ class _RowSeqSpec(FormatSpec):
 
     def cost_terms(self, fp, **knobs) -> CostTerms:
         return CostTerms(rowseq=float(fp.nnz))
+
+    def kernel_passes(self, fp, batch, *, params=PAPER, **knobs):
+        # `runner`'s four launches: the zero fill, the gather of x, the
+        # products and the ``index_add_``, at any batch
+        return KernelPass("scatter", launches=4)
 
     def pack(self, a, *, params=PAPER, artifacts=None, **knobs):
         return a
@@ -655,10 +703,12 @@ class _RowSeqSpec(FormatSpec):
             0, rows, terms * xt[idx])
 
     def spmm_runner(self, packed, x, *, device="cuda", bn=None,
-                    pipeline: bool = False):
+                    tile_mode: str = "auto", pipeline: bool = False):
         # Batched scatter-add stand-in: one (m, B) accumulator, the
-        # same row scatter, every RHS column updated per nonzero; ``bn``
-        # is accepted and ignored (no kernel, no tile).
+        # same row scatter, every RHS column updated per nonzero; the
+        # tile knobs are accepted and ignored (no kernel, no tile).
+        from repro_torch.kernels.tiling import check_tile_mode
+        check_tile_mode(tile_mode)
         return self.runner(packed, x, device=device)
 
 
@@ -702,6 +752,9 @@ class SellSpec(FormatSpec):
 
     def cost_terms(self, fp, *, slice_height=32) -> CostTerms:
         return CostTerms(lockstep=float(fp.lockstep(slice_height)))
+
+    def kernel_passes(self, fp, batch, *, params=PAPER, **knobs):
+        return _padded_pass(fp, batch, chunked=True)
 
     @property
     def spmv_fn(self):
@@ -751,6 +804,9 @@ class RgcsrSpec(FormatSpec):
 
     def cost_terms(self, fp, *, group_size=4) -> CostTerms:
         return CostTerms(lockstep=float(fp.lockstep(group_size)))
+
+    def kernel_passes(self, fp, batch, *, params=PAPER, **knobs):
+        return _padded_pass(fp, batch, chunked=True)
 
     @property
     def spmv_fn(self):
@@ -828,6 +884,21 @@ class _DtansFamilySpec(FormatSpec):
         from repro_torch.kernels.pack import to_device
         return to_device(packed, device)
 
+    def kernel_passes(self, fp, batch, *, params=PAPER, **knobs):
+        from repro_torch.kernels import tiling
+        kn = self._knobs(knobs)
+        L = self.interleave_width(kn)
+        tables = 1 if kn.get("shared_table", True) else 2
+        tiles, launches = tiling.dtans_spmm_passes(L, tables, batch,
+                                                   fp.value_bytes, params)
+        # a unit's rows decode in lock-step (`tiling.unit_rows`); blocked
+        # layouts decode their filled cells (`CostTerms`)
+        lock = (None if self.name == "bcsr_dtans"
+                else fp.lockstep(tiling.unit_rows(L)))
+        units = tiling.geometry(-(-fp.rows // L), L, tables, fp.value_bytes,
+                                params=params).units
+        return KernelPass("dtans", tiles, launches, lock, units=units)
+
 
 class DtansSpec(_DtansFamilySpec):
     name = "dtans"
@@ -894,6 +965,20 @@ class RgcsrDtansSpec(_DtansFamilySpec):
                                    shared_table=bool(shared_table))
 
 
+def _padded_pass(fp, batch: int, *, chunked: bool) -> KernelPass:
+    """The SELL / RGCSR / BCSR pass (`tiling.padded_spmm_passes`), the
+    SpMM's x slab staged in shared memory where it fits
+    (`tiling.padded_geometry`). ``chunked``: a warp runs a chunk of 32
+    rows in lock-step (SELL, RGCSR); BCSR's lock-step slots are its
+    filled block cells (`CostTerms`)."""
+    from repro_torch.kernels import tiling
+    tiles, launches = tiling.padded_spmm_passes(batch, fp.value_bytes)
+    staged = batch > 1 and tiling.padded_spmm_staged(
+        fp.rows, fp.cols, batch, fp.value_bytes)
+    lock = fp.lockstep(tiling.WARP) if chunked else None
+    return KernelPass("padded", tiles, launches, lock, staged=staged)
+
+
 def block_count(fp, block_shape) -> tuple[int, bool]:
     """(nonempty r x c blocks, exact?) from a fingerprint — exact for
     any shape via the fingerprint's lazily-derived block-fill feature;
@@ -947,6 +1032,9 @@ class BcsrSpec(FormatSpec):
         r, c = block_shape
         nb, _ = block_count(fp, block_shape)
         return CostTerms(lockstep=float(nb * r * c))
+
+    def kernel_passes(self, fp, batch, *, params=PAPER, **knobs):
+        return _padded_pass(fp, batch, chunked=False)
 
     @property
     def spmv_fn(self):
